@@ -6,19 +6,42 @@
 Phases, each of which stops the script with a non-zero exit when it fails:
 
 1. card identity (``nvidia-smi`` name and power limit, torch device name);
-2. build both CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-   source, in parallel) and print ``-Xptxas -v`` registers/smem/spills;
-3. each kernel against its plain PyTorch version at two VGG16 layer shapes
-   (layer 1 with 4 images, layer 8 with 4 images, 224 px, chunk pattern):
-   max abs/rel error, exact occupancy and MAC counts, batched == per-image
-   bitwise for the walker, and CUDA-event times of the kernel, the plain
-   version and one dense ``F.conv2d`` (TF32 off) as a yardstick, beside the
-   bound (live FLOPs at 67 TFLOP/s fp32 or bytes at 3.35 TB/s);
-4. the main path, with the launch counters set to 0 first: full VGG16 at
-   224 px through ``oracle_check`` (dense-grid kernel) for the chunk and
-   unstructured patterns, rel err <= 1e-5 against the dense oracle; then
-   ``VisionEngine`` (work-list walker) serving 8 staggered requests on 4
-   slots, every output bitwise equal to the solo forward of its image.
+2. (and 5.) build all four CUDA kernels from ``src/repro_torch/csrc`` (one
+   ``nvcc`` per source, all at once) and print ``-Xptxas -v``
+   registers/smem/spills of every variant;
+3. the vision kernels against their plain PyTorch versions at two VGG16
+   layer shapes (layer 1 with 4 images, layer 8 with 4 images, 224 px,
+   chunk pattern): max abs/rel error, exact occupancy and MAC counts,
+   batched == per-image bitwise for the walker, and CUDA-event times of the
+   kernel, the plain version and one dense ``F.conv2d`` (TF32 off) as a
+   yardstick, beside the bound (live FLOPs at 67 TFLOP/s fp32 or bytes at
+   3.35 TB/s);
+4. the vision main path, with the launch counters set to 0 first: full
+   VGG16 at 224 px through ``oracle_check`` (dense-grid kernel) for the
+   chunk and unstructured patterns, rel err <= 1e-5 against the dense
+   oracle; then ``VisionEngine`` (work-list walker) serving 8 staggered
+   requests on 4 slots, every output bitwise equal to the solo forward;
+6. the LM FFN kernels (predicated sparse matmul, fused FFN) against their
+   plain versions at Qwen3-4B full-width shapes, layer 0 of the packed
+   model: decode (4 live rows in a 128-row block) and a 128-token prefill,
+   each in fp32 (rel err <= 1e-5) and bf16 (each version's output bit for
+   bit the bf16 rounding of its own fp32 sums, and more than one bf16 ulp
+   from the plain version only where the two fp32 sums already differ by
+   half an ulp; worst case printed), MAC counts exactly equal, every row
+   bitwise independent of the other rows of its block; CUDA-event times
+   beside the bound (live FLOPs at the operand type's peak, 67 TFLOP/s fp32
+   or 989 TFLOP/s bf16 on the tensor cores, or bytes at 3.35 TB/s) and one
+   ``torch.matmul`` yardstick;
+7. the LM main path, with the launch counters set to 0 first: sparse
+   Qwen3-4B at full width (bf16, density 0.35, depth cut to LM_LAYERS)
+   through ``Scheduler`` (4 slots, 8 requests, prompt 128, 32 new tokens,
+   arrivals every 2 steps, FFN probe on): tok/s, slot utilization, the
+   probe's executed/skipped fractions, one launch of each FFN kernel per
+   layer and forward, and every request's greedy tokens bitwise equal to
+   the same request served alone on a scheduler of the same width;
+8. the LM oracle: the same model in fp32, ``prefill`` and ``decode_step``
+   logits through the kernels within rel err 1e-5 of the same forward with
+   every FFN on its densified weights (``torch.matmul``, TF32 off).
 
 It prints the kernels line (JSON) and the card line before the last line,
 and as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -39,10 +62,18 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 FP32_FLOPS = 67e12        # H100 SXM fp32 without tensor cores
+BF16_FLOPS = 989e12       # H100 SXM bf16 operands on the tensor cores, dense
 HBM_BYTES = 3.35e12       # H100 SXM HBM3
 TOL = 1e-5
 SEED = 0
 SIZE = 224
+# Qwen3-4B serving: full width, depth cut to LM_LAYERS of 36 (host packing
+# takes ~5 s per layer), the launcher's density and shards
+LM_ARCH = "qwen3_4b"
+LM_LAYERS = 4
+LM_DENSITY = 0.35
+LM_SHARDS = 4
+LM_SLOTS, LM_REQUESTS, LM_PROMPT, LM_NEW, LM_STAGGER = 4, 8, 128, 32, 2
 
 
 class SmokeFailure(RuntimeError):
@@ -75,8 +106,10 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+def bound(flops: float, nbytes: float, peak: float = FP32_FLOPS):
+    """The least time in ms for ``flops`` at ``peak`` FLOP/s and ``nbytes``
+    at the HBM rate, and which of the two bounds it."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -334,6 +367,336 @@ def drive(card: str):
     return kernels
 
 
+def bf16_ulps(got, ref):
+    """Per-element distance in bf16 ulps: the number of bf16 values
+    between the two (+0 and -0 are one value)."""
+    import torch
+
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(got) - ordered(ref)).abs()
+
+
+def check_bf16(name, kb, pb, k32, p32):
+    """bf16 outputs ``kb`` (kernel) and ``pb`` (plain) against the same
+    functions' fp32 outputs ``k32``/``p32`` on the same (widened) inputs.
+
+    Both versions widen bf16 to fp32, sum in fp32 and round once, so each
+    bf16 output must be the bf16 rounding of its own fp32 output, bit for
+    bit. Two fp32 sums within one bf16 ulp of each other round at most one
+    ulp apart; an element further apart is one where the two fp32 sum orders
+    already differ by an ulp or more (a nearly cancelled sum), which the
+    fp32 gate bounds. Returns (worst ulps, elements beyond one ulp)."""
+    import torch
+    require(torch.equal(kb, k32.to(torch.bfloat16)),
+            f"{name}: bf16 kernel output is not the rounding of its fp32 sums")
+    require(torch.equal(pb, p32.to(torch.bfloat16)),
+            f"{name}: bf16 plain output is not the rounding of its fp32 sums")
+    u = bf16_ulps(kb, pb)
+    over = u > 1
+    # one ulp at pb: the gap from |pb| to the next bf16 value up
+    mag = pb.abs()
+    step = (mag.view(torch.int16) + 1).view(torch.bfloat16).float() \
+        - mag.float()
+    explained = (k32 - p32).abs() >= 0.5 * step
+    require(bool(explained[over].all()),
+            f"{name}: {int((over & ~explained).sum())} elements beyond one "
+            f"bf16 ulp whose fp32 sums agree within an ulp")
+    return int(u.max()), int(over.sum())
+
+
+def ulp_note(ulps) -> str:
+    if ulps is None:
+        return ""
+    worst, over = ulps
+    return (f", worst {worst} bf16 ulp ({over} elements beyond 1, all "
+            f"nearly cancelled fp32 sums)")
+
+
+def ffn_kernel_phase(params, cfg, card):
+    """Phase 6: the predicated sparse matmul (K3) and the fused FFN (K4)
+    against their plain versions at layer 0's packed weights; returns the
+    per-regime records of both kernels."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bitmask_spmm import (bitmask_spmm,
+                                                  bitmask_spmm_plain)
+    from repro_torch.kernels.fused_ffn import (fused_ffn_spmm,
+                                               fused_ffn_spmm_plain)
+    from repro_torch.sparsity.sparse_ffn import densify
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sp = params["blocks"][0]["p0"]["ffn_sparse"]
+    dev = sp["in_vals"].device
+    chunk, sub_m, bm = 128, 8, 128
+    nb_in, mnz = sp["in_indices"].shape
+    nb_out, mnz_out = sp["out_indices"].shape
+    D, Fp = cfg.d_model, nb_in * chunk
+    Dp = nb_out * chunk
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    w_lib = {"in_gate": torch.cat([densify(sp, "in", D, chunk),
+                                   densify(sp, "gate", D, chunk)], 1),
+             "out": densify(sp, "out", Fp, chunk)}
+    recs = {"k3": [], "k4": []}
+    for regime, rows in (("decode", LM_SLOTS), ("prefill", LM_PROMPT)):
+        x16 = torch.zeros((bm, D), dtype=torch.bfloat16, device=dev)
+        x16[:rows] = torch.randn((rows, D), generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = (f"{regime} ({rows} live rows of {bm}), "
+                   f"{str(dtype).split('.')[-1]}")
+            v = {k: (t.to(dtype) if t.is_floating_point() else t)
+                 for k, t in sp.items()}
+            x = x16.to(dtype)
+            kw4 = dict(act=cfg.act, bk=chunk, bn=chunk, bm=bm, sub_m=sub_m,
+                       two_sided=True)
+            args4 = (x, v["in_indices"], v["in_vals"], v["gate_indices"],
+                     v["gate_vals"])
+            h = fused_ffn_spmm(*args4, **kw4)
+            ph = fused_ffn_spmm_plain(*args4, **kw4)
+            torch_sync()
+            require(bool((h[rows:] == 0).all()),
+                    f"K4 {tag}: padded rows are not exact zeros")
+            if dtype == torch.float32:
+                h32, ph32 = h, ph
+                # K3's input in both types: K4's output rounded to bf16
+                h16 = ph.to(torch.bfloat16)
+            kw3 = dict(bk=chunk, bn=chunk, bm=bm, sub_m=sub_m,
+                       two_sided=True, count_macs=True)
+            args3 = (h16.to(dtype), v["out_indices"], v["out_vals"])
+            o, cnt = bitmask_spmm(*args3, **kw3)
+            po, pcnt = bitmask_spmm_plain(*args3, **kw3)
+            torch_sync()
+            require(torch.equal(cnt, pcnt), f"K3 {tag}: MAC counts differ")
+            stats3 = ops.sparse_matmul_tile_stats(
+                args3[0], v["out_indices"], k_total=Fp, bk=chunk,
+                sub_m=sub_m)
+            require(int(cnt.sum()) == int(stats3["executed"]),
+                    f"K3 {tag}: counted {int(cnt.sum())} sub-block MACs, the "
+                    f"occupancy gives {int(stats3['executed'])}")
+            ulps = {}
+            if dtype == torch.float32:
+                a4, r4 = errors(h, ph)
+                a3, r3 = errors(o, po)
+                require(r4 <= TOL, f"K4 {tag}: rel err {r4:.3e}")
+                require(r3 <= TOL, f"K3 {tag}: rel err {r3:.3e}")
+                o32, po32 = o, po
+            else:
+                a4, r4 = errors(h.float(), ph.float())
+                a3, r3 = errors(o.float(), po.float())
+                ulps["k4"] = check_bf16(f"K4 {tag}", h, ph, h32, ph32)
+                ulps["k3"] = check_bf16(f"K3 {tag}", o, po, o32, po32)
+            # each row alone, at row 0 of an otherwise zero block
+            for i in range(min(rows, LM_SLOTS)):
+                xi = torch.zeros_like(x)
+                xi[0] = x[i]
+                hi = fused_ffn_spmm(xi, *args4[1:], **kw4)
+                require(torch.equal(hi[0], h[i]),
+                        f"K4 {tag}: row {i} alone != row {i} in the block")
+                hi = torch.zeros_like(args3[0])
+                hi[0] = args3[0][i]
+                oi = bitmask_spmm(hi, *args3[1:], **kw3)[0]
+                require(torch.equal(oi[0], o[i]),
+                        f"K3 {tag}: row {i} alone != row {i} in the block")
+            eb = x.element_size()
+
+            # the bound: live sub-block MACs, each input read once
+            stats4 = [ops.sparse_matmul_tile_stats(
+                x, v[f"{r}_indices"], k_total=D, bk=chunk, sub_m=sub_m)
+                for r in ("in", "gate")]
+            flops4 = 2.0 * sub_m * chunk * chunk * sum(
+                float(s["executed"]) for s in stats4)
+            stored4 = sum(int((v[f"{r}_indices"] >= 0).sum())
+                          for r in ("in", "gate"))
+            bytes4 = (eb * (rows * D + stored4 * chunk * chunk + rows * Fp)
+                      + 4.0 * (2 * nb_in * mnz + bm // sub_m * D // chunk))
+            flops3 = 2.0 * sub_m * chunk * chunk * float(stats3["executed"])
+            stored3 = int((v["out_indices"] >= 0).sum())
+            bytes3 = (eb * (rows * Fp + stored3 * chunk * chunk + rows * Dp)
+                      + 4.0 * (nb_out * mnz_out + bm // sub_m * Fp // chunk
+                               + nb_out))
+            # the function's peak for its operand type: bf16 products are
+            # exact in fp32, so bf16 tiles could run on the tensor cores
+            peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+            b4, by4 = bound(flops4, bytes4, peak)
+            b3, by3 = bound(flops3, bytes3, peak)
+            k4_ms = cuda_ms(lambda: fused_ffn_spmm(*args4, **kw4), reps=20)
+            p4_ms = cuda_ms(lambda: fused_ffn_spmm_plain(*args4, **kw4),
+                            reps=5)
+            wl4 = w_lib["in_gate"].to(dtype)
+            l4_ms = cuda_ms(lambda: torch.matmul(x, wl4), reps=20)
+            k3_ms = cuda_ms(lambda: bitmask_spmm(*args3, **kw3), reps=20)
+            p3_ms = cuda_ms(lambda: bitmask_spmm_plain(*args3, **kw3),
+                            reps=5)
+            wl3 = w_lib["out"].to(dtype)
+            l3_ms = cuda_ms(lambda: torch.matmul(args3[0], wl3), reps=20)
+            at = (f"Qwen3-4B layer 0 FFN, {tag}, bk=bn={chunk} sub_m={sub_m}"
+                  f", density {LM_DENSITY}")
+            print(f"FFN kernels @ {at} [{card}]")
+            print(f"  fused FFN (K4, {cfg.act}): max abs err {a4:.3e}, max "
+                  f"rel err {r4:.3e}{ulp_note(ulps.get('k4'))}; pad rows "
+                  f"exact zeros; rows independent; kernel {k4_ms:.4f} ms, "
+                  f"plain {p4_ms:.4f} ms, bound {b4:.4f} ms ({by4}), matmul"
+                  f" [W_in|W_gate] {l4_ms:.4f} ms (no activation)")
+            print(f"  sparse matmul (K3): max abs err {a3:.3e}, max rel err "
+                  f"{r3:.3e}{ulp_note(ulps.get('k3'))}; counts equal "
+                  f"({int(cnt.sum())} sub-block MACs); rows independent; "
+                  f"kernel {k3_ms:.4f} ms, plain {p3_ms:.4f} ms, bound "
+                  f"{b3:.4f} ms ({by3}), matmul {l3_ms:.4f} ms")
+
+            def rec(a, r, k, p, b, by, lib, u):
+                return {"at": at, "max_abs_err": a, "max_rel_err": r,
+                        "bf16_worst_ulps": u[0] if u else None, "ms": k,
+                        "plain_ms": p, "bound_ms": b, "bound_by": by,
+                        "library_ms": lib}
+            recs["k4"].append(rec(a4, r4, k4_ms, p4_ms, b4, by4, l4_ms,
+                                  ulps.get("k4")))
+            recs["k3"].append(rec(a3, r3, k3_ms, p3_ms, b3, by3, l3_ms,
+                                  ulps.get("k3")))
+    return recs
+
+
+def build_lm(dev):
+    """Sparse Qwen3-4B at full width, bf16, depth cut to LM_LAYERS."""
+    import dataclasses
+    from repro_torch.configs import load_config
+    from repro_torch.models import model as M
+    from repro_torch.sparsity.sparse_ffn import sparsify_model
+    full = load_config(LM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=LM_LAYERS, sparse_ffn=True)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=SEED, device=dev)
+    torch_sync()
+    t1 = time.perf_counter()
+    params = sparsify_model(params, cfg, density=LM_DENSITY,
+                            num_shards=LM_SHARDS)
+    torch_sync()
+    sp = params["blocks"][0]["p0"]["ffn_sparse"]
+    print(f"built sparse {full.name}: d_model {cfg.d_model}, d_ff "
+          f"{cfg.d_ff}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.d_head}, vocab {cfg.vocab} (padded {cfg.padded_vocab}), "
+          f"{cfg.dtype}; depth cut to {cfg.n_layers} of {full.n_layers} "
+          f"layers; init {t1 - t0:.1f} s, host packing "
+          f"{time.perf_counter() - t1:.1f} s (density {LM_DENSITY}, "
+          f"{LM_SHARDS} shards); in/gate indices "
+          f"{list(sp['in_indices'].shape)}, out indices "
+          f"{list(sp['out_indices'].shape)}")
+    return cfg, params
+
+
+def torch_sync():
+    import torch
+    torch.cuda.synchronize()
+
+
+def lm_requests(cfg):
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(1, cfg.vocab, (LM_REQUESTS, LM_PROMPT))
+    return [Request(rid=i, prompt=prompts[i], max_new=LM_NEW,
+                    arrival=i * LM_STAGGER) for i in range(LM_REQUESTS)]
+
+
+def lm_serving_phase(cfg, params, card):
+    """Phase 7, the LM main path: returns {kernel: launches}."""
+    from repro_torch.kernels.bitmask_spmm import BITMASK_SPMM
+    from repro_torch.kernels.fused_ffn import FUSED_FFN
+    from repro_torch.serve import Request, Scheduler
+    max_len = LM_PROMPT + LM_NEW
+    reqs = lm_requests(cfg)
+    BITMASK_SPMM.launches = FUSED_FFN.launches = 0
+    sch = Scheduler(cfg, params, num_slots=LM_SLOTS, max_len=max_len)
+    produced = sch.run(reqs, probe_ffn=True)
+    torch_sync()
+    launches = {"k3": BITMASK_SPMM.launches, "k4": FUSED_FFN.launches}
+    st, probe = sch.stats, sch.ffn_probe
+    require(probe is not None, "the FFN probe found no sparse leaves")
+    forwards = st.prefills + st.engine_steps + 1          # + the probe
+    print(f"serving sparse {cfg.name} ({cfg.n_layers} layers, {cfg.dtype}):"
+          f" {len(reqs)} requests on {LM_SLOTS} slots, prompt {LM_PROMPT}, "
+          f"{LM_NEW} new tokens each, arrivals every {LM_STAGGER} steps: "
+          f"{st.tokens} tokens in {st.wall_s:.3f} s = {st.tok_per_s:.2f} "
+          f"tok/s (first calls included), {st.prefills} prefills + "
+          f"{st.engine_steps} decode steps, slot utilization "
+          f"{st.slot_utilization:.3f} [{card}]")
+    print(f"  FFN probe (first live batch): executed_frac "
+          f"{probe['executed_frac']:.4f}, skipped_frac "
+          f"{probe['skipped_frac']:.4f}, weight-tile density "
+          f"{probe['weight_tile_macs'] / probe['dense_tile_macs']:.4f}, "
+          f"decode compaction {probe['decode_compaction']:.2f}x")
+    print(f"  main-path launches: fused FFN {launches['k4']}, sparse matmul "
+          f"{launches['k3']} ({cfg.n_layers} layers x {forwards} forwards "
+          f"= {cfg.n_layers * forwards})")
+    for key, name in (("k4", "fused FFN"), ("k3", "sparse matmul")):
+        require(launches[key] == cfg.n_layers * forwards,
+                f"{name} launched {launches[key]} times, expected one per "
+                f"layer and forward ({cfg.n_layers * forwards})")
+    for r in reqs:
+        got = produced[r.rid]
+        require(len(got) == LM_NEW and all(0 <= t < cfg.padded_vocab
+                                           for t in got),
+                f"request {r.rid}: bad tokens {got[:8]}")
+        solo = Scheduler(cfg, params, num_slots=LM_SLOTS, max_len=max_len)
+        one = solo.run([Request(r.rid, r.prompt, r.max_new)])[r.rid]
+        require(one == got, f"request {r.rid}: batched tokens != solo "
+                            f"({got[:8]} vs {one[:8]})")
+    print(f"  greedy tokens bitwise equal to each request served alone on "
+          f"{LM_SLOTS} slots ({len(reqs)} requests); request 0: "
+          f"{produced[0][:12]}")
+    return launches
+
+
+def lm_oracle_phase(cfg, params):
+    """Phase 8: fp32 logits through the kernels against the same forward
+    with every FFN on its densified weights (torch.matmul, TF32 off)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.sparsity.sparse_ffn import densify
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = M.map_tree(lambda t: t.float() if t.is_floating_point() else t,
+                     params)
+    D, chunk = cfg.d_model, 128
+
+    oracle = dict(p32, blocks=[])
+    for period in p32["blocks"]:
+        new = {}
+        for key, bp in period.items():
+            sp = bp["ffn_sparse"]
+            Fp = sp["in_indices"].shape[0] * chunk
+            new[key] = dict(bp, ffn={
+                "w_in": densify(sp, "in", D, chunk)[:D],
+                "w_gate": densify(sp, "gate", D, chunk)[:D],
+                "w_out": densify(sp, "out", Fp, chunk)[:, :D]})
+            del new[key]["ffn_sparse"]
+        oracle["blocks"].append(new)
+    cfg_dense = dataclasses.replace(cfg32, sparse_ffn=False)
+    dev = params["embed"].device
+    toks = torch.as_tensor(np.stack([r.prompt for r in lm_requests(cfg)[:4]]),
+                           device=dev)
+    B, S = toks.shape
+    cache = M.init_cache(cfg32, B, S + 1, device=dev)
+    ls, _ = M.prefill(p32, cfg32, toks, cache)
+    lo, cache_o = M.prefill(oracle, cfg_dense, toks, cache)
+    _, rel_p = errors(ls, lo)
+    nxt = torch.argmax(lo, -1)[:, None]
+    pos = torch.full((B,), S, dtype=torch.long, device=dev)
+    ds, _ = M.decode_step(p32, cfg32, nxt, cache_o, pos)
+    do, _ = M.decode_step(oracle, cfg_dense, nxt, cache_o, pos)
+    _, rel_d = errors(ds, do)
+    torch_sync()
+    print(f"oracle (fp32, {cfg.n_layers} layers, {B} prompts of {S}): "
+          f"prefill logits rel err {rel_p:.3e}, decode_step logits rel err "
+          f"{rel_d:.3e} vs densified-weight FFNs (torch.matmul, TF32 off)")
+    require(rel_p <= TOL and rel_d <= TOL,
+            f"LM oracle: rel err {rel_p:.3e} / {rel_d:.3e} > {TOL}")
+    require(bool(torch.isfinite(ls).all() and torch.isfinite(ds).all())
+            and tuple(ds.shape) == (B, 1, cfg.padded_vocab),
+            "LM oracle: logits not finite or of the wrong shape")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -341,8 +704,11 @@ def main() -> int:
               "runs on an NVIDIA GPU", file=sys.stderr)
         return 2
     from repro_torch.kernels._cuda import build_all
+    from repro_torch.kernels.bitmask_spmm import BITMASK_SPMM
+    from repro_torch.kernels.fused_ffn import FUSED_FFN
     from repro_torch.kernels.sparse_conv import CONV_GRID
     from repro_torch.kernels.worklist_core import WALK
+    all_kernels = (WALK, CONV_GRID, BITMASK_SPMM, FUSED_FFN)
 
     # 1. card identity
     card = card_line()
@@ -350,17 +716,43 @@ def main() -> int:
     print(f"card: {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | device 0: {kind}")
 
-    # 2. build
+    # 2. and 5. build
     t0 = time.perf_counter()
-    secs = build_all([WALK, CONV_GRID])
+    secs = build_all(all_kernels)
     print(f"built {sorted(secs)} in {time.perf_counter() - t0:.1f} s "
           f"(per source {secs})")
-    for k in (WALK, CONV_GRID):
+    for k in all_kernels:
         for line in k.build_log.splitlines():
-            if any(s in line for s in ("registers", "spill", "smem")):
+            if any(s in line for s in ("Compiling entry", "registers",
+                                       "spill", "smem")):
                 print(f"  ptxas {k.source.name}: {line.strip()}")
 
-    kernels = drive(card)
+    kernels = drive(card)                          # phases 3 and 4
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    cfg, params = build_lm(dev)
+    recs = ffn_kernel_phase(params, cfg, card)     # phase 6
+    launches = lm_serving_phase(cfg, params, card)  # phase 7
+    lm_oracle_phase(cfg, params)                   # phase 8
+    meta = {
+        "k3": ("bitmask_spmm", "src/repro_torch/csrc/bitmask_spmm.cu",
+               "src/repro/kernels/bitmask_spmm.py:118"),
+        "k4": ("fused_ffn_spmm", "src/repro_torch/csrc/fused_ffn.cu",
+               "src/repro/kernels/fused_ffn.py:36"),
+    }
+    for key, (name, source, replaces) in meta.items():
+        # headline: the decode regime in bf16, what serving runs most
+        head = next(r for r in recs[key]
+                    if r["at"].find("decode") >= 0 and "bfloat16" in r["at"])
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[key],
+            "max_abs_err": max(r["max_abs_err"] for r in recs[key]),
+            "max_rel_err": max(r["max_rel_err"] for r in recs[key]),
+            "ms": head["ms"], "kernel_ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "at": head["at"], "shapes": recs[key]})
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,97 @@
+"""Model configuration (port of ``repro.configs.base``).
+
+Every architecture is a :class:`ModelConfig` in its own module
+(``repro_torch/configs/<id>.py``) exposing ``CONFIG`` plus a ``smoke()``
+reduced variant of the same family. Only the archs the port can run are
+here: ``qwen3_4b`` (gated SwiGLU FFN) and ``nemotron_4_340b`` (squared-ReLU
+FFN; its smoke config is the port's non-gated test model).
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Optional, Tuple
+
+import torch
+
+ARCHS = ["nemotron_4_340b", "qwen3_4b"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    every: int = 1              # MoE replaces FFN every N blocks
+    shared_dense_ff: int = 0    # dense residual FFN alongside MoE
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                 # dense | moe | ssm | hybrid | encdec | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int                # 0 for attention-free
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    d_head: int = 128
+    act: str = "swiglu"         # swiglu | geglu | relu2 | relu | gelu
+    qk_norm: bool = False
+    window: Optional[int] = None          # sliding-window attention
+    rope_theta: float = 10_000.0
+    moe: Optional[MoEConfig] = None
+    mamba: Optional[MambaConfig] = None
+    # per-period block pattern, e.g. ("attn",) or ("attn",)+("mamba",)*7
+    block_pattern: Tuple[str, ...] = ("attn",)
+    encoder_layers: int = 0               # >0 => encoder-decoder
+    frontend: Optional[str] = None        # audio | vision (stub embeddings)
+    frontend_len: int = 0                 # prefix length contributed by stub
+    tie_embeddings: bool = True
+    norm_eps: float = 1e-6
+    dtype: str = "bfloat16"
+    # BARISTA sparse path: FFNs run through the packed two-sided kernels
+    sparse_ffn: bool = False
+    rwkv: bool = False
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab rounded to 512 (the reference shards the embedding on a
+        16/32-way axis; the port keeps its shape)."""
+        return -(-self.vocab // 512) * 512
+
+    @property
+    def periods(self) -> int:
+        if self.n_layers % len(self.block_pattern):
+            raise ValueError(f"{self.name}: {self.n_layers} layers do not "
+                             f"repeat the pattern {self.block_pattern}")
+        return self.n_layers // len(self.block_pattern)
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+
+def load_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def load_smoke(arch: str) -> ModelConfig:
+    return _module(arch).smoke()
+
+
+def _module(arch: str):
+    name = arch.replace("-", "_")
+    if name not in ARCHS:
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported yet (ported: {', '.join(ARCHS)})")
+    return importlib.import_module(f"repro_torch.configs.{name}")

@@ -1,10 +1,12 @@
-"""Carry a packed network across from the JAX reference.
+"""Carry packed networks across from the JAX reference.
 
-:func:`model_from_reference` takes, per layer, the reference model's numpy
-arrays and settings and returns the port's :class:`VisionModel` on a given
-device, so both packages can run the very same packed weights. The caller
-extracts the arrays (``np.asarray`` of the reference's device arrays); this
-module imports nothing of the reference.
+:func:`model_from_reference` takes, per layer, the reference vision
+model's numpy arrays and settings and returns the port's
+:class:`VisionModel`; :func:`params_from_reference` takes the reference
+LM's params pytree and returns the port's LM params. Both put the result
+on a given device, so both packages can run the very same weights. The
+caller extracts the arrays (``np.asarray`` of the reference's device
+arrays); this module imports nothing of the reference.
 """
 from __future__ import annotations
 
@@ -74,3 +76,42 @@ def model_from_reference(layers: Sequence[Mapping], *,
             _padding(lay["padding"]),
             None if pool is None else (int(pool[0]), int(pool[1]))))
     return VisionModel(name, out, input_size, density, device)
+
+
+def _leaf(a, device: torch.device) -> torch.Tensor:
+    """One numpy leaf as a tensor on ``device``; bfloat16 arrays (numpy's
+    ml_dtypes extension type, which torch cannot read) go through float32,
+    which holds every bfloat16 value exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.as_tensor(a.astype(np.float32), device=device) \
+            .to(torch.bfloat16)
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def params_from_reference(params: Mapping, *, device="cuda") -> dict:
+    """The port's LM params from the reference's params pytree, given as
+    numpy arrays (``jax.tree.map(np.asarray, params)``): dense leaves, and
+    the ``ffn_sparse`` packed leaves of ``sparsify_model`` when present.
+
+    The reference stacks every block leaf over periods ([P, ...]) under
+    ``params["blocks"]["p<i>"]``; the port holds one dict per period,
+    ``params["blocks"][p]["p<i>"]``.
+    """
+    device = torch.device(device)
+
+    def conv(tree):
+        if isinstance(tree, Mapping):
+            return {k: conv(v) for k, v in tree.items()}
+        return _leaf(tree, device)
+
+    def period(tree, p):
+        if isinstance(tree, Mapping):
+            return {k: period(v, p) for k, v in tree.items()}
+        return _leaf(np.asarray(tree)[p], device)
+
+    out = {k: conv(v) for k, v in params.items() if k != "blocks"}
+    blocks = params["blocks"]
+    periods = np.asarray(blocks["p0"]["ln1"]).shape[0]
+    out["blocks"] = [period(blocks, p) for p in range(periods)]
+    return out

@@ -1,19 +1,31 @@
-// The tile core shared by the walker (walk.cu) and the dense grid
-// (conv_grid.cu): one CUDA block owns a 64-row slice of one (n, m) output
-// tile and accumulates it in registers.
+// The tile core shared by the walker (walk.cu), the dense-grid conv
+// (conv_grid.cu), the predicated sparse matmul (bitmask_spmm.cu) and the
+// fused FFN (fused_ffn.cu): one CUDA block owns a 64-row slice of one (n, m)
+// output tile and accumulates it in registers.
 //
 // Staging. x and w are staged in shared memory in 32-deep k-slabs
 // (64x32 + 32x128 floats = 24 KB, under the 48 KB static limit); 256
 // threads each hold a 4-row x TN-column register tile (TN = 4 for bn <= 64,
 // 8 for bn <= 128), columns strided by 16 so shared reads and global stores
-// are conflict-free and coalesced.
+// are conflict-free and coalesced. The storage type T of x, w and the output
+// is float or bf16: bf16 is widened to fp32 when staged and rounded to
+// nearest even when stored, and all arithmetic is fp32 either way (for
+// float both conversions are the identity).
 //
 // Sum order. mac_chunk adds one chunk in ascending k with one fmaf per term,
-// and both kernels call it once per chunk in ascending j. The fp32 sum order
-// of every output element is therefore fixed here, in one place, and the two
-// kernels give bit for bit the same output on the same schedule. (A row the
-// dense grid predicates off would add fmaf(0, w, acc) == acc in the walker.)
+// and every kernel calls it once per chunk in ascending j. The fp32 sum order
+// of every output element is therefore fixed here, in one place, and the
+// walker and the dense grid give bit for bit the same output on the same
+// schedule. (A row the dense grid predicates off would add fmaf(0, w, acc) ==
+// acc in the walker.)
+//
+// grid_slot is one slot of the dense grid with its row predicate, for the
+// LM kernels (bitmask_spmm.cu, fused_ffn.cu). conv_grid.cu keeps the same
+// slot code inline in its own loop: routed through grid_slot it ran 1.5%
+// slower at VGG16 layer 8 on an H100 (ptxas schedules the inner loop
+// differently).
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace tile {
@@ -22,11 +34,27 @@ constexpr int RS = 64;        // rows per block: one slice of a row block
 constexpr int KS = 32;        // k-slab depth staged in shared memory
 constexpr int THREADS = 256;  // 16 x 16 threads
 
+__device__ inline float widen(float v) { return v; }
+__device__ inline float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ inline void store(float* p, float v) { *p = v; }
+__device__ inline void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 template <int TN>
 struct Smem {
   float xs[KS][RS + 1];  // transposed x slab, padded: no bank conflicts
   float ws[KS][16 * TN];
   int row_nz[RS];        // per-row "some output != 0" for the occupancy
+};
+
+// Shared memory of a grid_slot block: the tile slabs, the live flag of each
+// row for the current slot, and the block's executed sub-block count.
+template <int TN>
+struct GridSmem {
+  Smem<TN> t;
+  int live_row[RS];
+  int cnt;
 };
 
 // Where this block's slice lies, and this thread's place in it.
@@ -58,22 +86,21 @@ __device__ inline void zero(float (&acc)[4][TN]) {
 // acc += x[slice rows, bk-chunk at xb] @ w[bk, bn at wb]. With PRED, row i
 // of this thread's 4 takes no term where lv[i] is false (the sub_m skip).
 // Every thread of the block must call it: it holds block barriers.
-template <int TN, bool PRED>
+template <int TN, bool PRED, typename T>
 __device__ inline void mac_chunk(float (&acc)[4][TN], Smem<TN>& sm,
-                                 const Slice& s, const float* xb,
-                                 const float* wb, int K, int bk, int bn,
-                                 const bool (&lv)[4]) {
+                                 const Slice& s, const T* xb, const T* wb,
+                                 int K, int bk, int bn, const bool (&lv)[4]) {
   constexpr int BN = 16 * TN;
   for (int k0 = 0; k0 < bk; k0 += KS) {
     for (int i = s.tid; i < RS * KS; i += THREADS) {
       const int r = i / KS, c = i % KS;
       sm.xs[c][r] =
-          (r < s.rows && k0 + c < bk) ? xb[(long)r * K + k0 + c] : 0.f;
+          (r < s.rows && k0 + c < bk) ? widen(xb[(long)r * K + k0 + c]) : 0.f;
     }
     for (int i = s.tid; i < KS * BN; i += THREADS) {
       const int r = i / BN, c = i % BN;
       sm.ws[r][c] =
-          (k0 + r < bk && c < bn) ? wb[(long)(k0 + r) * bn + c] : 0.f;
+          (k0 + r < bk && c < bn) ? widen(wb[(long)(k0 + r) * bn + c]) : 0.f;
     }
     __syncthreads();
     const int kn = min(KS, bk - k0);
@@ -94,12 +121,54 @@ __device__ inline void mac_chunk(float (&acc)[4][TN], Smem<TN>& sm,
   }
 }
 
+// One slot of the dense grid: acc += x[slice rows, chunk kc] @ w[bk, bn],
+// where, when two_sided, each sub_m-row sub-block whose activation occupancy
+// bit occ[row / sub_m, kc] is 0 (those rows of the chunk are all zero) takes
+// no term. With count_macs, count into g.cnt the live sub-blocks that start
+// in this slice (two-sided; a sub-block wider than a slice counts in the
+// slice of its first row) or, when one-sided, one MAC per slot from slice 0
+// only, so the per-slice partials sum to the TPU kernel's per-tile count.
+// When no row of the slice is live the slot is skipped whole. Every thread
+// of the block must call it: it holds block barriers.
+template <int TN, typename T>
+__device__ inline void grid_slot(float (&acc)[4][TN], GridSmem<TN>& g,
+                                 const Slice& s, const T* __restrict__ x,
+                                 const T* __restrict__ wb,
+                                 const int* __restrict__ occ, int kc, int K,
+                                 int kb, int bk, int bn, int sub_m,
+                                 int two_sided, int count_macs) {
+  // live_row is safe to rewrite here: the previous slot's readers copied it
+  // to registers before the k-slab barriers of mac_chunk
+  int live = 0;
+  if (s.tid < RS) {
+    if (s.tid < s.rows)
+      live = two_sided
+                 ? occ[((s.row_base + s.tid) / sub_m) * kb + kc] != 0
+                 : 1;
+    g.live_row[s.tid] = live;
+    if (count_macs && live) {
+      if (two_sided) {
+        if ((blockIdx.y * RS + s.tid) % sub_m == 0) atomicAdd(&g.cnt, 1);
+      } else if (s.tid == 0 && blockIdx.y == 0) {
+        atomicAdd(&g.cnt, 1);
+      }
+    }
+  }
+  // no live row in this slice: skip the whole slot
+  if (!__syncthreads_or(live)) return;
+  bool lv[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) lv[i] = g.live_row[s.ty * 4 + i] != 0;
+  mac_chunk<TN, true, T>(acc, g.t, s, x + s.row_base * K + (long)kc * bk, wb,
+                         K, bk, bn, lv);
+}
+
 // Epilogue: ReLU or nothing, write block column n of the slice into out
 // [M, nb*bn] and, with emit_occ, occ_out[row / sub_m, n] = any output of
 // those sub_m rows != 0. Every thread of the block must call it.
-template <int TN>
+template <int TN, typename T>
 __device__ inline void flush(const float (&acc)[4][TN], Smem<TN>& sm,
-                             const Slice& s, float* out, int* occ_out, int n,
+                             const Slice& s, T* out, int* occ_out, int n,
                              int nb, int bn, int sub_m, int relu,
                              int emit_occ) {
   if (emit_occ) {
@@ -117,7 +186,7 @@ __device__ inline void flush(const float (&acc)[4][TN], Smem<TN>& sm,
       float v = acc[i][c];
       if (relu) v = fmaxf(v, 0.f);
       if (r < s.rows && col < bn) {
-        out[(s.row_base + r) * ldo + (long)n * bn + col] = v;
+        store(out + (s.row_base + r) * ldo + (long)n * bn + col, v);
         nz |= (v != 0.f);
       }
     }

@@ -30,6 +30,7 @@ from repro_torch.core.sparse import Padding, Stride, normalize_stride, \
 from repro_torch.core.telescope import combine_schedule_requests
 from repro_torch.kernels._cuda import CudaKernel, I, KERNEL_ROW_SLICE, P, \
     check_cuda_tensor, ptr
+from repro_torch.kernels.bitmask_spmm import subblock_macs
 from repro_torch.kernels.worklist_core import (DEFAULT_BM, LANE,
                                                _tile_output,
                                                activation_occupancy,
@@ -53,33 +54,13 @@ def sparse_conv_spmm_plain(patches: torch.Tensor, indices: torch.Tensor,
                            bm_rows: int, sub_m: int, two_sided: bool,
                            fuse_relu: bool, emit_occupancy: bool,
                            count_macs: bool):
-    """Plain version of the dense-grid kernel, on any device: for each slot
-    ``j`` of every n-block, MAC the chunk ``indices[n, j]`` into all row
-    blocks, with the ``sub_m``-row sub-blocks whose activation occupancy
-    bit is clear masked out (and not counted) when ``two_sided``."""
-    M, K = patches.shape
-    nb, max_nz = indices.shape
-    mb, kb, nsub = M // bm_rows, K // bk, bm_rows // sub_m
-    x4 = patches.reshape(mb, bm_rows, kb, bk)
-    occ3 = activation_occupancy(patches, sub_m, bk).bool() \
-        .reshape(mb, nsub, kb)
-    acc = torch.zeros((nb, mb, bm_rows, bn), dtype=patches.dtype,
-                      device=patches.device)
-    counts = torch.zeros((nb, mb), dtype=torch.int32, device=patches.device)
-    for j in range(max_nz):
-        k = indices[:, j].long()
-        valid = k >= 0                                       # [nb]
-        ks = k.clamp_min(0)
-        xg = x4[:, :, ks, :].permute(2, 0, 1, 3)             # [nb, mb, bm, bk]
-        if two_sided:
-            live = occ3[:, :, ks].permute(2, 0, 1) & valid[:, None, None]
-            rows = live.repeat_interleave(sub_m, dim=2)      # [nb, mb, bm]
-            counts += live.sum(-1, dtype=torch.int32)
-        else:
-            rows = valid[:, None, None].expand(nb, mb, bm_rows)
-            counts += valid[:, None].to(torch.int32)
-        acc += torch.matmul(xg * rows[..., None].to(xg.dtype),
-                            vals[:, j][:, None])
+    """Plain version of the dense-grid kernel, on any device: the predicated
+    grid of :func:`~repro_torch.kernels.bitmask_spmm.subblock_macs`, then
+    the ReLU and occupancy epilogue."""
+    nb = indices.shape[0]
+    mb = patches.shape[0] // bm_rows
+    acc, counts = subblock_macs(patches, indices, vals, bk=bk, bm=bm_rows,
+                                sub_m=sub_m, two_sided=two_sided)
     if fuse_relu:
         acc = torch.clamp_min(acc, 0.0)
     res = _tile_output(acc.reshape(nb * mb, bm_rows, bn), nb, mb, bm_rows,

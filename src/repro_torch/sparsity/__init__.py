@@ -1,1 +1,2 @@
-"""Offline pruning and packing of conv filters."""
+"""Offline pruning and packing: conv filters (``structured``, ``conv``)
+and LM FFNs (``sparse_ffn``)."""

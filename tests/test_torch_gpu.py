@@ -1,4 +1,4 @@
-"""Card-only checks of the two CUDA kernels against their plain versions,
+"""Card-only checks of the four CUDA kernels against their plain versions,
 and of the port's bitwise invariants on the card. Every test is marked
 ``gpu`` and skips (through the ``cuda`` fixture) where there is no card.
 This file imports neither JAX nor the reference, so it runs on a machine
@@ -10,7 +10,17 @@ import numpy as np
 import pytest
 import torch
 
+import dataclasses
+
+from repro_torch.configs import load_smoke
 from repro_torch.core.bitmask import block_sparsify
+from repro_torch.kernels.bitmask_spmm import (BITMASK_SPMM, bitmask_spmm,
+                                              bitmask_spmm_plain)
+from repro_torch.kernels.fused_ffn import (FUSED_FFN, fused_ffn_spmm,
+                                           fused_ffn_spmm_plain)
+from repro_torch.models import model as M
+from repro_torch.serve import Request, Scheduler
+from repro_torch.sparsity.sparse_ffn import sparsify_model
 from repro_torch.kernels.sparse_conv import (CONV_GRID, sparse_conv_spmm,
                                              sparse_conv_spmm_plain)
 from repro_torch.kernels.worklist_core import (WALK, build_worklist,
@@ -105,3 +115,101 @@ def test_vgg_head_oracle_and_engine_on_card(rng, cuda):
     for i in range(3):
         one = solo(torch.as_tensor(imgs[i:i + 1], device=cuda))
         np.testing.assert_array_equal(produced[i], one[0].cpu().numpy())
+
+
+def _ffn_operands(rng, dev, dtype, M=256, K=384, nb=3, mnz=3, live=None):
+    """x with zero rows and zero sub-blocks, -1 padded chunk lists."""
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    if live is not None:
+        x[live:] = 0
+    x[8:24] = 0
+    x[40:48, :128] = 0
+    idx = np.array([[0, 2, -1], [1, -1, -1], [2, 1, 0]][:nb], np.int32)
+    vals = rng.normal(size=(nb, mnz, 128, 128)).astype(np.float32) * 0.05
+    vals[idx < 0] = 0
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return t(x).to(dtype), t(idx), t(vals).to(dtype)
+
+
+def _close(got, ref, dtype):
+    g, r = got.float(), ref.float()
+    if dtype == torch.float32:
+        assert float((g - r).abs().max() / r.abs().max()) <= 1e-5
+    else:
+        # both sum in fp32 and round once: within an ulp but for sums the
+        # two orders nearly cancel, which the fp32 gate bounds
+        ulp = r.abs().clamp_min(1e-3) * 2.0 ** -7
+        assert bool(((g - r).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("two_sided", [True, False])
+@pytest.mark.parametrize("sub_m", [8, 128])
+def test_bitmask_spmm_matches_plain(rng, cuda, dtype, two_sided, sub_m):
+    x, idx, vals = _ffn_operands(rng, cuda, dtype)
+    kw = dict(bk=128, bn=128, bm=128, sub_m=sub_m, two_sided=two_sided,
+              count_macs=True)
+    before = BITMASK_SPMM.launches
+    out, cnt = bitmask_spmm(x, idx, vals, **kw)
+    assert BITMASK_SPMM.launches == before + 1
+    pout, pcnt = bitmask_spmm_plain(x, idx, vals, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype
+    _close(out, pout, dtype)
+    assert torch.equal(cnt, pcnt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["swiglu", "geglu", "relu2", "relu", "gelu"])
+def test_fused_ffn_matches_plain(rng, cuda, dtype, act):
+    x, idx, vals = _ffn_operands(rng, cuda, dtype, live=200)
+    gated = act in ("swiglu", "geglu")
+    g_idx = torch.flip(idx, [0]).contiguous() if gated else None
+    g_vals = torch.flip(vals, [0]).contiguous() if gated else None
+    kw = dict(act=act, bk=128, bn=128, bm=128, sub_m=8, two_sided=True)
+    before = FUSED_FFN.launches
+    h = fused_ffn_spmm(x, idx, vals, g_idx, g_vals, **kw)
+    assert FUSED_FFN.launches == before + 1
+    ph = fused_ffn_spmm_plain(x, idx, vals, g_idx, g_vals, **kw)
+    torch.cuda.synchronize()
+    _close(h, ph, dtype)
+    assert bool((h[200:] == 0).all())          # zero rows stay exact zeros
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ffn_kernels_rows_independent_bitwise(rng, cuda, dtype):
+    """A decode block gives bit for bit what each lane gives alone."""
+    x, idx, vals = _ffn_operands(rng, cuda, dtype, M=128, live=4)
+    kw = dict(act="swiglu", bk=128, bn=128, bm=128, sub_m=8)
+    h = fused_ffn_spmm(x, idx, vals, idx, vals, **kw)
+    o = bitmask_spmm(x, idx, vals, bm=128, sub_m=8, two_sided=True)
+    for i in range(4):
+        xi = torch.zeros_like(x)
+        xi[0] = x[i]
+        assert torch.equal(fused_ffn_spmm(xi, idx, vals, idx, vals,
+                                          **kw)[0], h[i])
+        assert torch.equal(bitmask_spmm(xi, idx, vals, bm=128, sub_m=8,
+                                        two_sided=True)[0], o[i])
+
+
+def test_sparse_lm_serving_on_card(cuda):
+    """Smoke Qwen3 (fp32) through both FFN kernels: batched == solo, and
+    the card's tokens equal the CPU plain path's."""
+    cfg = dataclasses.replace(load_smoke("qwen3_4b"), d_model=256, d_ff=640,
+                              sparse_ffn=True)
+    params = sparsify_model(M.init_params(cfg, seed=0, device=cuda), cfg,
+                            density=0.35, num_shards=4)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(1, cfg.vocab, (3, 8))
+    reqs = [Request(i, prompts[i], 6, arrival=i) for i in range(3)]
+    b3, b4 = BITMASK_SPMM.launches, FUSED_FFN.launches
+    got = Scheduler(cfg, params, num_slots=2, max_len=16).run(reqs)
+    assert BITMASK_SPMM.launches > b3 and FUSED_FFN.launches > b4
+    for r in reqs:
+        solo = Scheduler(cfg, params, num_slots=2, max_len=16).run(
+            [Request(r.rid, r.prompt, r.max_new)])
+        assert solo[r.rid] == got[r.rid]
+    cpu = M.map_tree(lambda t: t.cpu(), params)
+    ref = Scheduler(cfg, cpu, num_slots=2, max_len=16).run(
+        [Request(r.rid, r.prompt, r.max_new, r.arrival) for r in reqs])
+    assert ref == got

@@ -31,7 +31,7 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 15          # every submodule was imported
+    assert int(count) >= 34          # every submodule was imported
     assert bad == "[]", bad
 
 
@@ -45,3 +45,21 @@ def test_default_device_is_the_card():
         VisionEngine(build_vision_model("VGGNet", num_layers=1))
     with pytest.raises((AssertionError, RuntimeError)):
         main(["--smoke"])
+
+
+def test_lm_entry_points_default_to_the_card():
+    """The LM params, the scheduler on them and the serving launcher need
+    a card unless the caller names the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device works")
+    from repro_torch.configs import load_smoke
+    from repro_torch.launch.serve import main
+    from repro_torch.models import model as M
+    from repro_torch.serve import Scheduler
+    cfg = load_smoke("qwen3_4b")
+    with pytest.raises((AssertionError, RuntimeError)):
+        Scheduler(cfg, M.init_params(cfg))
+    with pytest.raises((AssertionError, RuntimeError)):
+        M.init_cache(cfg, 1, 4)
+    with pytest.raises((AssertionError, RuntimeError)):
+        main(["--arch", "qwen3_4b", "--smoke", "--sparse", "--continuous"])
