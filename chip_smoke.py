@@ -41,7 +41,21 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    the same request served alone on a scheduler of the same width;
 8. the LM oracle: the same model in fp32, ``prefill`` and ``decode_step``
    logits through the kernels within rel err 1e-5 of the same forward with
-   every FFN on its densified weights (``torch.matmul``, TF32 off).
+   every FFN on its densified weights (``torch.matmul``, TF32 off);
+9. the work-list FFN schedule on Qwen3-4B layer 0's packed FFN, at decode
+   (2 and 4 rows) and a 128-token prefill, fp32 and bf16: the main path
+   ``sparse_ffn_apply(schedule="compact")`` (the walker, two streams then
+   one) counted from zero and bitwise equal to ``schedule="dense"`` (fused
+   FFN then sparse matmul); its schedule counters equal to the host model,
+   compaction 16x at decode; the walker's two-stream mode against its plain
+   version (fp32 rel err <= 1e-5, bf16 as in phase 6), with CUDA-event
+   times beside the bound and one ``torch.matmul`` yardstick;
+10. sparse RWKV6-3B at full width (bf16, density 0.35, depth cut to
+   LM_LAYERS): served through ``Scheduler`` as in phase 7 (squared-ReLU
+   channel-mix through the fused FFN and the sparse matmul, tokens bitwise
+   equal to solo), one channel-mix through ``schedule="compact"`` (the
+   walker's one-stream relu2 epilogue) bitwise equal to ``"dense"`` at
+   decode and prefill, and the fp32 oracle of phase 8.
 
 It prints the kernels line (JSON) and the card line before the last line,
 and as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -70,6 +84,7 @@ SIZE = 224
 # Qwen3-4B serving: full width, depth cut to LM_LAYERS of 36 (host packing
 # takes ~5 s per layer), the launcher's density and shards
 LM_ARCH = "qwen3_4b"
+RWKV_ARCH = "rwkv6_3b"      # the same cut: 4 of its 32 layers
 LM_LAYERS = 4
 LM_DENSITY = 0.35
 LM_SHARDS = 4
@@ -557,13 +572,20 @@ def ffn_kernel_phase(params, cfg, card):
     return recs
 
 
-def build_lm(dev):
-    """Sparse Qwen3-4B at full width, bf16, depth cut to LM_LAYERS."""
+def sparse_leaf(bp):
+    """(dense key, packed key) of a block's FFN: a transformer block's
+    ``ffn`` or an RWKV block's ``channel_mix``."""
+    return ("ffn", "ffn_sparse") if "ffn_sparse" in bp \
+        else ("channel_mix", "channel_mix_sparse")
+
+
+def build_lm(dev, arch=LM_ARCH):
+    """A sparse LM at full width, bf16, depth cut to LM_LAYERS."""
     import dataclasses
     from repro_torch.configs import load_config
     from repro_torch.models import model as M
     from repro_torch.sparsity.sparse_ffn import sparsify_model
-    full = load_config(LM_ARCH)
+    full = load_config(arch)
     cfg = dataclasses.replace(full, n_layers=LM_LAYERS, sparse_ffn=True)
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=SEED, device=dev)
@@ -572,14 +594,17 @@ def build_lm(dev):
     params = sparsify_model(params, cfg, density=LM_DENSITY,
                             num_shards=LM_SHARDS)
     torch_sync()
-    sp = params["blocks"][0]["p0"]["ffn_sparse"]
-    print(f"built sparse {full.name}: d_model {cfg.d_model}, d_ff "
-          f"{cfg.d_ff}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
-          f"{cfg.d_head}, vocab {cfg.vocab} (padded {cfg.padded_vocab}), "
-          f"{cfg.dtype}; depth cut to {cfg.n_layers} of {full.n_layers} "
-          f"layers; init {t1 - t0:.1f} s, host packing "
-          f"{time.perf_counter() - t1:.1f} s (density {LM_DENSITY}, "
-          f"{LM_SHARDS} shards); in/gate indices "
+    bp = params["blocks"][0]["p0"]
+    src, leaf = sparse_leaf(bp)
+    sp = bp[leaf]
+    print(f"built sparse {full.name} ({'+'.join(cfg.block_pattern)} blocks,"
+          f" {src} {cfg.act}): d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}, vocab "
+          f"{cfg.vocab} (padded {cfg.padded_vocab}), {cfg.dtype}; depth cut "
+          f"to {cfg.n_layers} of {full.n_layers} layers; init {t1 - t0:.1f}"
+          f" s, host packing {time.perf_counter() - t1:.1f} s (density "
+          f"{LM_DENSITY}, {LM_SHARDS} shards); in"
+          f"{'/gate' if 'gate_indices' in sp else ''} indices "
           f"{list(sp['in_indices'].shape)}, out indices "
           f"{list(sp['out_indices'].shape)}")
     return cfg, params
@@ -664,13 +689,15 @@ def lm_oracle_phase(cfg, params):
     for period in p32["blocks"]:
         new = {}
         for key, bp in period.items():
-            sp = bp["ffn_sparse"]
+            src, leaf = sparse_leaf(bp)
+            sp = bp[leaf]
             Fp = sp["in_indices"].shape[0] * chunk
-            new[key] = dict(bp, ffn={
-                "w_in": densify(sp, "in", D, chunk)[:D],
-                "w_gate": densify(sp, "gate", D, chunk)[:D],
-                "w_out": densify(sp, "out", Fp, chunk)[:, :D]})
-            del new[key]["ffn_sparse"]
+            dense = {"w_in": densify(sp, "in", D, chunk)[:D],
+                     "w_out": densify(sp, "out", Fp, chunk)[:, :D]}
+            if "gate_indices" in sp:
+                dense["w_gate"] = densify(sp, "gate", D, chunk)[:D]
+            new[key] = dict(bp, **{src: dict(bp[src], **dense)})
+            del new[key][leaf]
         oracle["blocks"].append(new)
     cfg_dense = dataclasses.replace(cfg32, sparse_ffn=False)
     dev = params["embed"].device
@@ -687,7 +714,8 @@ def lm_oracle_phase(cfg, params):
     do, _ = M.decode_step(oracle, cfg_dense, nxt, cache_o, pos)
     _, rel_d = errors(ds, do)
     torch_sync()
-    print(f"oracle (fp32, {cfg.n_layers} layers, {B} prompts of {S}): "
+    print(f"oracle ({cfg.name}, fp32, {cfg.n_layers} layers, {B} prompts "
+          f"of {S}): "
           f"prefill logits rel err {rel_p:.3e}, decode_step logits rel err "
           f"{rel_d:.3e} vs densified-weight FFNs (torch.matmul, TF32 off)")
     require(rel_p <= TOL and rel_d <= TOL,
@@ -695,6 +723,169 @@ def lm_oracle_phase(cfg, params):
     require(bool(torch.isfinite(ls).all() and torch.isfinite(ds).all())
             and tuple(ds.shape) == (B, 1, cfg.padded_vocab),
             "LM oracle: logits not finite or of the wrong shape")
+
+
+def walker_ffn_phase(params, cfg, card):
+    """Phase 9: the work-list FFN schedule on layer 0's packed FFN. Returns
+    the walker's two-stream records and its main-path launches."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.worklist_core import (WALK, schedule_counters,
+                                                   worklist_spmm,
+                                                   worklist_spmm_plain)
+    from repro_torch.sparsity.sparse_ffn import densify, sparse_ffn_apply
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sp = params["blocks"][0]["p0"]["ffn_sparse"]
+    dev = sp["in_vals"].device
+    chunk, sub_m = 128, 8
+    nb_in, mnz = sp["in_indices"].shape
+    D, Fp = cfg.d_model, nb_in * chunk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    w_lib = torch.cat([densify(sp, "in", D, chunk),
+                       densify(sp, "gate", D, chunk)], 1)
+    recs, main_launches = [], 0
+    for regime, rows in (("decode", 2), ("decode", LM_SLOTS),
+                         ("prefill", LM_PROMPT)):
+        x16 = torch.randn((rows, D), generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"{regime} ({rows} rows), {str(dtype).split('.')[-1]}"
+            v = {k: (t.to(dtype) if t.is_floating_point() else t)
+                 for k, t in sp.items()}
+            x = x16.to(dtype)
+            # the main path, through the user's entry point, counted from 0
+            WALK.launches = 0
+            out_c = sparse_ffn_apply(v, x, cfg.act, schedule="compact")
+            torch_sync()
+            require(WALK.launches == 2, f"compact FFN {tag}: the walker "
+                    f"launched {WALK.launches} times, expected 2")
+            main_launches += WALK.launches
+            out_d = sparse_ffn_apply(v, x, cfg.act)
+            torch_sync()
+            diff = float((out_c.float() - out_d.float()).abs().max())
+            require(torch.equal(out_c, out_d), f"compact FFN {tag} != dense "
+                    f"grid: max abs diff {diff:.3e}")
+            # the schedule against the host model of its step counts
+            x2, _, _ = ops._pad_rows_k(x, D, sub_m)
+            occ = ops.activation_occupancy(x2, sub_m, chunk).bool()
+            wl = ops._worklist_for(x2, v["in_indices"], v["gate_indices"],
+                                   sub_m, chunk, compact_activations=True,
+                                   wl_cache=None)
+            sched = schedule_counters(wl, predicated_steps=ops.
+                                      _predicated_steps(rows, nb_in, mnz,
+                                                        sub_m))
+            model = ops.schedule_stats(None, v["in_indices"], bk=chunk,
+                                       occ=occ,
+                                       gate_indices=v["gate_indices"])
+            for key, src in (("scheduled_steps", "scheduled_steps"),
+                             ("live_chunk_steps", "live_chunk_steps"),
+                             ("flush_only_steps", "dead_pairs"),
+                             ("dense_grid_steps", "dense_grid_steps")):
+                require(sched[key] == int(model[src]),
+                        f"schedule {tag}: {key} {sched[key]} != host model "
+                        f"{int(model[src])}")
+            if regime == "decode":
+                require(sched["compaction_factor"] == 16.0,
+                        f"schedule {tag}: compaction "
+                        f"{sched['compaction_factor']:.2f}, expected 16.00")
+            # the walker's two-stream mode against its plain version
+            kw = dict(vals2=v["gate_vals"], bk=chunk, bn=chunk,
+                      bm_rows=sub_m, act=cfg.act)
+            args = (x2, v["in_vals"], wl)
+            h = worklist_spmm(*args, **kw)[0]
+            ph = worklist_spmm_plain(*args, sub_m=sub_m,
+                                     emit_occupancy=False, **kw)[0]
+            torch_sync()
+            require(bool((h[rows:] == 0).all()),
+                    f"K1 {tag}: padded rows are not exact zeros")
+            ulps = None
+            if dtype == torch.float32:
+                a1, r1 = errors(h, ph)
+                require(r1 <= TOL, f"K1 {tag}: rel err {r1:.3e}")
+                h32, ph32 = h, ph
+            else:
+                a1, r1 = errors(h.float(), ph.float())
+                ulps = check_bf16(f"K1 {tag}", h, ph, h32, ph32)
+            # the bound: the live sub-block MACs of both streams (at 8-row
+            # blocks the walker MACs exactly those), each input read once
+            executed = [float(ops.sparse_matmul_tile_stats(
+                x2, v[f"{r}_indices"], k_total=D, bk=chunk,
+                sub_m=sub_m)["executed"]) for r in ("in", "gate")]
+            live = [int((wl.k >= 0).sum()), int((wl.k2 >= 0).sum())]
+            require(live == [int(e) for e in executed],
+                    f"K1 {tag}: live steps {live} != occupied sub-block "
+                    f"MACs {executed}")
+            eb = x.element_size()
+            flops = 2.0 * sub_m * chunk * chunk * sum(executed)
+            stored = sum(int((v[f"{r}_indices"] >= 0).sum())
+                         for r in ("in", "gate"))
+            nbytes = (eb * (rows * D + stored * chunk * chunk + rows * Fp)
+                      + 4.0 * (3 * wl.num_steps + wl.num_pairs + 1))
+            peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+            b1, by1 = bound(flops, nbytes, peak)
+            k_ms = cuda_ms(lambda: worklist_spmm(*args, **kw), reps=20)
+            p_ms = cuda_ms(lambda: worklist_spmm_plain(
+                *args, sub_m=sub_m, emit_occupancy=False, **kw), reps=5)
+            wd = w_lib.to(dtype)
+            l_ms = cuda_ms(lambda: torch.matmul(x, wd), reps=20)
+            at = (f"Qwen3-4B layer 0 FFN in/gate, two streams, {tag}, "
+                  f"bk=bn={chunk} bm_rows=sub_m={sub_m}, density "
+                  f"{LM_DENSITY}")
+            print(f"work-list FFN @ {at} [{card}]")
+            print(f"  compact schedule bitwise equal to the dense grid (fused"
+                  f" FFN, sparse matmul); walker launched 2 times; schedule "
+                  f"{sched['scheduled_steps']} steps "
+                  f"({sched['live_chunk_steps']} live, "
+                  f"{sched['flush_only_steps']} flush-only) = host "
+                  f"model, predicated {sched['predicated_grid_steps']}, "
+                  f"compaction {sched['compaction_factor']:.2f}x")
+            print(f"  walker (K1, two streams, {cfg.act}): max abs err "
+                  f"{a1:.3e}, max rel err {r1:.3e}{ulp_note(ulps)}; kernel "
+                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b1:.4f} ms "
+                  f"({by1}), matmul [W_in|W_gate] {l_ms:.4f} ms (no "
+                  f"activation)")
+            recs.append({"at": at, "max_abs_err": a1, "max_rel_err": r1,
+                         "bf16_worst_ulps": ulps[0] if ulps else None,
+                         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b1,
+                         "bound_by": by1, "library_ms": l_ms,
+                         "compaction_factor": sched["compaction_factor"]})
+    return recs, main_launches
+
+
+def channel_mix_compact_phase(params, cfg):
+    """Phase 10's compact check: one RWKV channel-mix (layer 0, relu2)
+    through the work-list schedule, the walker's one-stream relu2 epilogue,
+    bitwise equal to the dense grid at decode and prefill. Returns the
+    walker's main-path launches."""
+    import torch
+    from repro_torch.kernels.worklist_core import WALK
+    from repro_torch.sparsity.sparse_ffn import sparse_ffn_apply
+    sp = params["blocks"][0]["p0"]["channel_mix_sparse"]
+    dev = sp["in_vals"].device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    launches = 0
+    for regime, rows in (("decode", LM_SLOTS), ("prefill", LM_PROMPT)):
+        x16 = torch.randn((rows, cfg.d_model), generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        for dtype in (torch.float32, torch.bfloat16):
+            v = {k: (t.to(dtype) if t.is_floating_point() else t)
+                 for k, t in sp.items()}
+            x = x16.to(dtype)
+            tag = f"{regime} ({rows} rows), {str(dtype).split('.')[-1]}"
+            WALK.launches = 0
+            out_c = sparse_ffn_apply(v, x, "relu2", schedule="compact")
+            torch_sync()
+            require(WALK.launches == 2, f"compact channel-mix {tag}: the "
+                    f"walker launched {WALK.launches} times, expected 2")
+            launches += WALK.launches
+            out_d = sparse_ffn_apply(v, x, "relu2")
+            torch_sync()
+            diff = float((out_c.float() - out_d.float()).abs().max())
+            require(torch.equal(out_c, out_d), f"compact channel-mix {tag} "
+                    f"!= dense grid: max abs diff {diff:.3e}")
+            print(f"  channel-mix (layer 0, relu2) {tag}: compact schedule "
+                  f"bitwise equal to the dense grid")
+    return launches
 
 
 def main() -> int:
@@ -732,8 +923,25 @@ def main() -> int:
     dev = torch.device("cuda")
     cfg, params = build_lm(dev)
     recs = ffn_kernel_phase(params, cfg, card)     # phase 6
-    launches = lm_serving_phase(cfg, params, card)  # phase 7
+    launches = {"qwen3_4b_serving": lm_serving_phase(cfg, params, card)}
     lm_oracle_phase(cfg, params)                   # phase 8
+    k1_recs, k1_qwen = walker_ffn_phase(params, cfg, card)   # phase 9
+    del params
+    torch.cuda.empty_cache()
+    rcfg, rparams = build_lm(dev, RWKV_ARCH)       # phase 10
+    launches["rwkv6_3b_serving"] = lm_serving_phase(rcfg, rparams, card)
+    k1_rwkv = channel_mix_compact_phase(rparams, rcfg)
+    lm_oracle_phase(rcfg, rparams)
+
+    walker = kernels[0]
+    walker["shapes"] += k1_recs
+    walker["launches_by_path"] = {
+        "vgg16_engine": walker["launches"],
+        "qwen3_4b_ffn_compact": k1_qwen,
+        "rwkv6_3b_channel_mix_compact": k1_rwkv}
+    walker["launches"] = sum(walker["launches_by_path"].values())
+    for key in ("max_abs_err", "max_rel_err"):
+        walker[key] = max(r[key] for r in walker["shapes"])
     meta = {
         "k3": ("bitmask_spmm", "src/repro_torch/csrc/bitmask_spmm.cu",
                "src/repro/kernels/bitmask_spmm.py:118"),
@@ -744,9 +952,11 @@ def main() -> int:
         # headline: the decode regime in bf16, what serving runs most
         head = next(r for r in recs[key]
                     if r["at"].find("decode") >= 0 and "bfloat16" in r["at"])
+        by_path = {path: n[key] for path, n in launches.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[key],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in recs[key]),
             "max_rel_err": max(r["max_rel_err"] for r in recs[key]),
             "ms": head["ms"], "kernel_ms": head["ms"],

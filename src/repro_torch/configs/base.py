@@ -3,8 +3,9 @@
 Every architecture is a :class:`ModelConfig` in its own module
 (``repro_torch/configs/<id>.py``) exposing ``CONFIG`` plus a ``smoke()``
 reduced variant of the same family. Only the archs the port can run are
-here: ``qwen3_4b`` (gated SwiGLU FFN) and ``nemotron_4_340b`` (squared-ReLU
-FFN; its smoke config is the port's non-gated test model).
+here: ``qwen3_4b`` (gated SwiGLU FFN), ``nemotron_4_340b`` (squared-ReLU
+FFN; its smoke config is the port's non-gated test model) and ``rwkv6_3b``
+(attention-free RWKV6 blocks, squared-ReLU channel-mix).
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import Optional, Tuple
 
 import torch
 
-ARCHS = ["nemotron_4_340b", "qwen3_4b"]
+ARCHS = ["nemotron_4_340b", "qwen3_4b", "rwkv6_3b"]
 
 
 @dataclasses.dataclass(frozen=True)

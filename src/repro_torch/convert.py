@@ -91,8 +91,10 @@ def _leaf(a, device: torch.device) -> torch.Tensor:
 
 def params_from_reference(params: Mapping, *, device="cuda") -> dict:
     """The port's LM params from the reference's params pytree, given as
-    numpy arrays (``jax.tree.map(np.asarray, params)``): dense leaves, and
-    the ``ffn_sparse`` packed leaves of ``sparsify_model`` when present.
+    numpy arrays (``jax.tree.map(np.asarray, params)``): dense leaves in
+    their own dtypes (an RWKV block's fp32 ``w_decay_base`` and ``u_bonus``
+    beside its model-dtype weights), and the ``ffn_sparse`` /
+    ``channel_mix_sparse`` packed leaves of ``sparsify_model`` when present.
 
     The reference stacks every block leaf over periods ([P, ...]) under
     ``params["blocks"]["p<i>"]``; the port holds one dict per period,

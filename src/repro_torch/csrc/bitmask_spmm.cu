@@ -61,7 +61,8 @@ bitmask_spmm_kernel(const T* __restrict__ x, const T* __restrict__ vals,
                            vals + ((long)n * max_nz + j) * bk * bn, occ, kc,
                            K, kb, bk, bn, sub_m, two_sided, count_macs);
   }
-  tile::flush<TN, T>(acc, g.t, s, out, nullptr, n, nb, bn, sub_m, 0, 0);
+  tile::flush<TN, T>(acc, g.t, s, out, nullptr, n, nb, bn, sub_m,
+                     tile::ACT_NONE, 0);
   __syncthreads();
   if (count_macs && s.tid == 0)
     counts[(long)p * gridDim.y + blockIdx.y] = g.cnt;

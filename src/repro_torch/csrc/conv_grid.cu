@@ -88,7 +88,8 @@ conv_grid_kernel(const float* __restrict__ x, const float* __restrict__ vals,
                               vals + ((long)n * max_nz + j) * bk * bn, K, bk,
                               bn, lv);
   }
-  tile::flush(acc, sm, s, out, occ_out, n, nb, bn, sub_m, relu, emit_occ);
+  tile::flush(acc, sm, s, out, occ_out, n, nb, bn, sub_m,
+              relu ? tile::ACT_RELU : tile::ACT_NONE, emit_occ);
   __syncthreads();
   if (count_macs && s.tid == 0)
     counts[(long)p * gridDim.y + blockIdx.y] = cnt;

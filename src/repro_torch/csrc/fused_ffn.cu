@@ -13,10 +13,11 @@
 // gate_vals[n, j] into a second accumulator g; when two-sided each stream
 // skips the sub_m-row sub-blocks whose occupancy bit for its own chunk is 0.
 // At the flush it applies the activation in fp32 (relu, relu2, tanh-GELU;
-// silu(g) * h for swiglu, gelu(g) * h for geglu; the formulas of
-// repro_torch.kernels.worklist_core.activate) and writes the activated
-// hidden tile in the storage type of x (fp32, or bf16 rounded to nearest
-// even). Rows that are all zero stay exactly zero: every act maps 0 to 0.
+// silu(g) * h for swiglu, gelu(g) * h for geglu: tile::activate, the
+// formulas of repro_torch.kernels.worklist_core.activate, shared with the
+// walker's flush) and writes the activated hidden tile in the storage type
+// of x (fp32, or bf16 rounded to nearest even). Rows that are all zero stay
+// exactly zero: every act maps 0 to 0.
 //
 // Design. The block of the dense grid (tile.cuh, as in bitmask_spmm.cu):
 // one CUDA block per (n, m, 64-row slice), the j loop inside it, each stream
@@ -36,30 +37,6 @@
 #include "tile.cuh"
 
 namespace {
-
-enum Act { RELU = 0, RELU2 = 1, GELU = 2, SWIGLU = 3, GEGLU = 4 };
-
-__device__ inline float gelu_tanh(float v) {
-  const float k = 0.7978845608028654f;  // sqrt(2 / pi)
-  return 0.5f * v * (1.f + tanhf(k * (v + 0.044715f * v * v * v)));
-}
-
-__device__ inline float activate(float h, float g, int act) {
-  switch (act) {
-    case RELU:
-      return fmaxf(h, 0.f);
-    case RELU2: {
-      const float r = fmaxf(h, 0.f);
-      return r * r;
-    }
-    case GELU:
-      return gelu_tanh(h);
-    case SWIGLU:
-      return g / (1.f + expf(-g)) * h;
-    default:  // GEGLU
-      return gelu_tanh(g) * h;
-  }
-}
 
 template <int TN, typename T, bool GATED>
 __global__ void __launch_bounds__(tile::THREADS)
@@ -92,16 +69,11 @@ fused_ffn_kernel(const T* __restrict__ x, const T* __restrict__ in_vals,
                                kg, K, kb, bk, bn, sub_m, two_sided, 0);
     }
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < TN; ++c) {
-      if constexpr (GATED)
-        h[i][c] = activate(h[i][c], gt[i][c], act);
-      else
-        h[i][c] = activate(h[i][c], 0.f, act);
-    }
-  tile::flush<TN, T>(h, g.t, s, out, nullptr, n, nb, bn, sub_m, 0, 0);
+  if constexpr (GATED)
+    tile::flush<TN, T, true>(h, gt, g.t, s, out, nullptr, n, nb, bn, sub_m,
+                             act, 0);
+  else
+    tile::flush<TN, T>(h, g.t, s, out, nullptr, n, nb, bn, sub_m, act, 0);
 }
 
 template <int TN, typename T>
@@ -111,7 +83,7 @@ void launch_tn(const T* x, const T* in_vals, const int* in_idx,
                int bm_rows, int sub_m, int two_sided, int act,
                cudaStream_t st) {
   const dim3 grid(nb * mb, (bm_rows + tile::RS - 1) / tile::RS);
-  if (act == SWIGLU || act == GEGLU)
+  if (act == tile::ACT_SWIGLU || act == tile::ACT_GEGLU)
     fused_ffn_kernel<TN, T, true><<<grid, tile::THREADS, 0, st>>>(
         x, in_vals, in_idx, gate_vals, gate_idx, occ, out, K, nb, mb, max_nz,
         bk, bn, bm_rows, sub_m, two_sided, act);
@@ -157,7 +129,8 @@ extern "C" int fused_ffn_spmm(const void* x, const void* in_vals,
                               int two_sided, int act, int bf16,
                               void* stream) {
   (void)M;
-  if (act < RELU || act > GEGLU) return static_cast<int>(cudaErrorInvalidValue);
+  if (act < tile::ACT_RELU || act > tile::ACT_GEGLU)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
     return launch<__nv_bfloat16>(x, in_vals, in_idx, gate_vals, gate_idx, occ,

@@ -24,6 +24,18 @@
 // slot code inline in its own loop: routed through grid_slot it ran 1.5%
 // slower at VGG16 layer 8 on an H100 (ptxas schedules the inner loop
 // differently).
+//
+// Epilogue. flush applies activate (the table of
+// repro_torch.kernels.worklist_core.activate) to the fp32 accumulator, and
+// for the gated acts to a second one, before the one rounding at the store.
+// The walker (walk.cu) and the fused FFN (fused_ffn.cu) both flush here, so
+// a work-list schedule and the dense grid give bit for bit the same hidden
+// tile when their sums agree: one out-of-line activate, the same expf,
+// tanhf and operation order. None and ReLU, the conv kernels' epilogues,
+// stay inline. Measured on an H100 (PERF.md, PR 14): activate inlined at
+// every element cost the fused FFN 2.4-3.3% (its main loop scheduled
+// differently), and a call per element for ReLU cost the dense-grid conv 8%
+// at VGG16 layer 1, where the epilogue is a large share of a short block.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -33,6 +45,42 @@ namespace tile {
 constexpr int RS = 64;        // rows per block: one slice of a row block
 constexpr int KS = 32;        // k-slab depth staged in shared memory
 constexpr int THREADS = 256;  // 16 x 16 threads
+
+// Activation codes (repro_torch.kernels.worklist_core.ACT_CODE).
+enum Act {
+  ACT_NONE = -1,
+  ACT_RELU = 0,
+  ACT_RELU2 = 1,
+  ACT_GELU = 2,
+  ACT_SWIGLU = 3,
+  ACT_GEGLU = 4
+};
+
+__device__ inline float gelu_tanh(float v) {
+  const float k = 0.7978845608028654f;  // sqrt(2 / pi)
+  return 0.5f * v * (1.f + tanhf(k * (v + 0.044715f * v * v * v)));
+}
+
+// act(h) for the one-stream acts; silu(g) * h and gelu(g) * h for the gated
+// ones. Every act maps 0 to 0, so a row that is all zero stays exactly zero.
+static __device__ __noinline__ float activate(float h, float g, int act) {
+  switch (act) {
+    case ACT_NONE:
+      return h;
+    case ACT_RELU:
+      return fmaxf(h, 0.f);
+    case ACT_RELU2: {
+      const float r = fmaxf(h, 0.f);
+      return r * r;
+    }
+    case ACT_GELU:
+      return gelu_tanh(h);
+    case ACT_SWIGLU:
+      return g / (1.f + expf(-g)) * h;
+    default:  // ACT_GEGLU
+      return gelu_tanh(g) * h;
+  }
+}
 
 __device__ inline float widen(float v) { return v; }
 __device__ inline float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -163,19 +211,22 @@ __device__ inline void grid_slot(float (&acc)[4][TN], GridSmem<TN>& g,
                          K, bk, bn, lv);
 }
 
-// Epilogue: ReLU or nothing, write block column n of the slice into out
-// [M, nb*bn] and, with emit_occ, occ_out[row / sub_m, n] = any output of
-// those sub_m rows != 0. Every thread of the block must call it.
-template <int TN, typename T>
-__device__ inline void flush(const float (&acc)[4][TN], Smem<TN>& sm,
+// Epilogue: act(acc[, acc2]) (activate above; acc2 is read only when
+// GATED), write block column n of the slice into out [M, nb*bn] and, with
+// emit_occ, occ_out[row / sub_m, n] = any output of those sub_m rows != 0.
+// Every thread of the block must call it.
+template <int TN, typename T, bool GATED>
+__device__ inline void flush(const float (&acc)[4][TN],
+                             const float (&acc2)[4][TN], Smem<TN>& sm,
                              const Slice& s, T* out, int* occ_out, int n,
-                             int nb, int bn, int sub_m, int relu,
+                             int nb, int bn, int sub_m, int act,
                              int emit_occ) {
   if (emit_occ) {
     if (s.tid < RS) sm.row_nz[s.tid] = 0;
     __syncthreads();
   }
   const long ldo = (long)nb * bn;
+  const bool inline_act = act == ACT_NONE || act == ACT_RELU;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = s.ty * 4 + i;
@@ -183,8 +234,10 @@ __device__ inline void flush(const float (&acc)[4][TN], Smem<TN>& sm,
 #pragma unroll
     for (int c = 0; c < TN; ++c) {
       const int col = s.tx + 16 * c;
-      float v = acc[i][c];
-      if (relu) v = fmaxf(v, 0.f);
+      const float h = acc[i][c];
+      const float v =
+          inline_act ? (act == ACT_RELU ? fmaxf(h, 0.f) : h)
+                     : activate(h, GATED ? acc2[i][c] : 0.f, act);
       if (r < s.rows && col < bn) {
         store(out + (s.row_base + r) * ldo + (long)n * bn + col, v);
         nz |= (v != 0.f);
@@ -200,6 +253,16 @@ __device__ inline void flush(const float (&acc)[4][TN], Smem<TN>& sm,
       occ_out[(s.row_base / sub_m + s.tid) * nb + n] = any;
     }
   }
+}
+
+// The one-accumulator flush (every act but swiglu and geglu).
+template <int TN, typename T>
+__device__ inline void flush(const float (&acc)[4][TN], Smem<TN>& sm,
+                             const Slice& s, T* out, int* occ_out, int n,
+                             int nb, int bn, int sub_m, int act,
+                             int emit_occ) {
+  flush<TN, T, false>(acc, acc, sm, s, out, occ_out, n, nb, bn, sub_m, act,
+                      emit_occ);
 }
 
 }  // namespace tile

@@ -15,6 +15,9 @@ PyTorch: the plain version of this kernel, of the fused FFN kernel
 (:mod:`repro_torch.kernels.fused_ffn`) and of the conv dense grid
 (:mod:`repro_torch.kernels.sparse_conv`). On a CUDA tensor
 :func:`bitmask_spmm` launches ``csrc/bitmask_spmm.cu``.
+
+:func:`bitmask_spmm_wl` is the same product over a compacted work list
+(the walker of :mod:`repro_torch.kernels.worklist_core`).
 """
 from __future__ import annotations
 
@@ -22,20 +25,19 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels._cuda import CudaKernel, I, KERNEL_ROW_SLICE, P, \
-    check_cuda_tensor, ptr
-from repro_torch.kernels.worklist_core import (DEFAULT_BM, LANE,
+from repro_torch.kernels._cuda import (KERNEL_DTYPES, KERNEL_ROW_SLICE,
+                                       CudaKernel, I, P, check_cuda_tensor,
+                                       ptr)
+from repro_torch.kernels.worklist_core import (DEFAULT_BM, LANE, WorkList,
                                                _tile_output,
-                                               activation_occupancy)
+                                               activation_occupancy,
+                                               worklist_spmm)
 
 BITMASK_SPMM = CudaKernel("bitmask_spmm.cu", "bitmask_spmm", [
     P, P, P, P, P, P,                    # x vals indices occ out counts
     I, I, I, I, I, I, I, I, I,           # M K nb mb max_nz bk bn bm sub_m
     I, I, I,                             # two_sided count_macs bf16
     P])                                  # stream
-
-# storage types the CUDA kernels take (fp32 arithmetic either way)
-KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def check_grid(x: torch.Tensor, bk: int, bm: int, sub_m: int) -> None:
@@ -153,3 +155,20 @@ def bitmask_spmm(x: torch.Tensor, indices: torch.Tensor, vals: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"no bitmask_spmm kernel for device {x.device}")
     return _bitmask_spmm_cuda(x, indices, vals, **kw)
+
+
+def bitmask_spmm_wl(x: torch.Tensor, vals: torch.Tensor, wl: WorkList, *,
+                    bk: int = LANE, bn: int = LANE,
+                    bm_rows: int = DEFAULT_BM) -> torch.Tensor:
+    """Work-list-compacted ``x @ W``: the FFN-shaped frontend of
+    :func:`~repro_torch.kernels.worklist_core.worklist_spmm`.
+
+    Where :func:`bitmask_spmm` runs the dense ``(nb, mb, max_nz)`` grid and
+    predicates dead sub-blocks in-lane, this runs exactly ``wl.num_steps``
+    scheduled steps. Built at ``bm_rows = sub_m`` granularity, a decode
+    batch schedules exactly its live (row sub-block, k-chunk) pairs — the
+    §3.2 telescoping applied to the FFN decode path. Bit for bit what
+    :func:`bitmask_spmm` gives, on the card and in the plain versions' fp32
+    within rounding.
+    """
+    return worklist_spmm(x, vals, wl, bk=bk, bn=bn, bm_rows=bm_rows)[0]

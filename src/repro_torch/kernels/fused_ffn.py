@@ -9,7 +9,9 @@ output projection is a second, two-sided :func:`bitmask_spmm` launch fed
 by the activation zeros.
 
 On a CUDA tensor :func:`fused_ffn_spmm` launches ``csrc/fused_ffn.cu``; on
-a CPU tensor it runs :func:`fused_ffn_spmm_plain`.
+a CPU tensor it runs :func:`fused_ffn_spmm_plain`. :func:`fused_ffn_spmm_wl`
+is the same function over a compacted (two-stream, for the gated acts)
+work list, run by the walker of :mod:`repro_torch.kernels.worklist_core`.
 """
 from __future__ import annotations
 
@@ -22,14 +24,11 @@ from repro_torch.kernels._cuda import CudaKernel, I, P, check_cuda_tensor, \
     ptr
 from repro_torch.kernels.bitmask_spmm import (KERNEL_DTYPES, check_grid,
                                               subblock_macs)
-from repro_torch.kernels.worklist_core import (DEFAULT_BM, LANE,
+from repro_torch.kernels.worklist_core import (ACT_CODE, ACTS, DEFAULT_BM,
+                                               GATED_ACTS, LANE, WorkList,
                                                _tile_output, activate,
-                                               activation_occupancy)
-
-GATED_ACTS = ("swiglu", "geglu")
-ACTS = ("relu", "relu2", "gelu") + GATED_ACTS
-# the activation codes of csrc/fused_ffn.cu
-_ACT_CODE = {a: i for i, a in enumerate(ACTS)}
+                                               activation_occupancy,
+                                               worklist_spmm)
 
 FUSED_FFN = CudaKernel("fused_ffn.cu", "fused_ffn_spmm", [
     P, P, P, P, P, P, P,                 # x in_vals in_idx gate_vals gate_idx
@@ -106,7 +105,7 @@ def _fused_ffn_spmm_cuda(x, in_idx, in_vals, gate_idx, gate_vals, *, act,
                      in_idx.data_ptr(), ptr(gate_vals), ptr(gate_idx),
                      occ.data_ptr(), out.data_ptr(), M, K, nb, M // bm,
                      max_nz, bk, bn, bm, sub_m, int(two_sided),
-                     _ACT_CODE[act], int(x.dtype == torch.bfloat16))
+                     ACT_CODE[act], int(x.dtype == torch.bfloat16))
     return out
 
 
@@ -143,3 +142,27 @@ def fused_ffn_spmm(x: torch.Tensor, in_idx: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"no fused FFN kernel for device {x.device}")
     return _fused_ffn_spmm_cuda(x, in_idx, in_vals, gate_idx, gate_vals, **kw)
+
+
+def fused_ffn_spmm_wl(x: torch.Tensor, in_vals: torch.Tensor, wl: WorkList,
+                      gate_vals: Optional[torch.Tensor] = None, *, act: str,
+                      bk: int = LANE, bn: int = LANE,
+                      bm_rows: int = DEFAULT_BM) -> torch.Tensor:
+    """Work-list-compacted fused FFN: ``act(x @ W_in [, x @ W_gate])``.
+
+    ``wl`` comes from :func:`~repro_torch.kernels.worklist_core.build_worklist`
+    — for the gated acts a two-stream list (``gate_indices`` at build time)
+    whose slots are the union of the in and gate live sets, each stream
+    adding its chunks in its own ascending-j order, so the fp32 sum order
+    (and on the card the bits) matches :func:`fused_ffn_spmm`. Built at
+    ``bm_rows = sub_m`` granularity the schedule holds exactly the live
+    (row sub-block, k-chunk) pairs — the decode-path telescoping.
+    """
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {ACTS}, got {act!r}")
+    gated = act in GATED_ACTS
+    if (gate_vals is not None) != gated:
+        raise ValueError(f"act {act!r} {'needs' if gated else 'takes no'} "
+                         "gate operands")
+    return worklist_spmm(x, in_vals, wl, vals2=gate_vals, bk=bk, bn=bn,
+                         bm_rows=bm_rows, act=act)[0]

@@ -8,9 +8,11 @@ packed chunk, and runs the predicated kernel;
 arrays, the form the model carries in its params
 (``sparsity.sparse_ffn.sparsify_model``).
 
-The work-list (compacted) FFN variants need the walker's second stream,
-which is not ported yet: ``sparse_matmul_packed_wl`` and
-``fused_sparse_ffn_wl`` raise ``NotImplementedError``.
+``sparse_matmul_packed_wl`` / ``fused_sparse_ffn_wl`` are the work-list
+(compacted) variants: the schedule is built on the host at ``sub_m``-row
+granularity, so a decode batch schedules only its live (row sub-block,
+k-chunk) pairs, and the walker runs it (two weight streams for the gated
+FFN). Eager only: the schedule is host data.
 """
 from __future__ import annotations
 
@@ -20,10 +22,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import bitmask as bm
-from repro_torch.kernels.bitmask_spmm import bitmask_spmm
-from repro_torch.kernels.fused_ffn import fused_ffn_spmm
+from repro_torch.kernels.bitmask_spmm import bitmask_spmm, bitmask_spmm_wl
+from repro_torch.kernels.fused_ffn import (GATED_ACTS, align_chunk_lists,
+                                           fused_ffn_spmm, fused_ffn_spmm_wl)
 from repro_torch.kernels.worklist_core import (  # noqa: F401 (re-exports)
-    DEFAULT_BM, activation_occupancy, schedule_stats)
+    DEFAULT_BM, WorkList, activation_occupancy, build_worklist,
+    schedule_counters, schedule_stats)
 
 # the reference's name for the schedule model (autotune and the vision
 # stats path call it so)
@@ -131,15 +135,106 @@ def _predicated_steps(M: int, nb: int, max_nz: int, sub_m: int,
     return nb * mb128 * (bm_rows // sub_m) * max_nz
 
 
-def sparse_matmul_packed_wl(*args, **kwargs):
-    """Work-list-compacted ``x @ W``: needs the walker's second stream,
-    which a later slice ports."""
-    raise NotImplementedError(
-        "sparse_matmul_packed_wl needs the two-stream walker, not ported yet")
+def _worklist_for(x2: torch.Tensor, indices: torch.Tensor,
+                  gate_indices: Optional[torch.Tensor], sub_m: int, bk: int,
+                  *, compact_activations: bool,
+                  wl_cache: Optional[dict]) -> WorkList:
+    """Schedule of an FFN-shaped work-list launch, ``x2`` already padded to
+    ``sub_m``-row blocks and ``k_total`` columns. With
+    ``compact_activations`` the per-pair lists also intersect the live
+    activation sub-blocks of ``x2`` (data: built per call, from one host
+    copy of the indices and the occupancy); without it the static
+    pack-time schedule is cached in ``wl_cache`` per row-block count.
+    Eager calls only: the schedule is host data."""
+    if torch.jit.is_tracing() or torch.compiler.is_compiling():
+        raise ValueError(
+            "work-list FFN schedules are built on the host from concrete "
+            "indices (and, when compact_activations, activations): eager "
+            "calls only; under tracing or torch.compile use the dense "
+            "schedule")
+    mb = x2.shape[0] // sub_m
+    if not compact_activations and wl_cache is not None and mb in wl_cache:
+        return wl_cache[mb]
+    parts = [indices.reshape(-1)]
+    if gate_indices is not None:
+        parts.append(gate_indices.reshape(-1))
+    if compact_activations:
+        occ = activation_occupancy(x2, sub_m, bk)
+        parts.append(occ.reshape(-1).to(indices.device))
+    host = torch.cat(parts).cpu().numpy()            # one copy to the host
+    n_idx = indices.numel()
+    streams = 1 if gate_indices is None else 2
+    idx = host[:n_idx].reshape(indices.shape)
+    gate = host[n_idx:2 * n_idx].reshape(indices.shape) \
+        if streams == 2 else None
+    occ_blk = host[streams * n_idx:].reshape(mb, -1).astype(bool) \
+        if compact_activations else None
+    # lint: ignore[EAGER-GUARD] torch has no jax Tracer: guarded above
+    wl = build_worklist(idx, mb, occ_blk=occ_blk, gate_indices=gate)
+    if not compact_activations and wl_cache is not None:
+        wl_cache[mb] = wl
+    return wl
 
 
-def fused_sparse_ffn_wl(*args, **kwargs):
-    """Work-list-compacted fused FFN: needs the walker's second stream with
-    the gated acts, which a later slice ports."""
-    raise NotImplementedError(
-        "fused_sparse_ffn_wl needs the two-stream walker, not ported yet")
+def sparse_matmul_packed_wl(x: torch.Tensor, indices: torch.Tensor,
+                            vals: torch.Tensor, *, k_total: int, bk: int,
+                            bn: int, sub_m: int = 8,
+                            compact_activations: bool = True,
+                            wl_cache: Optional[dict] = None,
+                            return_schedule: bool = False):
+    """Work-list-compacted ``x @ W`` from raw packed arrays.
+
+    The telescoped decode path: the schedule is built at ``sub_m``-row
+    granularity, so a decode batch with one live lane schedules exactly its
+    live (row sub-block, k-chunk) pairs, where :func:`sparse_matmul_packed`
+    pads the batch to a 128-row block and predicates ``128 // sub_m``
+    sub-block steps per slot. Bit for bit what the predicated kernel gives
+    on the card. With ``return_schedule`` also returns the schedule-counters
+    record, with the compaction factor against the predicated grid.
+    """
+    x2, lead, M = _pad_rows_k(x, k_total, sub_m)
+    wl = _worklist_for(x2, indices, None, sub_m, bk,
+                       compact_activations=compact_activations,
+                       wl_cache=wl_cache)
+    out = bitmask_spmm_wl(x2, vals, wl, bk=bk, bn=bn, bm_rows=sub_m)
+    out = out[:M].reshape(*lead, indices.shape[0] * bn)
+    if return_schedule:
+        pred = _predicated_steps(M, *indices.shape, sub_m)
+        return out, schedule_counters(wl, predicated_steps=pred)
+    return out
+
+
+def fused_sparse_ffn_wl(x: torch.Tensor, in_idx: torch.Tensor,
+                        in_vals: torch.Tensor,
+                        gate_idx: Optional[torch.Tensor] = None,
+                        gate_vals: Optional[torch.Tensor] = None, *, act: str,
+                        k_total: int, bk: int, bn: int, sub_m: int = 8,
+                        compact_activations: bool = True,
+                        wl_cache: Optional[dict] = None,
+                        return_schedule: bool = False):
+    """Work-list-compacted fused FFN (``act(x @ W_in [, x @ W_gate])``).
+
+    The gated acts build a two-stream schedule over the union of the in and
+    gate live sets (their chunk lists aligned on one slot axis first, as in
+    :func:`fused_sparse_ffn`). Same eager-only, caching and compaction
+    semantics as :func:`sparse_matmul_packed_wl`; bit for bit what the
+    predicated fused kernel gives on the card.
+    """
+    gated = act in GATED_ACTS
+    if (gate_idx is not None) != gated or (gate_vals is not None) != gated:
+        raise ValueError(f"act {act!r} {'needs' if gated else 'takes no'} "
+                         "gate operands")
+    if gated and in_idx.shape[1] != gate_idx.shape[1]:
+        in_idx, in_vals, gate_idx, gate_vals = align_chunk_lists(
+            in_idx, in_vals, gate_idx, gate_vals)
+    x2, lead, M = _pad_rows_k(x, k_total, sub_m)
+    wl = _worklist_for(x2, in_idx, gate_idx, sub_m, bk,
+                       compact_activations=compact_activations,
+                       wl_cache=wl_cache)
+    h = fused_ffn_spmm_wl(x2, in_vals, wl, gate_vals, act=act, bk=bk, bn=bn,
+                          bm_rows=sub_m)
+    h = h[:M].reshape(*lead, in_idx.shape[0] * bn)
+    if return_schedule:
+        pred = _predicated_steps(M, *in_idx.shape, sub_m)
+        return h, schedule_counters(wl, predicated_steps=pred)
+    return h

@@ -1,23 +1,23 @@
 """Work-list sparse GEMM core (BARISTA §3.2 telescoped scheduling).
 
-Port of ``repro.kernels.worklist_core`` for the single-stream conv path:
+Port of ``repro.kernels.worklist_core``, the sparse runtime under the conv
+path and the work-list ("compact") FFN schedule:
 
 1. :func:`build_worklist` + :class:`WorkList` — compact a packed weight
-   chunk table (optionally ∩ the activation-chunk occupancy) into per-pair
-   slot lists and their flat pair-major serialization. Pure host numpy,
-   array-equal to the reference.
-2. :func:`worklist_spmm` — run the schedule. On a CUDA tensor it launches
-   the hand-written walker (``csrc/walk.cu``); on a CPU tensor it runs the
-   plain version :func:`worklist_spmm_plain` (gather the scheduled tile
-   pairs, one batched matmul, ``index_add_`` per (n, m) pair in schedule
-   order, epilogue) — the port of the reference's XLA executor.
+   chunk table (optionally ∩ the activation-chunk occupancy, and optionally
+   unioned with a second *gate* weight stream for the gated FFN) into
+   per-pair slot lists and their flat pair-major serialization. Pure host
+   numpy, array-equal to the reference.
+2. :func:`worklist_spmm` — run the schedule, one or two weight streams,
+   with any epilogue of :data:`ACTS`, in fp32 or bf16 storage. On a CUDA
+   tensor it launches the hand-written walker (``csrc/walk.cu``); on a CPU
+   tensor it runs the plain version :func:`worklist_spmm_plain` (gather the
+   scheduled tile pairs of each stream, one batched matmul each, the
+   products summed per (n, m) pair in schedule order, epilogue) — the port
+   of the reference's XLA executor (``segment_spmm``).
 3. :func:`schedule_stats` — the tensor model of the step counts
    :func:`build_worklist` schedules, and :func:`schedule_counters`, the
    record both engines report.
-
-The gated two-stream walk (``gate_indices`` / ``vals2``) belongs to the LM
-FFN path and is not ported yet: :func:`build_worklist` still builds the
-two-stream schedule on the host, but the executors take one stream.
 """
 from __future__ import annotations
 
@@ -28,8 +28,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels._cuda import CudaKernel, I, KERNEL_ROW_SLICE, P, \
-    check_cuda_tensor, ptr
+from repro_torch.kernels._cuda import (KERNEL_DTYPES, KERNEL_ROW_SLICE,
+                                       CudaKernel, I, P, check_cuda_tensor,
+                                       ptr)
 
 DEFAULT_BM = 128
 LANE = 128
@@ -38,10 +39,15 @@ LANE = 128
 # mesh-sharded work list stay within this fraction of the mean
 SHARD_BALANCE_TOL = 0.10
 
+GATED_ACTS = ("swiglu", "geglu")
+ACTS = ("relu", "relu2", "gelu") + GATED_ACTS
+# the activation codes of csrc/tile.cuh (None: the identity epilogue)
+ACT_CODE = {None: -1, **{a: i for i, a in enumerate(ACTS)}}
+
 WALK = CudaKernel("walk.cu", "walk_spmm", [
-    P, P, P, P, P, P, P,                 # x vals pair_ptr k j out occ
+    P, P, P, P, P, P, P, P, P,           # x vals vals2 pair_ptr k k2 j out occ
     I, I, I, I, I, I, I, I, I,           # M K nb mb max_nz bk bn bm sub_m
-    I, I, I, I,                          # relu emit_occ ncolors mb_per_img
+    I, I, I, I, I,                       # act emit_occ ncolors mb_per_img bf16
     P])                                  # stream
 
 
@@ -51,7 +57,9 @@ WALK = CudaKernel("walk.cu", "walk_spmm", [
 def activate(h: torch.Tensor, g: Optional[torch.Tensor],
              act: Optional[str]) -> torch.Tensor:
     """fp32 activation at the accumulator flush (``None`` = identity).
-    GELU is the tanh approximation, as ``jax.nn.gelu`` defaults to."""
+    GELU is the tanh approximation, as ``jax.nn.gelu`` defaults to; SiLU is
+    ``g / (1 + exp(-g))``, the formula of the kernels' flush
+    (``csrc/tile.cuh``)."""
     if act is None:
         return h
     if act == "relu":
@@ -62,7 +70,7 @@ def activate(h: torch.Tensor, g: Optional[torch.Tensor],
     if act == "gelu":
         return F.gelu(h, approximate="tanh")
     if act == "swiglu":
-        return F.silu(g) * h
+        return g / (1.0 + torch.exp(-g)) * h
     if act == "geglu":
         return F.gelu(g, approximate="tanh") * h
     raise ValueError(act)
@@ -155,11 +163,12 @@ def _build_combined(wl: "WorkList", mpi: int) -> CombinedSchedule:
 class DeviceSchedule:
     """What the walker kernel reads of a work list, on one device, built
     once and reused by every call: ``pair_ptr`` [nb*mb + 1] segment offsets
-    and ``k``/``j`` [T], all int32."""
+    and ``k``/``j`` [T], all int32, and ``k2`` [T] of a two-stream list."""
 
     pair_ptr: torch.Tensor
     k: torch.Tensor
     j: torch.Tensor
+    k2: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -194,8 +203,8 @@ class WorkList:
         default_factory=dict, repr=False, compare=False)
     _device: Dict[str, DeviceSchedule] = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
-    _live: Dict[str, Tuple[torch.Tensor, ...]] = dataclasses.field(
-        default_factory=dict, repr=False, compare=False)
+    _live: Dict[Tuple[str, int], Tuple[torch.Tensor, ...]] = \
+        dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     @property
     def num_steps(self) -> int:
@@ -234,23 +243,29 @@ class WorkList:
         key = str(torch.device(device))
         ds = self._device.get(key)
         if ds is None:
+            arrs = (self.pair_ptr(), self.k, self.j) + (
+                () if self.k2 is None else (self.k2,))
             ds = DeviceSchedule(*(
                 torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32,
-                                device=device)
-                for a in (self.pair_ptr(), self.k, self.j)))
+                                device=device) for a in arrs))
             self._device[key] = ds
         return ds
 
-    def live_steps(self, device) -> Tuple[torch.Tensor, ...]:
-        """``(n, m, k, j)`` int64 of the live steps on ``device``, for the
-        plain version (copied at its first call there, then cached)."""
-        key = str(torch.device(device))
+    def live_steps(self, device, stream: int = 0) -> Tuple[torch.Tensor, ...]:
+        """``(n, m, k, j)`` int64 on ``device`` of the steps where weight
+        stream ``stream`` (0: ``k``, 1: ``k2``) is live — a step can be live
+        in one stream only — for the plain version (copied at its first
+        call there, then cached)."""
+        key = (str(torch.device(device)), stream)
         live = self._live.get(key)
         if live is None:
-            sel = self.k >= 0
+            ks = self.k if stream == 0 else self.k2
+            if ks is None:
+                raise ValueError("a one-stream work list has no stream 1")
+            sel = ks >= 0
             live = tuple(torch.as_tensor(a[sel], dtype=torch.int64,
                                          device=device)
-                         for a in (self.n, self.m, self.k, self.j))
+                         for a in (self.n, self.m, ks, self.j))
             self._live[key] = live
         return live
 
@@ -458,9 +473,8 @@ def schedule_counters(wl: WorkList, *,
 # executors
 # ---------------------------------------------------------------------------
 def check_row_tiling(bm_rows: int, sub_m: int) -> None:
-    """Both conv kernels cut a row block into 64-row slices and emit
-    occupancy (and skip, in the dense grid) per ``sub_m`` rows inside one
-    slice."""
+    """The kernels cut a row block into 64-row slices and emit occupancy
+    (and skip, in the dense grid) per ``sub_m`` rows inside one slice."""
     if bm_rows % sub_m or KERNEL_ROW_SLICE % sub_m:
         raise ValueError(f"sub_m={sub_m} must divide bm_rows={bm_rows} and "
                          f"{KERNEL_ROW_SLICE}")
@@ -480,50 +494,70 @@ def _tile_output(acc: torch.Tensor, nb: int, mb: int, bm_rows: int, bn: int,
 
 
 def worklist_spmm_plain(patches: torch.Tensor, vals: torch.Tensor,
-                        wl: WorkList, *, bk: int, bn: int, bm_rows: int,
-                        sub_m: int, act: Optional[str],
-                        emit_occupancy: bool):
-    """Plain version of the walker, on any device: gather exactly the
-    scheduled (x block, W chunk) tile pairs, one batched matmul,
-    ``index_add_`` of the products per (n, m) pair in schedule order (a
-    sequential loop on the CPU, so the order is ascending j; atomic and
-    unordered on CUDA), then the epilogue. Flush-only steps cost nothing:
-    pairs without products stay zero."""
+                        wl: WorkList, *, vals2: Optional[torch.Tensor] = None,
+                        bk: int, bn: int, bm_rows: int, sub_m: int,
+                        act: Optional[str], emit_occupancy: bool):
+    """Plain version of the walker, on any device (the port of the
+    reference's ``segment_spmm``): per weight stream, gather exactly the
+    scheduled (x block, W chunk) tile pairs where that stream is live, one
+    batched fp32 matmul, then the products summed per (n, m) pair in
+    schedule order (ascending j: one ``index_add_`` per slot rank, so no
+    two products of a pass meet and the sum is deterministic on every
+    device); then ``activate(acc, acc2, act)`` and one rounding to
+    ``patches``' type. Flush-only steps cost nothing: pairs without
+    products stay zero."""
     M, K = patches.shape
     mb, kb = M // bm_rows, K // bk
-    ln, lm, lk, lj = wl.live_steps(patches.device)
     x4 = patches.reshape(mb, bm_rows, kb, bk)
-    xg = x4[lm, :, lk, :]                                    # [T, bm, bk]
-    wg = vals[ln, lj]                                        # [T, bk, bn]
-    prod = torch.bmm(xg, wg)                                 # [T, bm, bn]
-    acc = torch.zeros((wl.nb * mb, bm_rows, bn), dtype=patches.dtype,
-                      device=patches.device)
-    acc.index_add_(0, ln * mb + lm, prod)
-    acc = activate(acc, None, act)
-    return _tile_output(acc, wl.nb, mb, bm_rows, bn, sub_m, emit_occupancy)
+
+    def stream(w: torch.Tensor, which: int) -> torch.Tensor:
+        ln, lm, lk, lj = wl.live_steps(patches.device, which)
+        prod = torch.bmm(x4[lm, :, lk, :].float(),             # [T, bm, bk]
+                         w[ln, lj].float())                    # [T, bk, bn]
+        acc = torch.zeros((wl.nb * mb, bm_rows, bn), dtype=torch.float32,
+                          device=patches.device)
+        pair = ln * mb + lm                    # non-decreasing: pair-major
+        rank = torch.arange(pair.numel(), device=pair.device) \
+            - torch.searchsorted(pair, pair)
+        for r in range(int(rank.max()) + 1 if rank.numel() else 0):
+            sel = rank == r
+            acc.index_add_(0, pair[sel], prod[sel])
+        return acc
+
+    acc = stream(vals, 0)
+    acc2 = stream(vals2, 1) if vals2 is not None else None
+    out = activate(acc, acc2, act).to(patches.dtype)
+    return _tile_output(out, wl.nb, mb, bm_rows, bn, sub_m, emit_occupancy)
 
 
-def _worklist_spmm_cuda(patches, vals, wl, *, bk, bn, bm_rows, sub_m,
-                        mb_per_img, ncolors, relu, emit_occupancy):
+def _worklist_spmm_cuda(patches, vals, vals2, wl, *, bk, bn, bm_rows, sub_m,
+                        mb_per_img, ncolors, act, emit_occupancy):
     M, K = patches.shape
     dev = patches.device
-    check_cuda_tensor("patches", patches, torch.float32, dev)
-    check_cuda_tensor("vals", vals, torch.float32, dev)
-    nb, max_nz = vals.shape[:2]
-    if tuple(vals.shape) != (wl.nb, wl.max_nz, bk, bn):
-        raise ValueError(f"vals {tuple(vals.shape)} does not match the work "
-                         f"list ({wl.nb}, {wl.max_nz}, {bk}, {bn})")
+    if patches.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"the walker takes {KERNEL_DTYPES}, got "
+                         f"{patches.dtype}")
+    check_cuda_tensor("patches", patches, patches.dtype, dev)
+    nb, max_nz = wl.nb, wl.max_nz
+    for name, w in (("vals", vals), ("vals2", vals2)):
+        if w is None:
+            continue
+        check_cuda_tensor(name, w, patches.dtype, dev)
+        if tuple(w.shape) != (nb, max_nz, bk, bn):
+            raise ValueError(f"{name} {tuple(w.shape)} does not match the "
+                             f"work list ({nb}, {max_nz}, {bk}, {bn})")
     if bn > 128:
         raise ValueError(f"the walker takes bn <= 128, got {bn}")
     ds = wl.on_device(dev)
-    out = torch.empty((M, nb * bn), dtype=torch.float32, device=dev)
+    out = torch.empty((M, nb * bn), dtype=patches.dtype, device=dev)
     occ = torch.empty((M // sub_m, nb), dtype=torch.int32, device=dev) \
         if emit_occupancy else None
-    WALK.launch(dev, patches.data_ptr(), vals.data_ptr(),
-                ds.pair_ptr.data_ptr(), ds.k.data_ptr(), ds.j.data_ptr(),
-                out.data_ptr(), ptr(occ),
+    WALK.launch(dev, patches.data_ptr(), vals.data_ptr(), ptr(vals2),
+                ds.pair_ptr.data_ptr(), ds.k.data_ptr(), ptr(ds.k2),
+                ds.j.data_ptr(), out.data_ptr(), ptr(occ),
                 M, K, nb, M // bm_rows, max_nz, bk, bn, bm_rows, sub_m,
-                int(relu), int(emit_occupancy), ncolors, mb_per_img)
+                ACT_CODE[act], int(emit_occupancy), ncolors, mb_per_img,
+                int(patches.dtype == torch.bfloat16))
     return (out,) if occ is None else (out, occ)
 
 
@@ -533,18 +567,21 @@ def worklist_spmm(patches: torch.Tensor, vals: torch.Tensor, wl: WorkList, *,
                   sub_m: Optional[int] = None,
                   mb_per_img: Optional[int] = None, ncolors: int = 1,
                   act: Optional[str] = None, emit_occupancy: bool = False):
-    """Run a compacted :class:`WorkList` — ``patches [M, K] @ vals`` over
-    exactly the scheduled steps, with the fused epilogue ``act`` (None or
-    ``"relu"``) and, when ``emit_occupancy``, the int32 [M / sub_m, nb]
-    occupancy of the result. A CUDA tensor launches the walker kernel; a
-    CPU tensor runs :func:`worklist_spmm_plain`. ``ncolors`` /
-    ``mb_per_img`` carry the §3.3 colouring, which cannot change the
-    result here (see ``csrc/walk.cu``). Returns ``(out[, occupancy])``."""
-    if vals2 is not None or wl.k2 is not None:
-        raise NotImplementedError(
-            "the two-stream (gated FFN) walk is not ported yet")
-    if act not in (None, "relu"):
-        raise NotImplementedError(f"epilogue {act!r} is not ported yet")
+    """Run a compacted :class:`WorkList` — ``patches [M, K] @ vals`` (and,
+    for a two-stream list, ``@ vals2``, the gate stream) over exactly the
+    scheduled steps, with the fused epilogue ``act`` (None or one of
+    :data:`ACTS`; the gated acts read the second accumulator) and, when
+    ``emit_occupancy``, the int32 [M / sub_m, nb] occupancy of the result.
+    fp32 or bf16 storage, fp32 sums, output in ``patches``' type. A CUDA
+    tensor launches the walker kernel; a CPU tensor runs
+    :func:`worklist_spmm_plain`. ``ncolors`` / ``mb_per_img`` carry the
+    §3.3 colouring, which cannot change the result here (see
+    ``csrc/walk.cu``). Returns ``(out[, occupancy])``."""
+    if (vals2 is not None) != (wl.k2 is not None):
+        raise ValueError("a two-stream work list (gate_indices) needs vals2,"
+                         " a one-stream list takes none")
+    if act is not None and act not in ACTS:
+        raise ValueError(f"act must be None or one of {ACTS}, got {act!r}")
     sub_m = bm_rows if sub_m is None else sub_m
     M, K = patches.shape
     if M % bm_rows or K % bk:
@@ -555,15 +592,14 @@ def worklist_spmm(patches: torch.Tensor, vals: torch.Tensor, wl: WorkList, *,
         raise ValueError(f"work list has {wl.mb} row blocks, patches {mb}")
     mb_per_img = mb if mb_per_img is None else mb_per_img
     if patches.device.type == "cpu":
-        return worklist_spmm_plain(patches, vals, wl, bk=bk, bn=bn,
-                                   bm_rows=bm_rows, sub_m=sub_m, act=act,
-                                   emit_occupancy=emit_occupancy)
+        return worklist_spmm_plain(patches, vals, wl, vals2=vals2, bk=bk,
+                                   bn=bn, bm_rows=bm_rows, sub_m=sub_m,
+                                   act=act, emit_occupancy=emit_occupancy)
     if patches.device.type != "cuda":
         raise ValueError(f"no walker for device {patches.device}")
     if emit_occupancy:
         check_row_tiling(bm_rows, sub_m)
-    return _worklist_spmm_cuda(patches, vals, wl, bk=bk, bn=bn,
+    return _worklist_spmm_cuda(patches, vals, vals2, wl, bk=bk, bn=bn,
                                bm_rows=bm_rows, sub_m=sub_m,
                                mb_per_img=mb_per_img, ncolors=ncolors,
-                               relu=act == "relu",
-                               emit_occupancy=emit_occupancy)
+                               act=act, emit_occupancy=emit_occupancy)

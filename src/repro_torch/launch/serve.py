@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_4b \\
         --sparse --continuous [--requests R] [--slots S] [--stagger K]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_3b \\
+        --sparse --continuous
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_4b \\
         --smoke --sparse --continuous --device cpu
 
@@ -9,9 +11,9 @@ The default mode prefills a synthetic prompt batch in one pass and
 decodes; ``--continuous`` drives the barrier-free scheduler instead
 (staggered arrivals, per-slot positions, slot reuse). ``--sparse`` is the
 BARISTA inference mode: ``sparsify_model`` prunes, balances and packs
-every FFN offline (``num_shards=4``) and every FFN then runs through the
-fused FFN kernel and the predicated sparse matmul, with the skipped-tile
-stats probed once mid-run. ``--device`` defaults to ``cuda``; wall-clock
+every FFN (an RWKV model's channel-mix) offline (``num_shards=4``) and
+every FFN then runs through the fused FFN kernel and the predicated sparse
+matmul, with the skipped-tile stats probed once mid-run. ``--device`` defaults to ``cuda``; wall-clock
 numbers from any other device are not the card's.
 """
 from __future__ import annotations

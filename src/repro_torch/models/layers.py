@@ -1,6 +1,7 @@
 """Layer library of the LM path (port of ``repro.models.layers``): attention
-(GQA, RoPE, qk-norm, sliding window) and the FFN, dense or through the
-BARISTA sparse kernels.
+(GQA, RoPE, qk-norm, sliding window), the FFN, dense or through the
+BARISTA sparse kernels, and the RWKV6 time-mix and channel-mix (the
+channel-mix's squared-ReLU FFN dense or sparse).
 
 Conventions, as in the reference:
 * params are plain dicts of tensors; every layer is ``fn(params, x, ...)``;
@@ -10,14 +11,16 @@ Conventions, as in the reference:
 
 Attention has no kernel of its own in the reference either: it is plain
 PyTorch here, with the reference's grouped einsums (no
-``scaled_dot_product_attention``). The online-softmax ``_flash_sdpa``,
-MoE, Mamba and RWKV are not ported yet.
+``scaled_dot_product_attention``); so is the chunked WKV recurrence, a
+Python loop over chunks where the reference scans. The online-softmax
+``_flash_sdpa``, MoE and Mamba are not ported yet.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.worklist_core import activate
@@ -216,3 +219,158 @@ def ffn(p: Params, x: torch.Tensor, cfg: ModelConfig,
     h = x @ p["w_in"]
     g = x @ p["w_gate"] if "w_gate" in p else None
     return activate(h, g, a) @ p["w_out"]
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 (Finch): data-dependent decay linear attention, chunked closed form
+# ---------------------------------------------------------------------------
+def init_rwkv(gen: torch.Generator, cfg: ModelConfig,
+              dtype: torch.dtype) -> Params:
+    d = cfg.d_model
+    H, N = cfg.n_heads, cfg.d_head
+    dev = gen.device
+
+    def half():
+        return torch.full((d,), 0.5, dtype=dtype, device=dev)
+
+    return {
+        "mu_r": half(), "mu_k": half(), "mu_v": half(), "mu_w": half(),
+        "w_r": dense_init(gen, d, H * N, dtype),
+        "w_k": dense_init(gen, d, H * N, dtype),
+        "w_v": dense_init(gen, d, H * N, dtype),
+        "w_g": dense_init(gen, d, H * N, dtype),
+        "w_w": dense_init(gen, d, H * N, dtype, scale=0.1),
+        "w_decay_base": torch.full((H * N,), -6.0, dtype=torch.float32,
+                                   device=dev),
+        "u_bonus": torch.randn((H, N), generator=gen, device=dev,
+                               dtype=torch.float32) * 0.1,
+        "w_o": dense_init(gen, H * N, d, dtype,
+                          scale=1.0 / (2 * cfg.n_layers) ** 0.5),
+        "ln_x": torch.ones((H * N,), dtype=dtype, device=dev),
+    }
+
+
+def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """shifted[t] = x[t-1]; ``prev`` supplies x[-1] for decode continuity
+    (zeros without it)."""
+    first = torch.zeros_like(x[:, :1]) if prev is None \
+        else prev[:, None].to(x.dtype)
+    return torch.cat([first, x[:, :-1]], dim=1)
+
+
+def _rwkv_projections(p: Params, x: torch.Tensor, shifted: torch.Tensor,
+                      cfg: ModelConfig):
+    """r, k, v [B, L, H, N] and the silu gate in the model dtype; the
+    log-decay ``w`` [B, L, H, N] (negative) in fp32."""
+    H, N = cfg.n_heads, cfg.d_head
+    B, L, _ = x.shape
+
+    def mix(mu):
+        return x * mu + shifted * (1 - mu)
+
+    r = (mix(p["mu_r"]) @ p["w_r"]).reshape(B, L, H, N)
+    k = (mix(p["mu_k"]) @ p["w_k"]).reshape(B, L, H, N)
+    v = (mix(p["mu_v"]) @ p["w_v"]).reshape(B, L, H, N)
+    g = F.silu(mix(p["mu_w"]) @ p["w_g"])
+    # data-dependent decay in (0, 1): w = exp(-exp(base + proj))
+    wlog = -torch.exp(p["w_decay_base"]
+                      + (mix(p["mu_w"]) @ p["w_w"]).float())
+    return r, k, v, g, wlog.reshape(B, L, H, N)
+
+
+def _rwkv_chunk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                w_log: torch.Tensor, u: torch.Tensor,
+                S0: Optional[torch.Tensor], chunk: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked WKV: S_t = diag(w_t) S_{t-1} + k_t v_t^T ; y_t = r_t (S_{t-1}
+    + diag(u) k_t v_t^T). All [B, L, H, N] (w_log negative); S0 [B, H, N, N]
+    fp32 or None (zeros). Each chunk is taken to fp32 in its step; returns
+    (y [B, L, H, N] fp32, S [B, H, N, N] fp32)."""
+    B, L, H, N = r.shape
+    pad = (-L) % chunk
+    if pad:
+        r, k, v, w_log = (F.pad(a, (0, 0, 0, 0, 0, pad))
+                          for a in (r, k, v, w_log))
+    nch = r.shape[1] // chunk
+    S = torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device) \
+        if S0 is None else S0
+    strict_lower = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                         device=r.device), -1)
+    ys = []
+    for c in range(nch):
+        rc, kc, vc, wc = (a[:, c * chunk:(c + 1) * chunk].float()
+                          for a in (r, k, v, w_log))          # [B,c,H,N]
+        cum = torch.cumsum(wc, dim=1)          # log cumulative decay
+        cum_prev = cum - wc                    # decay up to t-1
+        r_t = rc * torch.exp(cum_prev)
+        k_t = kc * torch.exp(-cum)
+        # intra-chunk: y_i += sum_{j<i} (r~_i . k~_j) v_j
+        A = torch.einsum("bihn,bjhn->bhij", r_t, k_t)
+        A = torch.where(strict_lower[None, None], A, 0.0)
+        y = torch.einsum("bhij,bjhn->bihn", A, vc)
+        # u-bonus for the current token: y_i += (r_i . (u * k_i)) v_i
+        y = y + torch.einsum("bihn,bihn->bih", rc * u[None, None],
+                             kc)[..., None] * vc
+        # cross-chunk: y_i += r~_i . S_in
+        y = y + torch.einsum("bihn,bhnm->bihm", r_t, S)
+        # S_out = diag(exp(cum_last)) S + sum_j exp(cum_last - cum_j) k_j v_j^T
+        last = cum[:, -1][:, :, :, None]                       # [B,H,N,1]
+        S = torch.exp(last) * S + torch.einsum(
+            "bjhn,bjhm->bhnm", kc * torch.exp(cum[:, -1][:, None] - cum), vc)
+        ys.append(y)
+    y = torch.cat(ys, dim=1)[:, :L]
+    return y, S
+
+
+def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                  chunk: int = 64, state: Optional[Dict] = None
+                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """x [B, L, D] -> (out [B, L, D], new state). ``state`` (``shift``
+    [B, D], ``wkv`` [B, H, N, N] fp32) continues a sequence; the returned
+    state holds the last token and the WKV state after it."""
+    B, L, D = x.shape
+    H, N = cfg.n_heads, cfg.d_head
+    prev = state["shift"] if state is not None else None
+    shifted = _token_shift(x, prev)
+    r, k, v, g, w = _rwkv_projections(p, x, shifted, cfg)
+    S0 = state["wkv"] if state is not None else None
+    y, S = _rwkv_chunk(r, k, v, w, p["u_bonus"], S0, chunk)
+    y = rmsnorm(y.reshape(B, L, H * N).to(x.dtype), p["ln_x"], cfg.norm_eps)
+    out = (y * g.to(y.dtype)) @ p["w_o"]
+    new_state = None
+    if state is not None:
+        new_state = {"shift": x[:, -1], "wkv": S}
+    return out, new_state
+
+
+def rwkv_channel_mix(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                     state: Optional[Dict] = None,
+                     sparse: Optional[Params] = None,
+                     stats: Optional[list] = None
+                     ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Squared-ReLU FFN of the token-shifted mix, dense or, with ``sparse``
+    (this block's ``channel_mix_sparse`` leaves), through the BARISTA
+    kernels with act ``relu2``: the naturally two-sided FFN of the
+    attention-free blocks. ``stats`` collects the probe's counts."""
+    prev = state["shift"] if state is not None else None
+    shifted = _token_shift(x, prev)
+    mixed = x * p["mu_in"] + shifted * (1 - p["mu_in"])
+    if sparse is not None:
+        if stats is not None:
+            stats.append(sf.sparse_ffn_tile_stats(sparse, mixed, "relu2"))
+        out = sf.sparse_ffn_apply(sparse, mixed, "relu2")
+    else:
+        h = torch.relu(mixed @ p["w_in"])
+        out = (h * h) @ p["w_out"]
+    new_state = {"shift": x[:, -1]} if state is not None else None
+    return out, new_state
+
+
+def init_rwkv_channel(gen: torch.Generator, cfg: ModelConfig,
+                      dtype: torch.dtype) -> Params:
+    return {"mu_in": torch.full((cfg.d_model,), 0.5, dtype=dtype,
+                                device=gen.device),
+            "w_in": dense_init(gen, cfg.d_model, cfg.d_ff, dtype),
+            "w_out": dense_init(gen, cfg.d_ff, cfg.d_model, dtype,
+                                scale=1.0 / (2 * cfg.n_layers) ** 0.5)}

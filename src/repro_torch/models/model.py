@@ -1,13 +1,15 @@
-"""Decoder LM of the attention-only dense family (port of
-``repro.models.model``): params, the full-sequence forward, the KV cache,
-single-pass prefill and the per-slot decode step.
+"""Decoder LM of the dense-attention and RWKV6 families (port of
+``repro.models.model``): params, the full-sequence forward, the decode
+cache, single-pass prefill and the per-slot decode step.
 
 Where the reference stacks block params over periods and scans them
 (``lax.scan``), the port holds one entry per period in a list:
 ``params["blocks"][p]["p<i>"]`` is block i of period p's pattern, and the
 decode cache is laid out the same way (``cache[p]["p<i>"]["k"]`` is
-[B, S_max, Hkv, dh]). Encoder-decoder and prefix models, MoE, Mamba and
-RWKV blocks are not ported yet and raise ``NotImplementedError``.
+[B, S_max, Hkv, dh] for an attention block; an RWKV block keeps ``wkv``
+[B, H, N, N] fp32 and the two token-shift rows ``shift_t``/``shift_c``
+[B, D]). Encoder-decoder and prefix models, MoE and Mamba blocks are not
+ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -30,9 +32,9 @@ def _check_supported(cfg: ModelConfig) -> None:
     if cfg.frontend is not None:
         raise NotImplementedError("modality-prefix models are not ported yet")
     for kind in cfg.block_pattern:
-        if kind != "attn":
+        if kind not in ("attn", "rwkv"):
             raise NotImplementedError(f"{kind!r} blocks are not ported yet "
-                                      "(attention-only family)")
+                                      "(attention and RWKV only)")
 
 
 def map_tree(fn: Callable, *trees):
@@ -49,10 +51,14 @@ def map_tree(fn: Callable, *trees):
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def _init_block(gen: torch.Generator, cfg: ModelConfig,
+def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
                 dtype: torch.dtype) -> Params:
     ones = lambda: torch.ones((cfg.d_model,), dtype=dtype,  # noqa: E731
                               device=gen.device)
+    if kind == "rwkv":
+        return {"ln1": ones(), "time_mix": L.init_rwkv(gen, cfg, dtype),
+                "ln2": ones(),
+                "channel_mix": L.init_rwkv_channel(gen, cfg, dtype)}
     return {"ln1": ones(), "attn": L.init_attention(gen, cfg, dtype),
             "ln2": ones(), "ffn": L.init_ffn(gen, cfg, dtype)}
 
@@ -72,8 +78,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
                               device=gen.device) * 0.02).to(dtype),
         "final_norm": torch.ones((cfg.d_model,), dtype=dtype,
                                  device=gen.device),
-        "blocks": [{f"p{i}": _init_block(gen, cfg, dtype)
-                    for i in range(len(cfg.block_pattern))}
+        "blocks": [{f"p{i}": _init_block(gen, cfg, kind, dtype)
+                    for i, kind in enumerate(cfg.block_pattern)}
                    for _ in range(cfg.periods)],
     }
     if not cfg.tie_embeddings:
@@ -99,7 +105,31 @@ def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # forward (full sequence)
 # ---------------------------------------------------------------------------
-def _block_fwd(bp: Params, x, cfg: ModelConfig, *, positions, mask):
+def _rwkv_block(bp: Params, entry: Optional[Dict[str, torch.Tensor]], x,
+                cfg: ModelConfig, chunk: int, stats=None):
+    """An RWKV block: time-mix, then the channel-mix (its sparse leaves
+    when the BARISTA path is on). With a cache ``entry`` it continues the
+    lane's state and returns the advanced entry."""
+    h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
+    st = None if entry is None else {"shift": entry["shift_t"],
+                                     "wkv": entry["wkv"]}
+    y, st = L.rwkv_time_mix(bp["time_mix"], h, cfg, chunk=chunk, state=st)
+    x = x + y
+    h2 = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
+    y2, st2 = L.rwkv_channel_mix(
+        bp["channel_mix"], h2, cfg,
+        state=None if entry is None else {"shift": entry["shift_c"]},
+        sparse=_sparse_of(bp, cfg, "channel_mix_sparse"), stats=stats)
+    new = None if entry is None else {"wkv": st["wkv"],
+                                      "shift_t": st["shift"],
+                                      "shift_c": st2["shift"]}
+    return x + y2, new
+
+
+def _block_fwd(bp: Params, x, cfg: ModelConfig, kind: str, *, positions,
+               mask, ssm_chunk: Optional[int] = None):
+    if kind == "rwkv":
+        return _rwkv_block(bp, None, x, cfg, ssm_chunk or 64)[0]
     h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
     x = x + L.attention(bp["attn"], h, cfg, positions=positions, mask=mask)
     h2 = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
@@ -108,9 +138,11 @@ def _block_fwd(bp: Params, x, cfg: ModelConfig, *, positions, mask):
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             prefix_embeds=None, src_embeds=None,
+            ssm_chunk: Optional[int] = None,
             flash_chunk: Optional[int] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward -> (logits [B, S, V] fp32, moe_aux)."""
+    """Full-sequence forward -> (logits [B, S, V] fp32, moe_aux).
+    ``ssm_chunk`` is the WKV chunk of RWKV blocks (default 64)."""
     _check_supported(cfg)
     if prefix_embeds is not None or src_embeds is not None:
         raise NotImplementedError("prefix and encoder inputs are not ported")
@@ -122,9 +154,10 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     positions = torch.arange(S, device=dev)[None].expand(B, S)
     mask = L.causal_mask(S, S, cfg.window, device=dev)
     for period in params["blocks"]:
-        for i in range(len(cfg.block_pattern)):
-            x = _block_fwd(period[f"p{i}"], x, cfg, positions=positions,
-                           mask=mask)
+        for i, kind in enumerate(cfg.block_pattern):
+            x = _block_fwd(period[f"p{i}"], x, cfg, kind,
+                           positions=positions, mask=mask,
+                           ssm_chunk=ssm_chunk)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _head(params, cfg, x), torch.zeros((), device=dev)
 
@@ -135,19 +168,31 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device="cuda") -> Cache:
     """Zeroed decode state: per period, per pattern position, the K and V
-    caches [batch, max_len, Hkv, dh]."""
+    caches [batch, max_len, Hkv, dh] of an attention block, or an RWKV
+    block's WKV state [batch, H, N, N] (fp32) and token-shift rows
+    ``shift_t`` (time-mix) and ``shift_c`` (channel-mix) [batch, D]."""
     _check_supported(cfg)
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
 
-    def zeros():
-        return torch.zeros(shape, dtype=cfg.torch_dtype, device=device)
+    def zeros(*shape, dtype=cfg.torch_dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
 
-    return [{f"p{i}": {"k": zeros(), "v": zeros()}
-             for i in range(len(cfg.block_pattern))}
+    def entry(kind):
+        if kind == "rwkv":
+            return {"wkv": zeros(batch, cfg.n_heads, cfg.d_head, cfg.d_head,
+                                 dtype=torch.float32),
+                    "shift_t": zeros(batch, cfg.d_model),
+                    "shift_c": zeros(batch, cfg.d_model)}
+        shape = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
+        return {"k": zeros(*shape), "v": zeros(*shape)}
+
+    return [{f"p{i}": entry(kind) for i, kind in enumerate(cfg.block_pattern)}
             for _ in range(cfg.periods)]
 
 
-def _block_decode(bp: Params, entry, x, cfg: ModelConfig, pos, stats=None):
+def _block_decode(bp: Params, entry, x, cfg: ModelConfig, kind: str, pos,
+                  stats=None):
+    if kind == "rwkv":
+        return _rwkv_block(bp, entry, x, cfg, 1, stats=stats)
     h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
     y, k, v = L.attention_decode(bp["attn"], h, cfg, cache_k=entry["k"],
                                  cache_v=entry["v"], pos=pos)
@@ -181,10 +226,10 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     new_cache = []
     for period, entries in zip(params["blocks"], cache):
         new = {}
-        for i in range(len(cfg.block_pattern)):
+        for i, kind in enumerate(cfg.block_pattern):
             key = f"p{i}"
             x, new[key] = _block_decode(period[key], entries[key], x, cfg,
-                                        pos, stats=stats)
+                                        kind, pos, stats=stats)
         new_cache.append(new)
     if active is not None:
         keep = active.to(dev).bool()
@@ -207,8 +252,10 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
 # ---------------------------------------------------------------------------
 # prefill (single-pass prompt -> cache)
 # ---------------------------------------------------------------------------
-def _block_prefill(bp: Params, entry, x, cfg: ModelConfig, *, positions,
-                   mask):
+def _block_prefill(bp: Params, entry, x, cfg: ModelConfig, kind: str, *,
+                   positions, mask, ssm_chunk: Optional[int] = None):
+    if kind == "rwkv":
+        return _rwkv_block(bp, entry, x, cfg, ssm_chunk or 64)
     h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
     y, k, v = L.attention(bp["attn"], h, cfg, positions=positions,
                           mask=mask, return_kv=True)
@@ -223,12 +270,15 @@ def _block_prefill(bp: Params, entry, x, cfg: ModelConfig, *, positions,
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            cache: Cache, *, flash_chunk: Optional[int] = None
+            cache: Cache, *, ssm_chunk: Optional[int] = None,
+            flash_chunk: Optional[int] = None
             ) -> Tuple[torch.Tensor, Cache]:
     """One forward pass over the prompt that fills the decode cache.
 
-    tokens [B, S] -> (last_logits [B, V], cache with rows [0, S) written).
-    Lanes are expected to start from a zeroed cache (:func:`init_cache`).
+    tokens [B, S] -> (last_logits [B, V], cache with rows [0, S) written
+    and RWKV states advanced past position S-1, in WKV chunks of
+    ``ssm_chunk``, default 64). Lanes are expected to start from a zeroed
+    cache (:func:`init_cache`).
     """
     if flash_chunk is not None:
         L._flash_sdpa()
@@ -240,10 +290,11 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     new_cache = []
     for period, entries in zip(params["blocks"], cache):
         new = {}
-        for i in range(len(cfg.block_pattern)):
+        for i, kind in enumerate(cfg.block_pattern):
             key = f"p{i}"
             x, new[key] = _block_prefill(period[key], entries[key], x, cfg,
-                                         positions=positions, mask=mask)
+                                         kind, positions=positions,
+                                         mask=mask, ssm_chunk=ssm_chunk)
         new_cache.append(new)
     # project only the last position (the next-token logits serving needs)
     x = L.rmsnorm(x[:, -1], params["final_norm"], cfg.norm_eps)

@@ -12,17 +12,18 @@ amortized over all inferences):
 Online an FFN is two launches: the fused in-projection / activation / gate
 kernel (:mod:`repro_torch.kernels.fused_ffn`), then the two-sided output
 projection (:mod:`repro_torch.kernels.bitmask_spmm`), whose row skip feeds
-on the activation zeros.
+on the activation zeros. ``schedule="compact"`` runs the same two launches
+from telescoped work lists through the walker
+(:mod:`repro_torch.kernels.worklist_core`): eager only, bit for bit the
+dense grid's output on the card.
 
 :func:`sparsify_model` packs every FFN of a model's params into
-``ffn_sparse`` leaves beside the dense weights; the model runs them when
-``cfg.sparse_ffn`` is set. Host packing is numpy, array-equal to the
-reference for the same dense weights; the packed leaves live on the
-params' device in the config dtype.
-
-Only the dense-grid schedule is ported: ``schedule="compact"`` (the
-telescoped work lists) needs the walker's second stream and raises, as
-does ``strict=True`` (the artifact verifier is not ported yet).
+``ffn_sparse`` leaves (``channel_mix_sparse`` for the RWKV channel-mix)
+beside the dense weights; the model runs them when ``cfg.sparse_ffn`` is
+set. Host packing is numpy, array-equal to the reference for the same
+dense weights; the packed leaves live on the params' device in the config
+dtype. ``strict=True`` (the artifact verifier) is not ported yet and
+raises.
 """
 from __future__ import annotations
 
@@ -50,11 +51,6 @@ def _host(w) -> np.ndarray:
     return np.asarray(w, np.float32)
 
 
-def _compact_not_ported():
-    return NotImplementedError(
-        "schedule='compact' needs the two-stream walker, not ported yet")
-
-
 @dataclasses.dataclass
 class SparseFFN:
     """Inference-time FFN with block-sparse weights (one transformer block).
@@ -71,13 +67,33 @@ class SparseFFN:
     perm: np.ndarray
 
     def __call__(self, x: torch.Tensor, *, sub_m: Optional[int] = None,
-                 schedule: str = "dense") -> torch.Tensor:
-        """The predicated kernels (``schedule="dense"``)."""
+                 schedule: str = "dense",
+                 compact_activations: bool = True) -> torch.Tensor:
+        """``schedule="dense"`` runs the predicated kernels; ``"compact"``
+        drives both launches from telescoped work lists (eager; the
+        schedule is host data), bit for bit the dense grid's output on the
+        card. With ``compact_activations`` the schedules also intersect the
+        live activation sub-blocks (per-call data); without it the static
+        pack-time schedules cache on the packed matrices' ``wl_cache``."""
+        gate = self.w_gate
         if schedule == "compact":
-            raise _compact_not_ported()
+            sub = SUB_M if sub_m is None else sub_m
+            h = ops.fused_sparse_ffn_wl(
+                x, self.w_in.indices, self.w_in.vals,
+                gate.indices if gate is not None else None,
+                gate.vals if gate is not None else None, act=self.act,
+                k_total=self.w_in.shape[0], bk=self.w_in.bk,
+                bn=self.w_in.bn, sub_m=sub,
+                compact_activations=compact_activations,
+                wl_cache=self.w_in.wl_cache)
+            return ops.sparse_matmul_packed_wl(
+                h, self.w_out.indices, self.w_out.vals,
+                k_total=self.w_out.shape[0], bk=self.w_out.bk,
+                bn=self.w_out.bn, sub_m=sub,
+                compact_activations=compact_activations,
+                wl_cache=self.w_out.wl_cache)
         if schedule != "dense":
             raise ValueError(f"unknown schedule {schedule!r}")
-        gate = self.w_gate
         h = ops.fused_sparse_ffn(
             x, self.w_in.indices, self.w_in.vals,
             gate.indices if gate is not None else None,
@@ -223,13 +239,15 @@ def sparsify_model(params: Dict[str, Any], cfg, *, density: float = 0.35,
                    num_shards: int = 16, chunk: int = bm.CHUNK,
                    strict: bool = False) -> Dict[str, Any]:
     """Offline whole-model pass: prune -> balance -> fold -> pack every
-    block FFN into two-sided block-sparse form.
+    block FFN, and every RWKV channel-mix (squared ReLU), into two-sided
+    block-sparse form.
 
-    Returns new params carrying packed ``ffn_sparse`` leaves beside the
-    dense weights (``params["blocks"][p]["p<i>"]["ffn_sparse"]``, one dict
-    per period); the model runs them when ``cfg.sparse_ffn`` is set, so one
-    params object serves both paths. With ``density=1.0`` the pass is
-    numerically a no-op (pack and balance fold only).
+    Returns new params carrying packed ``ffn_sparse`` /
+    ``channel_mix_sparse`` leaves beside the dense weights
+    (``params["blocks"][p]["p<i>"]["ffn_sparse"]``, one dict per period);
+    the model runs them when ``cfg.sparse_ffn`` is set, so one params
+    object serves both paths. With ``density=1.0`` the pass is numerically
+    a no-op (pack and balance fold only).
     """
     if strict:
         raise NotImplementedError(
@@ -237,32 +255,55 @@ def sparsify_model(params: Dict[str, Any], cfg, *, density: float = 0.35,
     blocks = params["blocks"]
     new_blocks = [dict(period) for period in blocks]
     for pk in blocks[0]:
-        if any("channel_mix" in period[pk] for period in blocks):
-            raise NotImplementedError("RWKV channel-mix is not ported yet")
-        if "ffn" not in blocks[0][pk]:
-            continue
-        leaves = _pack_stacked_ffn([period[pk]["ffn"] for period in blocks],
-                                   density=density, num_shards=num_shards,
-                                   chunk=chunk)
-        for period, sp in zip(new_blocks, leaves):
-            period[pk] = dict(period[pk], ffn_sparse=sp)
+        # the RWKV channel-mix is squared ReLU: the naturally two-sided FFN
+        for src, leaf in (("ffn", "ffn_sparse"),
+                          ("channel_mix", "channel_mix_sparse")):
+            if src not in blocks[0][pk]:
+                continue
+            leaves = _pack_stacked_ffn(
+                [{k: period[pk][src][k] for k in ("w_in", "w_out", "w_gate")
+                  if k in period[pk][src]} for period in blocks],
+                density=density, num_shards=num_shards, chunk=chunk)
+            for period, sp in zip(new_blocks, leaves):
+                period[pk] = dict(period[pk], **{leaf: sp})
     return dict(params, blocks=new_blocks)
 
 
 def sparse_ffn_apply(sp: Dict[str, torch.Tensor], x: torch.Tensor, act: str,
                      *, sub_m: Optional[int] = SUB_M, chunk: int = bm.CHUNK,
-                     schedule: str = "dense") -> torch.Tensor:
+                     schedule: str = "dense",
+                     compact_activations: bool = True,
+                     wl_cache: Optional[Dict[str, dict]] = None
+                     ) -> torch.Tensor:
     """Run one packed sparse FFN (one period's ``sparsify_model`` leaves) on
     ``x [..., D]`` -> ``[..., D]``: the fused in/gate/activation kernel,
     then the two-sided output projection fed by the activation zeros.
     Output columns are cut back to D (the pack pads D and F to the chunk).
+
+    ``schedule="compact"`` drives both launches from telescoped work lists
+    (eager; bit for bit the dense grid's output on the card). The packed
+    leaves are plain tensors, so static schedules
+    (``compact_activations=False``) cache in a caller-owned ``wl_cache``
+    (``{"in": {...}, "out": {...}}``) instead of riding on the leaves.
     """
-    if schedule == "compact":
-        raise _compact_not_ported()
-    if schedule != "dense":
-        raise ValueError(f"unknown schedule {schedule!r}")
     D = x.shape[-1]
     k_in = -(-D // chunk) * chunk
+    if schedule == "compact":
+        sub = SUB_M if sub_m is None else sub_m
+        wl_cache = wl_cache if wl_cache is not None else {}
+        h = ops.fused_sparse_ffn_wl(
+            x, sp["in_indices"], sp["in_vals"], sp.get("gate_indices"),
+            sp.get("gate_vals"), act=act, k_total=k_in, bk=chunk, bn=chunk,
+            sub_m=sub, compact_activations=compact_activations,
+            wl_cache=wl_cache.setdefault("in", {}))
+        out = ops.sparse_matmul_packed_wl(
+            h, sp["out_indices"], sp["out_vals"], k_total=h.shape[-1],
+            bk=chunk, bn=chunk, sub_m=sub,
+            compact_activations=compact_activations,
+            wl_cache=wl_cache.setdefault("out", {}))
+        return out[..., :D]
+    if schedule != "dense":
+        raise ValueError(f"unknown schedule {schedule!r}")
     h = ops.fused_sparse_ffn(
         x, sp["in_indices"], sp["in_vals"], sp.get("gate_indices"),
         sp.get("gate_vals"), act=act, k_total=k_in, bk=chunk, bn=chunk,

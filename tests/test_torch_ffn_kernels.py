@@ -184,10 +184,19 @@ def test_packed_entry_points_pad_rows_and_k():
 
 
 def test_work_list_ffn_variants_are_not_ported():
-    for fn in (ops.sparse_matmul_packed_wl, ops.fused_sparse_ffn_wl):
-        with pytest.raises(NotImplementedError):
-            fn(torch.zeros(8, 128), torch.zeros(1, 1, dtype=torch.int32),
-               torch.zeros(1, 1, 128, 128), k_total=128, bk=128, bn=128)
+    """The work-list variants are ported now (their parity tests are in
+    ``test_torch_worklist_ffn.py``): zero rows give exact zeros, and a gate
+    operand the act does not match raises."""
+    idx = torch.zeros(1, 1, dtype=torch.int32)
+    vals = torch.ones(1, 1, 128, 128)
+    kw = dict(k_total=128, bk=128, bn=128)
+    assert not ops.sparse_matmul_packed_wl(torch.zeros(8, 128), idx, vals,
+                                           **kw).any()
+    assert not ops.fused_sparse_ffn_wl(torch.zeros(8, 128), idx, vals,
+                                       act="relu2", **kw).any()
+    with pytest.raises(ValueError):
+        ops.fused_sparse_ffn_wl(torch.zeros(8, 128), idx, vals, act="swiglu",
+                                **kw)
 
 
 @pytest.mark.parametrize("act,gated", [("swiglu", True), ("relu2", False)])
@@ -218,5 +227,8 @@ def test_build_sparse_ffn_matches_reference(act, gated):
     assert _rel(sf.dense_reference(got, _t(x)),
                 r_sf.dense_reference(ref, jnp.asarray(x))) <= 1e-5
     assert _rel(out, sf.dense_reference(got, _t(x))) <= 1e-5
-    with pytest.raises(NotImplementedError):
-        got(_t(x), schedule="compact")
+    want_c = ref(jnp.asarray(x), sub_m=8, schedule="compact",
+                 executor="xla")
+    assert _rel(got(_t(x), schedule="compact"), want_c) <= 1e-5
+    with pytest.raises(ValueError):
+        got(_t(x), schedule="tiled")

@@ -20,7 +20,7 @@ from repro_torch.kernels.fused_ffn import (FUSED_FFN, fused_ffn_spmm,
                                            fused_ffn_spmm_plain)
 from repro_torch.models import model as M
 from repro_torch.serve import Request, Scheduler
-from repro_torch.sparsity.sparse_ffn import sparsify_model
+from repro_torch.sparsity.sparse_ffn import sparse_ffn_apply, sparsify_model
 from repro_torch.kernels.sparse_conv import (CONV_GRID, sparse_conv_spmm,
                                              sparse_conv_spmm_plain)
 from repro_torch.kernels.worklist_core import (WALK, build_worklist,
@@ -197,6 +197,83 @@ def test_sparse_lm_serving_on_card(cuda):
     the card's tokens equal the CPU plain path's."""
     cfg = dataclasses.replace(load_smoke("qwen3_4b"), d_model=256, d_ff=640,
                               sparse_ffn=True)
+    params = sparsify_model(M.init_params(cfg, seed=0, device=cuda), cfg,
+                            density=0.35, num_shards=4)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(1, cfg.vocab, (3, 8))
+    reqs = [Request(i, prompts[i], 6, arrival=i) for i in range(3)]
+    b3, b4 = BITMASK_SPMM.launches, FUSED_FFN.launches
+    got = Scheduler(cfg, params, num_slots=2, max_len=16).run(reqs)
+    assert BITMASK_SPMM.launches > b3 and FUSED_FFN.launches > b4
+    for r in reqs:
+        solo = Scheduler(cfg, params, num_slots=2, max_len=16).run(
+            [Request(r.rid, r.prompt, r.max_new)])
+        assert solo[r.rid] == got[r.rid]
+    cpu = M.map_tree(lambda t: t.cpu(), params)
+    ref = Scheduler(cfg, cpu, num_slots=2, max_len=16).run(
+        [Request(r.rid, r.prompt, r.max_new, r.arrival) for r in reqs])
+    assert ref == got
+
+
+def _two_stream_operands(rng, dev, dtype, M=64, live=50):
+    """x at 8-row blocks with zero rows and sub-blocks; in and gate chunk
+    lists on one slot axis (the gate's are the in lists reversed)."""
+    x, idx, vals = _ffn_operands(rng, dev, torch.float32, M=M, live=live)
+    gidx, gvals = torch.flip(idx, [0]).contiguous(), \
+        torch.flip(vals, [0]).contiguous()
+    return x.to(dtype), idx, vals.to(dtype), gidx, gvals.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["swiglu", "geglu", "relu2", "relu", "gelu"])
+def test_walker_two_stream_matches_plain(rng, cuda, dtype, act):
+    x, idx, vals, gidx, gvals = _two_stream_operands(rng, cuda, dtype)
+    occ = (x.reshape(8, 8, 3, 128) != 0).any(3).any(1).cpu().numpy()
+    wl = build_worklist(idx.cpu().numpy(), 8, occ_blk=occ,
+                        gate_indices=gidx.cpu().numpy())
+    assert ((wl.k < 0) & (wl.k2 >= 0)).any()    # gate-only steps
+    kw = dict(bk=128, bn=128, bm_rows=8, act=act)
+    before = WALK.launches
+    out = worklist_spmm(x, vals, wl, vals2=gvals, **kw)[0]
+    assert WALK.launches == before + 1
+    pout = worklist_spmm_plain(x, vals, wl, vals2=gvals, sub_m=8,
+                               emit_occupancy=False, **kw)[0]
+    torch.cuda.synchronize()
+    assert out.dtype == dtype
+    _close(out, pout, dtype)
+    assert bool((out[50:] == 0).all())
+    if dtype == torch.bfloat16:
+        # fp32 sums rounded once: the fp32 run on the widened inputs
+        out32 = worklist_spmm(x.float(), vals.float(), wl,
+                              vals2=gvals.float(), **kw)[0]
+        assert torch.equal(out, out32.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["swiglu", "geglu", "relu2", "relu", "gelu"])
+@pytest.mark.parametrize("rows", [2, 4, 128])
+def test_compact_schedule_equals_dense_bitwise(rng, cuda, dtype, act, rows):
+    """The work-list FFN (K1, two streams for the gated acts, then one)
+    gives bit for bit what the dense grid (K4 then K3) gives."""
+    x, idx, vals, gidx, gvals = _two_stream_operands(rng, cuda, dtype,
+                                                     M=128, live=rows)
+    x[:rows][x[:rows].abs() < 0.5] = 0          # zero sub-blocks and chunks
+    sp = {"in_indices": idx, "in_vals": vals, "out_indices": gidx,
+          "out_vals": gvals}
+    if act in ("swiglu", "geglu"):
+        sp.update(gate_indices=gidx, gate_vals=gvals)
+    before = WALK.launches
+    got = sparse_ffn_apply(sp, x[:rows], act, schedule="compact")
+    assert WALK.launches == before + 2
+    want = sparse_ffn_apply(sp, x[:rows], act)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_sparse_rwkv_serving_on_card(cuda):
+    """Smoke RWKV6 (fp32) through K3/K4 on the channel-mix: batched ==
+    solo, and the card's tokens equal the CPU plain path's."""
+    cfg = load_smoke("rwkv6_3b")
     params = sparsify_model(M.init_params(cfg, seed=0, device=cuda), cfg,
                             density=0.35, num_shards=4)
     rng = np.random.default_rng(0)

@@ -88,7 +88,17 @@ def test_full_qwen3_4b_is_full_width():
         (36, 2560, 9728, 32, 8, 128, 152064)
     assert cfg.qk_norm and cfg.tie_embeddings and cfg.dtype == "bfloat16"
     with pytest.raises(NotImplementedError):
-        t_base.load_config("rwkv6_3b")
+        t_base.load_config("jamba_1_5_large_398b")
+
+
+def test_full_rwkv6_3b_is_full_width():
+    cfg = t_base.load_config("rwkv6_3b")
+    assert (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.d_head,
+            cfg.vocab, cfg.padded_vocab) == \
+        (32, 2560, 8960, 40, 64, 65536, 65536)
+    assert cfg.block_pattern == ("rwkv",) and cfg.act == "relu2"
+    assert cfg.rwkv and cfg.sparse_ffn and cfg.dtype == "bfloat16"
+    assert cfg.periods == 32
 
 
 @pytest.mark.parametrize("case", CASES)

@@ -213,7 +213,9 @@ def test_device_schedule_cached_and_csr_consistent(rng):
     assert ptr[0] == 0 and ptr[-1] == wl.num_steps
     np.testing.assert_array_equal(np.nonzero(wl.first)[0], ptr[:-1])
     np.testing.assert_array_equal(np.nonzero(wl.last)[0], ptr[1:] - 1)
-    assert [f.name for f in dataclasses.fields(ds)] == ["pair_ptr", "k", "j"]
+    assert [f.name for f in dataclasses.fields(ds)] == ["pair_ptr", "k", "j",
+                                                        "k2"]
+    assert ds.k2 is None                        # a one-stream list
     live = wl.k >= 0
     steps = wl.live_steps(CPU)
     assert wl.live_steps("cpu") is steps
@@ -226,10 +228,15 @@ def test_walker_rejects_what_is_not_ported(rng):
     x, idx, vals = _spmm_operands(rng, bm_rows=16)
     xt, vt = torch.as_tensor(x), torch.as_tensor(vals)
     wl = twl.build_worklist(idx, 4)
-    with pytest.raises(NotImplementedError):
+    # the stream count must match the list's, and the act the table
+    with pytest.raises(ValueError):
         twl.worklist_spmm(xt, vt, wl, bk=32, bn=64, bm_rows=16, vals2=vt)
-    with pytest.raises(NotImplementedError):
-        twl.worklist_spmm(xt, vt, wl, bk=32, bn=64, bm_rows=16, act="gelu")
+    with pytest.raises(ValueError):
+        twl.worklist_spmm(xt, vt, twl.build_worklist(idx, 4,
+                                                      gate_indices=idx),
+                          bk=32, bn=64, bm_rows=16, act="swiglu")
+    with pytest.raises(ValueError):
+        twl.worklist_spmm(xt, vt, wl, bk=32, bn=64, bm_rows=16, act="tanh")
     with pytest.raises(ValueError):
         twl.worklist_spmm(xt, vt, twl.build_worklist(idx, 2), bk=32, bn=64,
                           bm_rows=16)
