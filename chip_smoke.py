@@ -23,8 +23,10 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    requests on 4 slots, every output bitwise equal to the solo forward;
 6. the LM FFN kernels (predicated sparse matmul, fused FFN) against their
    plain versions at Qwen3-4B full-width shapes, layer 0 of the packed
-   model: decode (4 live rows in a 128-row block) and a 128-token prefill,
-   each in fp32 (rel err <= 1e-5) and bf16 (each version's output bit for
+   model (and, in phase 10, at RWKV6-3B's channel-mix), each with its
+   launch grid (CTAs, busy CTAs at decode, column groups): decode (4 live
+   rows in a 128-row block) and a 128-token prefill, each in fp32 (rel
+   err <= 1e-5) and bf16 (each version's output bit for
    bit the bf16 rounding of its own fp32 sums, and more than one bf16 ulp
    from the plain version only where the two fp32 sums already differ by
    half an ulp; worst case printed), MAC counts exactly equal, every row
@@ -51,9 +53,11 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    version (fp32 rel err <= 1e-5, bf16 as in phase 6), with CUDA-event
    times beside the bound and one ``torch.matmul`` yardstick;
 10. sparse RWKV6-3B at full width (bf16, density 0.35, depth cut to
-   LM_LAYERS): served through ``Scheduler`` as in phase 7 (squared-ReLU
-   channel-mix through the fused FFN and the sparse matmul, tokens bitwise
-   equal to solo), one channel-mix through ``schedule="compact"`` (the
+   LM_LAYERS): phase 6's K3/K4 checks and timings at layer 0's relu2
+   channel-mix (d_ff 8960, non-gated), then served through ``Scheduler``
+   as in phase 7 (squared-ReLU channel-mix through the fused FFN and the
+   sparse matmul, tokens bitwise equal to solo), one channel-mix through
+   ``schedule="compact"`` (the
    walker's one-stream relu2 epilogue) bitwise equal to ``"dense"`` at
    decode and prefill, and the fp32 oracle of phase 8.
 
@@ -89,6 +93,7 @@ LM_LAYERS = 4
 LM_DENSITY = 0.35
 LM_SHARDS = 4
 LM_SLOTS, LM_REQUESTS, LM_PROMPT, LM_NEW, LM_STAGGER = 4, 8, 128, 32, 2
+MODEL_NAMES = {"qwen3-4b": "Qwen3-4B", "rwkv6-3b": "RWKV6-3B"}
 
 
 class SmokeFailure(RuntimeError):
@@ -430,18 +435,22 @@ def ulp_note(ulps) -> str:
 
 
 def ffn_kernel_phase(params, cfg, card):
-    """Phase 6: the predicated sparse matmul (K3) and the fused FFN (K4)
-    against their plain versions at layer 0's packed weights; returns the
-    per-regime records of both kernels."""
+    """Phases 6 and 10: the predicated sparse matmul (K3) and the fused FFN
+    (K4) against their plain versions at layer 0's packed weights (Qwen3-4B's
+    gated FFN, RWKV6-3B's relu2 channel-mix); returns the per-regime records
+    of both kernels."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.bitmask_spmm import (bitmask_spmm,
-                                                  bitmask_spmm_plain)
+                                                  bitmask_spmm_plain,
+                                                  grid_geometry, sm_count)
     from repro_torch.kernels.fused_ffn import (fused_ffn_spmm,
                                                fused_ffn_spmm_plain)
     from repro_torch.sparsity.sparse_ffn import densify
     torch.backends.cuda.matmul.allow_tf32 = False
-    sp = params["blocks"][0]["p0"]["ffn_sparse"]
+    _, leaf = sparse_leaf(params["blocks"][0]["p0"])
+    sp = params["blocks"][0]["p0"][leaf]
+    gated = "gate_indices" in sp
     dev = sp["in_vals"].device
     chunk, sub_m, bm = 128, 8, 128
     nb_in, mnz = sp["in_indices"].shape
@@ -449,10 +458,20 @@ def ffn_kernel_phase(params, cfg, card):
     D, Fp = cfg.d_model, nb_in * chunk
     Dp = nb_out * chunk
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    streams = ("in", "gate") if gated else ("in",)
 
-    w_lib = {"in_gate": torch.cat([densify(sp, "in", D, chunk),
-                                   densify(sp, "gate", D, chunk)], 1),
+    w_lib = {"in_gate": torch.cat([densify(sp, r, D, chunk) for r in streams],
+                                  1),
              "out": densify(sp, "out", Fp, chunk)}
+    # the launch geometry: blocks, and the busy ones at decode (the first
+    # 32 rows of the row block live); the gated FFN runs CTA pairs
+    grids = {}
+    for key, nb in (("k4", nb_in), ("k3", nb_out)):
+        g = grid_geometry(bm, nb, bm=bm, bn=chunk, sms=sm_count(dev))
+        pairs = 2 if key == "k4" and gated else 1
+        grids[key] = (f"{g.blocks * pairs} CTAs of 64 threads, "
+                      f"{nb * g.groups * pairs} busy at decode, "
+                      f"{g.col_group}-column groups")
     recs = {"k3": [], "k4": []}
     for regime, rows in (("decode", LM_SLOTS), ("prefill", LM_PROMPT)):
         x16 = torch.zeros((bm, D), dtype=torch.bfloat16, device=dev)
@@ -466,8 +485,8 @@ def ffn_kernel_phase(params, cfg, card):
             x = x16.to(dtype)
             kw4 = dict(act=cfg.act, bk=chunk, bn=chunk, bm=bm, sub_m=sub_m,
                        two_sided=True)
-            args4 = (x, v["in_indices"], v["in_vals"], v["gate_indices"],
-                     v["gate_vals"])
+            args4 = (x, v["in_indices"], v["in_vals"], v.get("gate_indices"),
+                     v.get("gate_vals"))
             h = fused_ffn_spmm(*args4, **kw4)
             ph = fused_ffn_spmm_plain(*args4, **kw4)
             torch_sync()
@@ -519,13 +538,14 @@ def ffn_kernel_phase(params, cfg, card):
             # the bound: live sub-block MACs, each input read once
             stats4 = [ops.sparse_matmul_tile_stats(
                 x, v[f"{r}_indices"], k_total=D, bk=chunk, sub_m=sub_m)
-                for r in ("in", "gate")]
+                for r in streams]
             flops4 = 2.0 * sub_m * chunk * chunk * sum(
                 float(s["executed"]) for s in stats4)
             stored4 = sum(int((v[f"{r}_indices"] >= 0).sum())
-                          for r in ("in", "gate"))
+                          for r in streams)
             bytes4 = (eb * (rows * D + stored4 * chunk * chunk + rows * Fp)
-                      + 4.0 * (2 * nb_in * mnz + bm // sub_m * D // chunk))
+                      + 4.0 * (len(streams) * nb_in * mnz
+                               + bm // sub_m * D // chunk))
             flops3 = 2.0 * sub_m * chunk * chunk * float(stats3["executed"])
             stored3 = int((v["out_indices"] >= 0).sum())
             bytes3 = (eb * (rows * Fp + stored3 * chunk * chunk + rows * Dp)
@@ -546,19 +566,23 @@ def ffn_kernel_phase(params, cfg, card):
                             reps=5)
             wl3 = w_lib["out"].to(dtype)
             l3_ms = cuda_ms(lambda: torch.matmul(args3[0], wl3), reps=20)
-            at = (f"Qwen3-4B layer 0 FFN, {tag}, bk=bn={chunk} sub_m={sub_m}"
-                  f", density {LM_DENSITY}")
+            at = (f"{MODEL_NAMES.get(cfg.name, cfg.name)} layer 0 "
+                  f"{'FFN' if gated else 'channel-mix'}, "
+                  f"{tag}, bk=bn={chunk} sub_m={sub_m}, density "
+                  f"{LM_DENSITY}")
             print(f"FFN kernels @ {at} [{card}]")
             print(f"  fused FFN (K4, {cfg.act}): max abs err {a4:.3e}, max "
                   f"rel err {r4:.3e}{ulp_note(ulps.get('k4'))}; pad rows "
-                  f"exact zeros; rows independent; kernel {k4_ms:.4f} ms, "
-                  f"plain {p4_ms:.4f} ms, bound {b4:.4f} ms ({by4}), matmul"
-                  f" [W_in|W_gate] {l4_ms:.4f} ms (no activation)")
+                  f"exact zeros; rows independent; kernel {k4_ms:.4f} ms "
+                  f"({grids['k4']}), plain {p4_ms:.4f} ms, bound {b4:.4f} "
+                  f"ms ({by4}), matmul [W_in{'|W_gate' if gated else ''}] "
+                  f"{l4_ms:.4f} ms (no activation)")
             print(f"  sparse matmul (K3): max abs err {a3:.3e}, max rel err "
                   f"{r3:.3e}{ulp_note(ulps.get('k3'))}; counts equal "
                   f"({int(cnt.sum())} sub-block MACs); rows independent; "
-                  f"kernel {k3_ms:.4f} ms, plain {p3_ms:.4f} ms, bound "
-                  f"{b3:.4f} ms ({by3}), matmul {l3_ms:.4f} ms")
+                  f"kernel {k3_ms:.4f} ms ({grids['k3']}), plain "
+                  f"{p3_ms:.4f} ms, bound {b3:.4f} ms ({by3}), matmul "
+                  f"{l3_ms:.4f} ms")
 
             def rec(a, r, k, p, b, by, lib, u):
                 return {"at": at, "max_abs_err": a, "max_rel_err": r,
@@ -929,6 +953,8 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     rcfg, rparams = build_lm(dev, RWKV_ARCH)       # phase 10
+    for key, more in ffn_kernel_phase(rparams, rcfg, card).items():
+        recs[key] += more
     launches["rwkv6_3b_serving"] = lm_serving_phase(rcfg, rparams, card)
     k1_rwkv = channel_mix_compact_phase(rparams, rcfg)
     lm_oracle_phase(rcfg, rparams)
@@ -950,8 +976,8 @@ def main() -> int:
     }
     for key, (name, source, replaces) in meta.items():
         # headline: the decode regime in bf16, what serving runs most
-        head = next(r for r in recs[key]
-                    if r["at"].find("decode") >= 0 and "bfloat16" in r["at"])
+        head = next(r for r in recs[key] if r["at"].startswith("Qwen3-4B")
+                    and "decode" in r["at"] and "bfloat16" in r["at"])
         by_path = {path: n[key] for path, n in launches.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": source,

@@ -19,124 +19,72 @@
 // of x (fp32, or bf16 rounded to nearest even). Rows that are all zero stay
 // exactly zero: every act maps 0 to 0.
 //
-// Design. The block of the dense grid (tile.cuh, as in bitmask_spmm.cu):
-// one CUDA block per (n, m, 64-row slice), the j loop inside it, each stream
-// a call of tile::grid_slot per slot, so each accumulator adds its chunks in
-// ascending j with the skip predicate on its own k. Both accumulators live
-// in registers (2 x 4 x TN floats a thread); the gated variant is its own
-// instantiation so the non-gated one carries one. Nothing is carried
-// between blocks and no atomics touch the output, so every row's result is
-// independent of the other rows of its block.
+// Design. The grid of ffn_grid.cuh: one 64-thread CTA per 32-row x 16- or
+// 32-column tile of an n-block and stream; for the gated acts a cluster of
+// two CTAs, one per stream, each with its own live list (a slot live in one
+// stream costs that stream alone) and TMA ring, the gate CTA handing its
+// accumulators to the in CTA through distributed shared memory before the
+// flush. Each accumulator adds its chunks in ascending j. Nothing is
+// carried between tiles and no atomics touch the output, so every row's
+// result is independent of the other rows of its block.
 //
 // What bounds it on this card. At decode the work is reading the stored
-// W_in and W_gate tiles once per live slice (bytes); at a 128-row prefill it
-// is fp32 FMA at 67 TFLOP/s. The kernel's time is far from both (PERF.md):
-// per slot it stages and widens each tile element by element and pays block
-// barriers, and the accumulators double the registers of a thread. wgmma on
-// bf16 tiles and TMA staging are later work.
-#include "tile.cuh"
-
-namespace {
-
-template <int TN, typename T, bool GATED>
-__global__ void __launch_bounds__(tile::THREADS)
-fused_ffn_kernel(const T* __restrict__ x, const T* __restrict__ in_vals,
-                 const int* __restrict__ in_idx,
-                 const T* __restrict__ gate_vals,
-                 const int* __restrict__ gate_idx,
-                 const int* __restrict__ occ, T* __restrict__ out, int K,
-                 int nb, int mb, int max_nz, int bk, int bn, int bm_rows,
-                 int sub_m, int two_sided, int act) {
-  __shared__ tile::GridSmem<TN> g;
-  const int p = blockIdx.x;
-  const int n = p / mb, m = p % mb;
-  const tile::Slice s = tile::slice_of(m, bm_rows);
-  const int kb = K / bk;
-
-  float h[4][TN], gt[4][TN];
-  tile::zero(h);
-  if constexpr (GATED) tile::zero(gt);
-  for (int j = 0; j < max_nz; ++j) {
-    const long slot = (long)n * max_nz + j;
-    const int ki = in_idx[slot];
-    if (ki >= 0)
-      tile::grid_slot<TN, T>(h, g, s, x, in_vals + slot * bk * bn, occ, ki, K,
-                             kb, bk, bn, sub_m, two_sided, 0);
-    if constexpr (GATED) {
-      const int kg = gate_idx[slot];
-      if (kg >= 0)
-        tile::grid_slot<TN, T>(gt, g, s, x, gate_vals + slot * bk * bn, occ,
-                               kg, K, kb, bk, bn, sub_m, two_sided, 0);
-    }
-  }
-  if constexpr (GATED)
-    tile::flush<TN, T, true>(h, gt, g.t, s, out, nullptr, n, nb, bn, sub_m,
-                             act, 0);
-  else
-    tile::flush<TN, T>(h, g.t, s, out, nullptr, n, nb, bn, sub_m, act, 0);
-}
-
-template <int TN, typename T>
-void launch_tn(const T* x, const T* in_vals, const int* in_idx,
-               const T* gate_vals, const int* gate_idx, const int* occ,
-               T* out, int K, int nb, int mb, int max_nz, int bk, int bn,
-               int bm_rows, int sub_m, int two_sided, int act,
-               cudaStream_t st) {
-  const dim3 grid(nb * mb, (bm_rows + tile::RS - 1) / tile::RS);
-  if (act == tile::ACT_SWIGLU || act == tile::ACT_GEGLU)
-    fused_ffn_kernel<TN, T, true><<<grid, tile::THREADS, 0, st>>>(
-        x, in_vals, in_idx, gate_vals, gate_idx, occ, out, K, nb, mb, max_nz,
-        bk, bn, bm_rows, sub_m, two_sided, act);
-  else
-    fused_ffn_kernel<TN, T, false><<<grid, tile::THREADS, 0, st>>>(
-        x, in_vals, in_idx, gate_vals, gate_idx, occ, out, K, nb, mb, max_nz,
-        bk, bn, bm_rows, sub_m, two_sided, act);
-}
-
-template <typename T>
-int launch(const void* x, const void* in_vals, const int* in_idx,
-           const void* gate_vals, const int* gate_idx, const int* occ,
-           void* out, int K, int nb, int mb, int max_nz, int bk, int bn,
-           int bm_rows, int sub_m, int two_sided, int act, cudaStream_t st) {
-  const T* xt = static_cast<const T*>(x);
-  const T* it = static_cast<const T*>(in_vals);
-  const T* gv = static_cast<const T*>(gate_vals);
-  T* ot = static_cast<T*>(out);
-  if (bn <= 64)
-    launch_tn<4, T>(xt, it, in_idx, gv, gate_idx, occ, ot, K, nb, mb, max_nz,
-                    bk, bn, bm_rows, sub_m, two_sided, act, st);
-  else
-    launch_tn<8, T>(xt, it, in_idx, gv, gate_idx, occ, ot, K, nb, mb, max_nz,
-                    bk, bn, bm_rows, sub_m, two_sided, act, st);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
+// W_in and W_gate tiles once (bytes: 0.030 ms for Qwen3-4B's bf16 streams
+// at 3.35 TB/s). Its 608 busy CTAs (304 pairs) fill every SM with 4 or 5,
+// and each thread's 4 chains of 2560 fmaf are fed from shared memory: the
+// SMs' shared-load and issue rates, not HBM, set the time. At a 128-token
+// prefill the bound is fp32 FMA at 67 TFLOP/s. wgmma on bf16 tiles would
+// change the sum order the compact schedule matches bit for bit: later
+// work, shared with K1 and K3.
+#include "ffn_grid.cuh"
 
 extern "C" const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+template <typename T>
+static int run(const void* x, const void* in_vals, const int* in_idx,
+               const void* gate_vals, const int* gate_idx, int* occ,
+               void* out, int M, int K, int nb, int max_nz, int bk, int bn,
+               int bm_rows, int sub_m, int two_sided, int act, int col_group,
+               cudaStream_t st) {
+  const bool gated = act == tile::ACT_SWIGLU || act == tile::ACT_GEGLU;
+  fgrid::Args<T> a{};
+  a.idx[0] = in_idx;
+  a.idx[1] = gated ? gate_idx : in_idx;
+  a.occ = occ;
+  a.out = static_cast<T*>(out);
+  a.counts = nullptr;
+  a.M = M, a.K = K, a.nb = nb, a.max_nz = max_nz, a.bk = bk, a.bn = bn;
+  a.bm = bm_rows, a.sub_m = sub_m, a.two_sided = two_sided, a.act = act;
+  a.groups = (bn + col_group - 1) / col_group;
+  const T* xt = static_cast<const T*>(x);
+  const T* v[2] = {static_cast<const T*>(in_vals),
+                   static_cast<const T*>(gated ? gate_vals : in_vals)};
+  if (gated) return fgrid::launch<T, true>(a, xt, v, col_group, st);
+  return fgrid::launch<T, false>(a, xt, v, col_group, st);
+}
+
 // act: 0 relu, 1 relu2, 2 gelu (tanh), 3 swiglu, 4 geglu; gate_vals and
 // gate_idx are read only for 3 and 4. x, the vals and out are fp32
-// (bf16 == 0) or bf16 (bf16 == 1).
-// Returns cudaGetLastError() after the launch (0 = launched).
+// (bf16 == 0) or bf16 (bf16 == 1); col_group is 16 or 32.
+// Returns the cudaError_t of the launch (0 = launched).
 extern "C" int fused_ffn_spmm(const void* x, const void* in_vals,
                               const int* in_idx, const void* gate_vals,
-                              const int* gate_idx, const int* occ, void* out,
+                              const int* gate_idx, int* occ, void* out,
                               int M, int K, int nb, int mb, int max_nz,
                               int bk, int bn, int bm_rows, int sub_m,
                               int two_sided, int act, int bf16,
-                              void* stream) {
-  (void)M;
+                              int col_group, void* stream) {
+  (void)mb;
   if (act < tile::ACT_RELU || act > tile::ACT_GEGLU)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch<__nv_bfloat16>(x, in_vals, in_idx, gate_vals, gate_idx, occ,
-                                 out, K, nb, mb, max_nz, bk, bn, bm_rows,
-                                 sub_m, two_sided, act, st);
-  return launch<float>(x, in_vals, in_idx, gate_vals, gate_idx, occ, out, K,
-                       nb, mb, max_nz, bk, bn, bm_rows, sub_m, two_sided, act,
-                       st);
+    return run<__nv_bfloat16>(x, in_vals, in_idx, gate_vals, gate_idx, occ,
+                              out, M, K, nb, max_nz, bk, bn, bm_rows, sub_m,
+                              two_sided, act, col_group, st);
+  return run<float>(x, in_vals, in_idx, gate_vals, gate_idx, occ, out, M, K,
+                    nb, max_nz, bk, bn, bm_rows, sub_m, two_sided, act,
+                    col_group, st);
 }

@@ -1,7 +1,8 @@
-// The tile core shared by the walker (walk.cu), the dense-grid conv
-// (conv_grid.cu), the predicated sparse matmul (bitmask_spmm.cu) and the
-// fused FFN (fused_ffn.cu): one CUDA block owns a 64-row slice of one (n, m)
-// output tile and accumulates it in registers.
+// The tile core shared by the walker (walk.cu) and the dense-grid conv
+// (conv_grid.cu): one CUDA block owns a 64-row slice of one (n, m) output
+// tile and accumulates it in registers. The LM kernels (bitmask_spmm.cu,
+// fused_ffn.cu) have their own grid (ffn_grid.cuh) and use activate and
+// store from here, with the same sum order.
 //
 // Staging. x and w are staged in shared memory in 32-deep k-slabs
 // (64x32 + 32x128 floats = 24 KB, under the 48 KB static limit); 256
@@ -17,25 +18,20 @@
 // of every output element is therefore fixed here, in one place, and the
 // walker and the dense grid give bit for bit the same output on the same
 // schedule. (A row the dense grid predicates off would add fmaf(0, w, acc) ==
-// acc in the walker.)
-//
-// grid_slot is one slot of the dense grid with its row predicate, for the
-// LM kernels (bitmask_spmm.cu, fused_ffn.cu). conv_grid.cu keeps the same
-// slot code inline in its own loop: routed through grid_slot it ran 1.5%
-// slower at VGG16 layer 8 on an H100 (ptxas schedules the inner loop
-// differently).
+// acc in the walker.) ffn_grid.cuh adds its terms in the same order.
 //
 // Epilogue. flush applies activate (the table of
 // repro_torch.kernels.worklist_core.activate) to the fp32 accumulator, and
 // for the gated acts to a second one, before the one rounding at the store.
-// The walker (walk.cu) and the fused FFN (fused_ffn.cu) both flush here, so
-// a work-list schedule and the dense grid give bit for bit the same hidden
-// tile when their sums agree: one out-of-line activate, the same expf,
-// tanhf and operation order. None and ReLU, the conv kernels' epilogues,
-// stay inline. Measured on an H100 (PERF.md, PR 14): activate inlined at
-// every element cost the fused FFN 2.4-3.3% (its main loop scheduled
-// differently), and a call per element for ReLU cost the dense-grid conv 8%
-// at VGG16 layer 1, where the epilogue is a large share of a short block.
+// The walker (walk.cu) flushes here and the fused FFN (ffn_grid.cuh) does
+// the same operations, so a work-list schedule and the dense grid give bit
+// for bit the same hidden tile when their sums agree: one out-of-line
+// activate, the same expf, tanhf and operation order. None and ReLU, the
+// conv kernels' epilogues, stay inline. Measured on an H100 (PERF.md):
+// activate inlined at every element cost an FMA loop in the same kernel
+// 2.4-3.3% (scheduled differently), and a call per element for ReLU cost
+// the dense-grid conv 8% at VGG16 layer 1, where the epilogue is a large
+// share of a short block.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,15 +90,6 @@ struct Smem {
   float xs[KS][RS + 1];  // transposed x slab, padded: no bank conflicts
   float ws[KS][16 * TN];
   int row_nz[RS];        // per-row "some output != 0" for the occupancy
-};
-
-// Shared memory of a grid_slot block: the tile slabs, the live flag of each
-// row for the current slot, and the block's executed sub-block count.
-template <int TN>
-struct GridSmem {
-  Smem<TN> t;
-  int live_row[RS];
-  int cnt;
 };
 
 // Where this block's slice lies, and this thread's place in it.
@@ -167,48 +154,6 @@ __device__ inline void mac_chunk(float (&acc)[4][TN], Smem<TN>& sm,
     }
     __syncthreads();
   }
-}
-
-// One slot of the dense grid: acc += x[slice rows, chunk kc] @ w[bk, bn],
-// where, when two_sided, each sub_m-row sub-block whose activation occupancy
-// bit occ[row / sub_m, kc] is 0 (those rows of the chunk are all zero) takes
-// no term. With count_macs, count into g.cnt the live sub-blocks that start
-// in this slice (two-sided; a sub-block wider than a slice counts in the
-// slice of its first row) or, when one-sided, one MAC per slot from slice 0
-// only, so the per-slice partials sum to the TPU kernel's per-tile count.
-// When no row of the slice is live the slot is skipped whole. Every thread
-// of the block must call it: it holds block barriers.
-template <int TN, typename T>
-__device__ inline void grid_slot(float (&acc)[4][TN], GridSmem<TN>& g,
-                                 const Slice& s, const T* __restrict__ x,
-                                 const T* __restrict__ wb,
-                                 const int* __restrict__ occ, int kc, int K,
-                                 int kb, int bk, int bn, int sub_m,
-                                 int two_sided, int count_macs) {
-  // live_row is safe to rewrite here: the previous slot's readers copied it
-  // to registers before the k-slab barriers of mac_chunk
-  int live = 0;
-  if (s.tid < RS) {
-    if (s.tid < s.rows)
-      live = two_sided
-                 ? occ[((s.row_base + s.tid) / sub_m) * kb + kc] != 0
-                 : 1;
-    g.live_row[s.tid] = live;
-    if (count_macs && live) {
-      if (two_sided) {
-        if ((blockIdx.y * RS + s.tid) % sub_m == 0) atomicAdd(&g.cnt, 1);
-      } else if (s.tid == 0 && blockIdx.y == 0) {
-        atomicAdd(&g.cnt, 1);
-      }
-    }
-  }
-  // no live row in this slice: skip the whole slot
-  if (!__syncthreads_or(live)) return;
-  bool lv[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) lv[i] = g.live_row[s.ty * 4 + i] != 0;
-  mac_chunk<TN, true, T>(acc, g.t, s, x + s.row_base * K + (long)kc * bk, wb,
-                         K, bk, bn, lv);
 }
 
 // Epilogue: act(acc[, acc2]) (activate above; acc2 is read only when

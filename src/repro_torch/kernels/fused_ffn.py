@@ -23,18 +23,18 @@ import torch.nn.functional as F
 from repro_torch.kernels._cuda import CudaKernel, I, P, check_cuda_tensor, \
     ptr
 from repro_torch.kernels.bitmask_spmm import (KERNEL_DTYPES, check_grid,
-                                              subblock_macs)
+                                              check_lm_grid, grid_geometry,
+                                              sm_count, subblock_macs)
 from repro_torch.kernels.worklist_core import (ACT_CODE, ACTS, DEFAULT_BM,
                                                GATED_ACTS, LANE, WorkList,
                                                _tile_output, activate,
-                                               activation_occupancy,
                                                worklist_spmm)
 
 FUSED_FFN = CudaKernel("fused_ffn.cu", "fused_ffn_spmm", [
     P, P, P, P, P, P, P,                 # x in_vals in_idx gate_vals gate_idx
                                          # occ out
     I, I, I, I, I, I, I, I, I,           # M K nb mb max_nz bk bn bm sub_m
-    I, I, I,                             # two_sided act bf16
+    I, I, I, I,                          # two_sided act bf16 col_group
     P])                                  # stream
 
 
@@ -97,15 +97,18 @@ def _fused_ffn_spmm_cuda(x, in_idx, in_vals, gate_idx, gate_vals, *, act,
             raise ValueError(f"{name} lists {tuple(idx.shape)} / "
                              f"{tuple(vals.shape)} do not match ({nb}, "
                              f"{max_nz}) and tile ({bk}, {bn})")
-    if bn > 128:
-        raise ValueError(f"the kernel takes bn <= 128, got {bn}")
-    occ = activation_occupancy(x, sub_m, bk)
+    check_lm_grid(x, [("in_vals", in_vals), ("gate_vals", gate_vals)], bk,
+                  bn)
+    geom = grid_geometry(M, nb, bm=bm, bn=bn, sms=sm_count(dev))
+    # scratch the kernel fills with the activation occupancy
+    occ = torch.empty((M // sub_m, K // bk), dtype=torch.int32, device=dev)
     out = torch.empty((M, nb * bn), dtype=x.dtype, device=dev)
     FUSED_FFN.launch(dev, x.data_ptr(), in_vals.data_ptr(),
                      in_idx.data_ptr(), ptr(gate_vals), ptr(gate_idx),
                      occ.data_ptr(), out.data_ptr(), M, K, nb, M // bm,
                      max_nz, bk, bn, bm, sub_m, int(two_sided),
-                     ACT_CODE[act], int(x.dtype == torch.bfloat16))
+                     ACT_CODE[act], int(x.dtype == torch.bfloat16),
+                     geom.col_group)
     return out
 
 

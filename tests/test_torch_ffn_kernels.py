@@ -15,9 +15,11 @@ from repro.kernels.fused_ffn import fused_ffn_spmm as r_fused_ffn_spmm
 from repro.kernels.worklist_core import activate as r_activate
 from repro.sparsity import sparse_ffn as r_sf
 from repro_torch.kernels import ops
-from repro_torch.kernels.bitmask_spmm import bitmask_spmm
+from repro_torch.kernels.bitmask_spmm import (bitmask_spmm, check_lm_grid,
+                                              count_partials, grid_geometry,
+                                              subblock_macs)
 from repro_torch.kernels.fused_ffn import fused_ffn_spmm
-from repro_torch.kernels.worklist_core import activate
+from repro_torch.kernels.worklist_core import activate, activation_occupancy
 from repro_torch.sparsity import sparse_ffn as sf
 
 CPU = torch.device("cpu")
@@ -183,8 +185,8 @@ def test_packed_entry_points_pad_rows_and_k():
     assert out.shape == (2, 5, 384) and _rel(out, ref2) <= 1e-5
 
 
-def test_work_list_ffn_variants_are_not_ported():
-    """The work-list variants are ported now (their parity tests are in
+def test_work_list_ffn_variants_zero_rows_and_gate_operands():
+    """The work-list variants (parity tests in
     ``test_torch_worklist_ffn.py``): zero rows give exact zeros, and a gate
     operand the act does not match raises."""
     idx = torch.zeros(1, 1, dtype=torch.int32)
@@ -232,3 +234,65 @@ def test_build_sparse_ffn_matches_reference(act, gated):
     assert _rel(got(_t(x), schedule="compact"), want_c) <= 1e-5
     with pytest.raises(ValueError):
         got(_t(x), schedule="tiled")
+
+
+# (M, nb, bn, column group): Qwen3-4B's out- and in-projection and RWKV6-3B's
+# in-projection at decode, then the card tests' shapes
+GRID_SHAPES = [(128, 20, 128, 16), (128, 76, 128, 32), (128, 70, 128, 32),
+               (256, 3, 128, 16), (384, 3, 64, 16), (128, 3, 96, 16)]
+
+
+@pytest.mark.parametrize("M,nb,bn,col", GRID_SHAPES)
+def test_grid_geometry_covers_output_once(M, nb, bn, col):
+    geom = grid_geometry(M, nb, bm=128, bn=bn)
+    assert geom.col_group == col
+    cover = torch.zeros(M, nb * bn, dtype=torch.int32)
+    for rows, cols in geom.tiles():
+        cover[rows, cols] += 1
+    assert bool((cover == 1).all())
+    assert geom.blocks == len(list(geom.tiles()))
+    if nb >= 20:
+        # a decode step (the first 32 rows live) keeps every SM busy
+        assert nb * geom.groups >= 132
+
+
+@pytest.mark.parametrize("sub_m", [4, 8, 16, 128])
+@pytest.mark.parametrize("two_sided", [True, False])
+@pytest.mark.parametrize("M,K,nb,max_nz", [(384, 512, 3, 4),
+                                           (128, 9728, 20, 76)])
+def test_count_partials_reduce_to_subblock_macs(sub_m, two_sided, M, K, nb,
+                                                max_nz):
+    """The kernel's per-block MAC counts (the host model of its count rule)
+    add up to the plain version's [nb, mb] counts: live rows in a few
+    sub-blocks, -1 slots among stored ones."""
+    rng = np.random.default_rng(sub_m + M)
+    bk = 128
+    x = torch.as_tensor(rng.normal(size=(M, K)).astype(np.float32))
+    x[torch.as_tensor(rng.random(M // 4) < 0.6).repeat_interleave(4)] = 0
+    x[:, :bk][torch.as_tensor(rng.random(M) < 0.5)] = 0
+    kb = K // bk
+    idx = torch.as_tensor(np.stack([rng.permutation(kb)[:max_nz]
+                                    for _ in range(nb)]).astype(np.int32))
+    idx[rng.random(idx.shape) < 0.2] = -1
+    vals = torch.zeros(1, 1, 1, 1).expand(nb, max_nz, bk, 8)
+    _, want = subblock_macs(x, idx, vals, bk=bk, bm=128, sub_m=sub_m,
+                            two_sided=two_sided)
+    geom = grid_geometry(M, nb, bm=128, bn=128)
+    part = count_partials(geom, activation_occupancy(x, sub_m, bk), idx,
+                          sub_m=sub_m, two_sided=two_sided)
+    assert part.shape == geom.counts_shape
+    assert bool((part[:, :, 1:] == 0).all())     # column group 0 counts
+    assert torch.equal(geom.reduce_counts(part), want)
+
+
+def test_lm_grid_rejects_what_the_copies_cannot_take():
+    x = torch.zeros(128, 256)
+    check_lm_grid(x, [("vals", torch.zeros(2, 2, 128, 128))], 128, 128)
+    for bk, bn in ((100, 128), (128, 60), (128, 136)):
+        with pytest.raises(ValueError):
+            check_lm_grid(x, [], bk, bn)
+    with pytest.raises(ValueError):              # not 16-byte aligned
+        check_lm_grid(torch.zeros(128 * 256 + 1)[1:].reshape(128, 256), [],
+                      128, 128)
+    with pytest.raises(ValueError):              # row blocks of 32 rows
+        grid_geometry(96, 3, bm=48, bn=128)

@@ -142,12 +142,47 @@ def _close(got, ref, dtype):
         assert bool(((g - r).abs() <= ulp).all())
 
 
+# Shapes the K3/K4 grid (32-row blocks of 16- or 32-column groups, two
+# thread layouts) must take: the base operands, three row blocks, bk/bn 64
+# and 96/64 (a ragged last column group), live rows only in the last 8-row
+# tile of a block, and -1 slots between stored ones, with (for K4) slots
+# live in the gate stream only and in the in stream only.
+GRID_CASES = ["base", "m384", "bk64_bn64", "bk96_bn64", "last_tile", "holes"]
+
+
+def _grid_case(rng, dev, dtype, case):
+    """x, in and gate chunk lists (-1 padded, zero tiles behind every -1),
+    and the tile (bk, bn) of one GRID_CASES case."""
+    M = {"m384": 384, "last_tile": 128}.get(case, 256)
+    bk, bn = {"bk64_bn64": (64, 64), "bk96_bn64": (96, 64)}.get(case,
+                                                                (128, 128))
+    idx = np.array([[0, 2, -1], [1, -1, -1], [2, 1, 0]], np.int32)
+    gidx = idx[::-1].copy()
+    if case == "holes":
+        idx = np.array([[0, -1, 2], [1, -1, -1], [-1, 1, 0]], np.int32)
+        gidx = np.array([[-1, 2, 1], [0, -1, 2], [2, -1, -1]], np.int32)
+    x = rng.normal(size=(M, 3 * bk)).astype(np.float32)
+    x[8:24] = 0
+    x[40:48, :bk] = 0
+    if case == "last_tile":
+        x[:120] = 0
+    vals, gvals = (rng.normal(size=(3, 3, bk, bn)).astype(np.float32) * 0.05
+                   for _ in range(2))
+    vals[idx < 0] = 0
+    gvals[gidx < 0] = 0
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return (t(x).to(dtype), t(idx), t(vals).to(dtype), t(gidx),
+            t(gvals).to(dtype), bk, bn)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("two_sided", [True, False])
-@pytest.mark.parametrize("sub_m", [8, 128])
-def test_bitmask_spmm_matches_plain(rng, cuda, dtype, two_sided, sub_m):
-    x, idx, vals = _ffn_operands(rng, cuda, dtype)
-    kw = dict(bk=128, bn=128, bm=128, sub_m=sub_m, two_sided=two_sided,
+@pytest.mark.parametrize("sub_m", [8, 16, 128])
+@pytest.mark.parametrize("case", GRID_CASES)
+def test_bitmask_spmm_matches_plain(rng, cuda, dtype, two_sided, sub_m,
+                                    case):
+    x, idx, vals, _, _, bk, bn = _grid_case(rng, cuda, dtype, case)
+    kw = dict(bk=bk, bn=bn, bm=128, sub_m=sub_m, two_sided=two_sided,
               count_macs=True)
     before = BITMASK_SPMM.launches
     out, cnt = bitmask_spmm(x, idx, vals, **kw)
@@ -161,12 +196,13 @@ def test_bitmask_spmm_matches_plain(rng, cuda, dtype, two_sided, sub_m):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act", ["swiglu", "geglu", "relu2", "relu", "gelu"])
-def test_fused_ffn_matches_plain(rng, cuda, dtype, act):
-    x, idx, vals = _ffn_operands(rng, cuda, dtype, live=200)
+@pytest.mark.parametrize("case", GRID_CASES)
+def test_fused_ffn_matches_plain(rng, cuda, dtype, act, case):
+    x, idx, vals, gidx, gvals, bk, bn = _grid_case(rng, cuda, dtype, case)
+    x[200:] = 0
     gated = act in ("swiglu", "geglu")
-    g_idx = torch.flip(idx, [0]).contiguous() if gated else None
-    g_vals = torch.flip(vals, [0]).contiguous() if gated else None
-    kw = dict(act=act, bk=128, bn=128, bm=128, sub_m=8, two_sided=True)
+    g_idx, g_vals = (gidx, gvals) if gated else (None, None)
+    kw = dict(act=act, bk=bk, bn=bn, bm=128, sub_m=8, two_sided=True)
     before = FUSED_FFN.launches
     h = fused_ffn_spmm(x, idx, vals, g_idx, g_vals, **kw)
     assert FUSED_FFN.launches == before + 1
