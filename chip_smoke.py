@@ -12,10 +12,11 @@ Phases, each of which stops the script with a non-zero exit when it fails:
 3. the vision kernels against their plain PyTorch versions at two VGG16
    layer shapes (layer 1 with 4 images, layer 8 with 4 images, 224 px,
    chunk pattern): max abs/rel error, exact occupancy and MAC counts,
-   batched == per-image bitwise for the walker, and CUDA-event times of the
-   kernel, the plain version and one dense ``F.conv2d`` (TF32 off) as a
-   yardstick, beside the bound (live FLOPs at 67 TFLOP/s fp32 or bytes at
-   3.35 TB/s);
+   batched == per-image bitwise for the walker (its 64-row mode), the dense
+   grid bitwise equal to the walker, each launch's grid, and CUDA-event
+   times of the kernel, the plain version and one dense ``F.conv2d`` (TF32
+   off) as a yardstick, beside the bound (live FLOPs at 67 TFLOP/s fp32 or
+   bytes at 3.35 TB/s);
 4. the vision main path, with the launch counters set to 0 first: full
    VGG16 at 224 px through ``oracle_check`` (dense-grid kernel) for the
    chunk and unstructured patterns, rel err <= 1e-5 against the dense
@@ -49,9 +50,11 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    ``sparse_ffn_apply(schedule="compact")`` (the walker, two streams then
    one) counted from zero and bitwise equal to ``schedule="dense"`` (fused
    FFN then sparse matmul); its schedule counters equal to the host model,
-   compaction 16x at decode; the walker's two-stream mode against its plain
-   version (fp32 rel err <= 1e-5, bf16 as in phase 6), with CUDA-event
-   times beside the bound and one ``torch.matmul`` yardstick;
+   compaction 16x at decode; the walker's 8-row (grid) mode against its
+   plain version (fp32 rel err <= 1e-5, bf16 as in phase 6), two streams
+   (in/gate) then one (the out projection on that hidden), each with its
+   launch grid (CTAs, busy CTAs, column groups, ring stages) and
+   CUDA-event times beside the bound and one ``torch.matmul`` yardstick;
 10. sparse RWKV6-3B at full width (bf16, density 0.35, depth cut to
    LM_LAYERS): phase 6's K3/K4 checks and timings at layer 0's relu2
    channel-mix (d_ff 8960, non-gated), then served through ``Scheduler``
@@ -59,7 +62,12 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    sparse matmul, tokens bitwise equal to solo), one channel-mix through
    ``schedule="compact"`` (the
    walker's one-stream relu2 epilogue) bitwise equal to ``"dense"`` at
-   decode and prefill, and the fp32 oracle of phase 8.
+   decode and prefill, its two walker launches (in, relu2; out) checked and
+   timed as in phase 9, and the fp32 oracle of phase 8.
+
+Kernel and library times are device times, CUDA-graph replays of 20
+calls (``graph_ms``); the plain versions, host loops, are timed by a loop
+of calls (``cuda_ms``).
 
 It prints the kernels line (JSON) and the card line before the last line,
 and as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -126,6 +134,36 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int, replays: int = 5) -> float:
+    """Device ms per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph (after two calls of warm-up on the capturing stream), replayed
+    ``replays`` times between CUDA events. A loop of calls (``cuda_ms``)
+    also times the host's Python and launches, which at decode take as long
+    as the kernel (0.05-0.09 ms a call) and made decode times jump between
+    runs; the kernels and the library calls are timed so, the plain
+    versions (host loops with syncs) by ``cuda_ms``."""
+    import torch
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        for _ in range(2):
+            fn()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=s):
+            for _ in range(reps):
+                fn()
+    torch.cuda.current_stream().wait_stream(s)
+    g.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
 def bound(flops: float, nbytes: float, peak: float = FP32_FLOPS):
     """The least time in ms for ``flops`` at ``peak`` FLOP/s and ``nbytes``
     at the HBM rate, and which of the two bounds it."""
@@ -168,7 +206,9 @@ def kernel_phase(model, imgs, layer: int, card: str):
     per-kernel records."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.sparse_conv import (sparse_conv_spmm,
+    from repro_torch.kernels.grid import ROW_BLOCK, ring_stages
+    from repro_torch.kernels.sparse_conv import (conv_grid_geometry,
+                                                 sparse_conv_spmm,
                                                  sparse_conv_spmm_plain)
     from repro_torch.kernels.worklist_core import (
         activation_occupancy, build_worklist, worklist_spmm,
@@ -204,7 +244,7 @@ def kernel_phase(model, imgs, layer: int, card: str):
     xn = x.permute(0, 3, 1, 2).contiguous()
     wd = torch.as_tensor(c.w_dense, device=x.device).permute(3, 2, 0, 1) \
         .contiguous()
-    lib_ms = cuda_ms(lambda: F.conv2d(xn, wd, padding=c.kh // 2), reps=10)
+    lib_ms = graph_ms(lambda: F.conv2d(xn, wd, padding=c.kh // 2), reps=10)
 
     # K1: the walker over the static (pack-time) schedule
     wl = build_worklist(idx, mb, mb_per_img=mpi)
@@ -224,7 +264,7 @@ def kernel_phase(model, imgs, layer: int, card: str):
                                        **kw1)[0] for i in range(B)])
     require(torch.equal(out, per_img),
             f"walker batch of {B} != per-image calls at layer {layer}")
-    k1_ms = cuda_ms(lambda: worklist_spmm(flat, w.vals, wl, mb_per_img=mpi,
+    k1_ms = graph_ms(lambda: worklist_spmm(flat, w.vals, wl, mb_per_img=mpi,
                                           ncolors=2, **kw1), reps=20)
     p1_ms = cuda_ms(lambda: worklist_spmm_plain(flat, w.vals, wl, **kw1),
                     reps=5)
@@ -248,7 +288,9 @@ def kernel_phase(model, imgs, layer: int, card: str):
             f"dense-grid occupancy differs from plain at layer {layer}")
     require(torch.equal(cnt2, pcnt2),
             f"dense-grid MAC counts differ from plain at layer {layer}")
-    k2_ms = cuda_ms(lambda: sparse_conv_spmm(flat, w.indices, w.vals, **kw2),
+    require(torch.equal(out2, out),
+            f"dense grid != walker bitwise at layer {layer}")
+    k2_ms = graph_ms(lambda: sparse_conv_spmm(flat, w.indices, w.vals, **kw2),
                     reps=20)
     p2_ms = cuda_ms(lambda: sparse_conv_spmm_plain(
         flat, w.indices, w.vals, fuse_relu=True, **kw2), reps=5)
@@ -265,23 +307,38 @@ def kernel_phase(model, imgs, layer: int, card: str):
                     + w.n_blocks * mb) + out_bytes
     b2, by2 = bound(flops, bytes2)
 
+    # the launches: the walker's 64-row mode, one block per pair and 64-row
+    # slice; the grid conv's CTAs, busy where some sub-block of their rows
+    # is occupied in a stored chunk
+    g2 = conv_grid_geometry(M, w.n_blocks, bm_rows=bm_rows, bn=w.bn)
+    stored_occ = occ_in[:, torch.as_tensor(used, device=occ_in.device)]
+    busy = int(stored_occ.reshape(-1, ROW_BLOCK // sub_m, used.size)
+               .any(2).any(1).sum()) * w.n_blocks * g2.groups
+    wide2, one2 = ring_stages(4, g2.col_group, w.bk)
+    grid1 = (f"{wl.num_pairs * (bm_rows // 64)} blocks of 256 threads (pairs "
+             f"x 64-row slices)")
+    grid2 = (f"{g2.blocks} CTAs of 64 threads, {busy} busy, "
+             f"{g2.col_group}-column groups, ring {wide2} whole-chunk "
+             f"stages ({one2} in the one-tile layout)")
     print(f"kernels @ {at} {tag}")
     print(f"  walker:     max abs err {abs1:.3e}, max rel err {rel1:.3e}, "
           f"occupancy equal, batch == per-image bitwise; {wl.mac_steps} live "
-          f"steps of {wl.num_steps}, {live_macs} live sub-block MACs; kernel {k1_ms:.4f} ms, plain "
+          f"steps of {wl.num_steps}, {live_macs} live sub-block MACs; "
+          f"{grid1}; kernel {k1_ms:.4f} ms, plain "
           f"{p1_ms:.4f} ms, bound {b1:.4f} ms ({by1}), dense conv2d "
           f"{lib_ms:.4f} ms")
     print(f"  dense grid: max abs err {abs2:.3e}, max rel err {rel2:.3e}, "
-          f"occupancy and counts equal; {executed} sub-block MACs; kernel "
+          f"occupancy and counts equal, bitwise equal to the walker; "
+          f"{executed} sub-block MACs; {grid2}; kernel "
           f"{k2_ms:.4f} ms, plain {p2_ms:.4f} ms, bound {b2:.4f} ms ({by2}),"
           f" dense conv2d {lib_ms:.4f} ms")
 
-    def rec(abs_, rel, k, p, b, by):
-        return {"at": at, "max_abs_err": abs_, "max_rel_err": rel, "ms": k,
-                "plain_ms": p, "bound_ms": b, "bound_by": by,
-                "library_ms": lib_ms}
-    return rec(abs1, rel1, k1_ms, p1_ms, b1, by1), \
-        rec(abs2, rel2, k2_ms, p2_ms, b2, by2)
+    def rec(abs_, rel, k, p, b, by, grid, mode):
+        return {"at": at, "mode": mode, "max_abs_err": abs_,
+                "max_rel_err": rel, "ms": k, "plain_ms": p, "bound_ms": b,
+                "bound_by": by, "library_ms": lib_ms, "grid": grid}
+    return rec(abs1, rel1, k1_ms, p1_ms, b1, by1, grid1, "64-row"), \
+        rec(abs2, rel2, k2_ms, p2_ms, b2, by2, grid2, "grid")
 
 
 def drive(card: str):
@@ -442,8 +499,8 @@ def ffn_kernel_phase(params, cfg, card):
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.bitmask_spmm import (bitmask_spmm,
-                                                  bitmask_spmm_plain,
-                                                  grid_geometry, sm_count)
+                                                  bitmask_spmm_plain)
+    from repro_torch.kernels.grid import grid_geometry, sm_count
     from repro_torch.kernels.fused_ffn import (fused_ffn_spmm,
                                                fused_ffn_spmm_plain)
     from repro_torch.sparsity.sparse_ffn import densify
@@ -556,16 +613,16 @@ def ffn_kernel_phase(params, cfg, card):
             peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
             b4, by4 = bound(flops4, bytes4, peak)
             b3, by3 = bound(flops3, bytes3, peak)
-            k4_ms = cuda_ms(lambda: fused_ffn_spmm(*args4, **kw4), reps=20)
+            k4_ms = graph_ms(lambda: fused_ffn_spmm(*args4, **kw4), reps=20)
             p4_ms = cuda_ms(lambda: fused_ffn_spmm_plain(*args4, **kw4),
                             reps=5)
             wl4 = w_lib["in_gate"].to(dtype)
-            l4_ms = cuda_ms(lambda: torch.matmul(x, wl4), reps=20)
-            k3_ms = cuda_ms(lambda: bitmask_spmm(*args3, **kw3), reps=20)
+            l4_ms = graph_ms(lambda: torch.matmul(x, wl4), reps=20)
+            k3_ms = graph_ms(lambda: bitmask_spmm(*args3, **kw3), reps=20)
             p3_ms = cuda_ms(lambda: bitmask_spmm_plain(*args3, **kw3),
                             reps=5)
             wl3 = w_lib["out"].to(dtype)
-            l3_ms = cuda_ms(lambda: torch.matmul(args3[0], wl3), reps=20)
+            l3_ms = graph_ms(lambda: torch.matmul(args3[0], wl3), reps=20)
             at = (f"{MODEL_NAMES.get(cfg.name, cfg.name)} layer 0 "
                   f"{'FFN' if gated else 'channel-mix'}, "
                   f"{tag}, bk=bn={chunk} sub_m={sub_m}, density "
@@ -749,6 +806,88 @@ def lm_oracle_phase(cfg, params):
             "LM oracle: logits not finite or of the wrong shape")
 
 
+def walker_grid(wl, M, bn, bm_rows, elem_bytes):
+    """The walker's grid-mode launch for one work list: CTAs, the busy ones
+    (some pair with a live step: the host model of the merged lists),
+    column groups and ring stages."""
+    import torch
+    from repro_torch.kernels.grid import (grid_geometry, ring_stages,
+                                          sm_count, walk_lists)
+    g = grid_geometry(M, wl.nb, bm=bm_rows, bn=bn,
+                      sms=sm_count(torch.device("cuda")))
+    ptr, js = torch.as_tensor(wl.pair_ptr()), torch.as_tensor(wl.j)
+    streams = [wl.k] + ([] if wl.k2 is None else [wl.k2])
+    busy = set()
+    for ks in streams:
+        busy |= set(walk_lists(ptr, torch.as_tensor(ks), js, nb=wl.nb,
+                               mb=wl.mb, bm_rows=bm_rows))
+    n = len(streams)
+    wide, one = ring_stages(elem_bytes, g.col_group, 128)
+    return (f"{g.blocks * n} CTAs of 64 threads{' (pairs)' if n == 2 else ''}"
+            f", {len(busy) * g.groups * n} busy, {g.col_group}-column groups,"
+            f" ring {wide} whole-chunk stages ({one} in the one-tile layout)")
+
+
+def walker_one_stream(x2, vals, indices, w_dense, rows, act, at, card,
+                      vals32=None):
+    """K1's one-stream grid mode on a compact schedule built from ``x2``
+    (rows padded to 8): against its plain version (fp32 rel err, or in
+    bf16 the rounding identity against the fp32 run on the widened inputs,
+    ``vals32``), timed beside its bound and one ``torch.matmul`` on the
+    densified weights. Returns (output, record)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.worklist_core import (worklist_spmm,
+                                                   worklist_spmm_plain)
+    chunk, sub_m = 128, 8
+    Kp = x2.shape[1]
+    nb = indices.shape[0]
+    wl = ops._worklist_for(x2, indices, None, sub_m, chunk,
+                           compact_activations=True, wl_cache=None)
+    kw = dict(bk=chunk, bn=chunk, bm_rows=sub_m, act=act)
+    pkw = dict(sub_m=sub_m, emit_occupancy=False, **kw)
+    o = worklist_spmm(x2, vals, wl, **kw)[0]
+    po = worklist_spmm_plain(x2, vals, wl, **pkw)[0]
+    torch_sync()
+    require(bool((o[rows:] == 0).all()),
+            f"K1 {at}: padded rows are not exact zeros")
+    ulps = None
+    if x2.dtype == torch.float32:
+        a1, r1 = errors(o, po)
+        require(r1 <= TOL, f"K1 {at}: rel err {r1:.3e}")
+    else:
+        a1, r1 = errors(o.float(), po.float())
+        x32 = x2.float()
+        ulps = check_bf16(f"K1 {at}", o, po,
+                          worklist_spmm(x32, vals32, wl, **kw)[0],
+                          worklist_spmm_plain(x32, vals32, wl, **pkw)[0])
+    executed = float(ops.sparse_matmul_tile_stats(
+        x2, indices, k_total=Kp, bk=chunk, sub_m=sub_m)["executed"])
+    require(int((wl.k >= 0).sum()) == int(executed),
+            f"K1 {at}: live steps != occupied sub-block MACs {executed}")
+    eb = x2.element_size()
+    stored = int((indices >= 0).sum())
+    nbytes = (eb * (rows * Kp + stored * chunk * chunk + rows * nb * chunk)
+              + 4.0 * (2 * wl.num_steps + wl.num_pairs + 1))
+    peak = BF16_FLOPS if x2.dtype == torch.bfloat16 else FP32_FLOPS
+    b1, by1 = bound(2.0 * sub_m * chunk * chunk * executed, nbytes, peak)
+    k_ms = graph_ms(lambda: worklist_spmm(x2, vals, wl, **kw), reps=20)
+    p_ms = cuda_ms(lambda: worklist_spmm_plain(x2, vals, wl, **pkw), reps=5)
+    xr, wd = x2[:rows], w_dense.to(x2.dtype)
+    l_ms = graph_ms(lambda: torch.matmul(xr, wd), reps=20)
+    grid = walker_grid(wl, x2.shape[0], chunk, sub_m, eb)
+    print(f"work-list FFN @ {at} [{card}]")
+    print(f"  walker (K1, one stream, {act}): max abs err {a1:.3e}, max rel "
+          f"err {r1:.3e}{ulp_note(ulps)}; {wl.mac_steps} live steps of "
+          f"{wl.num_steps}; {grid}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
+          f"ms, bound {b1:.4f} ms ({by1}), matmul {l_ms:.4f} ms"
+          f"{' (no activation)' if act else ''}")
+    return o, {"at": at, "mode": "grid, one stream", "max_abs_err": a1,
+               "max_rel_err": r1, "bf16_worst_ulps": ulps[0] if ulps else None,
+               "ms": k_ms, "plain_ms": p_ms, "bound_ms": b1, "bound_by": by1,
+               "library_ms": l_ms, "grid": grid}
+
+
 def walker_ffn_phase(params, cfg, card):
     """Phase 9: the work-list FFN schedule on layer 0's packed FFN. Returns
     the walker's two-stream records and its main-path launches."""
@@ -767,6 +906,7 @@ def walker_ffn_phase(params, cfg, card):
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     w_lib = torch.cat([densify(sp, "in", D, chunk),
                        densify(sp, "gate", D, chunk)], 1)
+    w_out = densify(sp, "out", Fp, chunk)
     recs, main_launches = [], 0
     for regime, rows in (("decode", 2), ("decode", LM_SLOTS),
                          ("prefill", LM_PROMPT)):
@@ -847,11 +987,12 @@ def walker_ffn_phase(params, cfg, card):
                       + 4.0 * (3 * wl.num_steps + wl.num_pairs + 1))
             peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
             b1, by1 = bound(flops, nbytes, peak)
-            k_ms = cuda_ms(lambda: worklist_spmm(*args, **kw), reps=20)
+            k_ms = graph_ms(lambda: worklist_spmm(*args, **kw), reps=20)
             p_ms = cuda_ms(lambda: worklist_spmm_plain(
                 *args, sub_m=sub_m, emit_occupancy=False, **kw), reps=5)
             wd = w_lib.to(dtype)
-            l_ms = cuda_ms(lambda: torch.matmul(x, wd), reps=20)
+            l_ms = graph_ms(lambda: torch.matmul(x, wd), reps=20)
+            grid = walker_grid(wl, x2.shape[0], chunk, sub_m, eb)
             at = (f"Qwen3-4B layer 0 FFN in/gate, two streams, {tag}, "
                   f"bk=bn={chunk} bm_rows=sub_m={sub_m}, density "
                   f"{LM_DENSITY}")
@@ -864,30 +1005,44 @@ def walker_ffn_phase(params, cfg, card):
                   f"model, predicated {sched['predicated_grid_steps']}, "
                   f"compaction {sched['compaction_factor']:.2f}x")
             print(f"  walker (K1, two streams, {cfg.act}): max abs err "
-                  f"{a1:.3e}, max rel err {r1:.3e}{ulp_note(ulps)}; kernel "
-                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b1:.4f} ms "
+                  f"{a1:.3e}, max rel err {r1:.3e}{ulp_note(ulps)}; {grid};"
+                  f" kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                  f"{b1:.4f} ms "
                   f"({by1}), matmul [W_in|W_gate] {l_ms:.4f} ms (no "
                   f"activation)")
-            recs.append({"at": at, "max_abs_err": a1, "max_rel_err": r1,
+            recs.append({"at": at, "mode": "grid, two streams",
+                         "max_abs_err": a1, "max_rel_err": r1,
                          "bf16_worst_ulps": ulps[0] if ulps else None,
                          "ms": k_ms, "plain_ms": p_ms, "bound_ms": b1,
-                         "bound_by": by1, "library_ms": l_ms,
+                         "bound_by": by1, "library_ms": l_ms, "grid": grid,
                          "compaction_factor": sched["compaction_factor"]})
+            # the compact out projection on that hidden: one stream
+            recs.append(walker_one_stream(
+                h, v["out_vals"], v["out_indices"], w_out, rows, None,
+                f"Qwen3-4B layer 0 FFN out projection, one stream, {tag}, "
+                f"bk=bn={chunk} bm_rows=sub_m={sub_m}, density "
+                f"{LM_DENSITY}", card,
+                vals32=sp["out_vals"].float())[1])
     return recs, main_launches
 
 
-def channel_mix_compact_phase(params, cfg):
-    """Phase 10's compact check: one RWKV channel-mix (layer 0, relu2)
-    through the work-list schedule, the walker's one-stream relu2 epilogue,
-    bitwise equal to the dense grid at decode and prefill. Returns the
-    walker's main-path launches."""
+def channel_mix_compact_phase(params, cfg, card):
+    """Phase 10's compact schedule: one RWKV channel-mix (layer 0, relu2)
+    through the work-list schedule, the walker's one-stream mode with its
+    relu2 epilogue then without one, bitwise equal to the dense grid at
+    decode and prefill; each of the two walker launches checked and timed.
+    Returns the walker's main-path launches and its records."""
     import torch
+    from repro_torch.kernels import ops
     from repro_torch.kernels.worklist_core import WALK
-    from repro_torch.sparsity.sparse_ffn import sparse_ffn_apply
+    from repro_torch.sparsity.sparse_ffn import densify, sparse_ffn_apply
     sp = params["blocks"][0]["p0"]["channel_mix_sparse"]
     dev = sp["in_vals"].device
+    chunk, sub_m = 128, 8
+    D, Fp = cfg.d_model, sp["in_indices"].shape[0] * chunk
+    w_in, w_out = densify(sp, "in", D, chunk), densify(sp, "out", Fp, chunk)
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
-    launches = 0
+    launches, recs = 0, []
     for regime, rows in (("decode", LM_SLOTS), ("prefill", LM_PROMPT)):
         x16 = torch.randn((rows, cfg.d_model), generator=gen, device=dev) \
             .to(torch.bfloat16)
@@ -909,7 +1064,21 @@ def channel_mix_compact_phase(params, cfg):
                     f"!= dense grid: max abs diff {diff:.3e}")
             print(f"  channel-mix (layer 0, relu2) {tag}: compact schedule "
                   f"bitwise equal to the dense grid")
-    return launches
+            # its two walker launches, checked and timed
+            x2, _, _ = ops._pad_rows_k(x, D, sub_m)
+            at = (f"RWKV6-3B layer 0 channel-mix {{}}, one stream, {tag}, "
+                  f"bk=bn={chunk} bm_rows=sub_m={sub_m}, density "
+                  f"{LM_DENSITY}")
+            h, rec = walker_one_stream(
+                x2, v["in_vals"], v["in_indices"], w_in, rows, "relu2",
+                at.format("in projection"), card,
+                vals32=sp["in_vals"].float())
+            recs.append(rec)
+            recs.append(walker_one_stream(
+                h, v["out_vals"], v["out_indices"], w_out, rows, None,
+                at.format("out projection"), card,
+                vals32=sp["out_vals"].float())[1])
+    return launches, recs
 
 
 def main() -> int:
@@ -956,11 +1125,20 @@ def main() -> int:
     for key, more in ffn_kernel_phase(rparams, rcfg, card).items():
         recs[key] += more
     launches["rwkv6_3b_serving"] = lm_serving_phase(rcfg, rparams, card)
-    k1_rwkv = channel_mix_compact_phase(rparams, rcfg)
+    k1_rwkv, k1_rwkv_recs = channel_mix_compact_phase(rparams, rcfg, card)
     lm_oracle_phase(rcfg, rparams)
 
     walker = kernels[0]
-    walker["shapes"] += k1_recs
+    walker["shapes"] += k1_recs + k1_rwkv_recs
+    # per mode, the shape its path runs most: VGG16 layer 1 for the 64-row
+    # mode, Qwen3-4B decode (4 rows) in bf16 for the grid modes
+    modes = {}
+    for r in walker["shapes"]:
+        modes.setdefault(r["mode"], r)
+        if r["at"].startswith("Qwen3-4B") and \
+                "decode (4 rows), bfloat16" in r["at"]:
+            modes[r["mode"]] = r
+    walker["modes"] = modes
     walker["launches_by_path"] = {
         "vgg16_engine": walker["launches"],
         "qwen3_4b_ffn_compact": k1_qwen,

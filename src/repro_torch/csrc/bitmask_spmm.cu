@@ -16,6 +16,8 @@
 // 32-row x 16- or 32-column tile of an n-block, its live slots compacted
 // first, their x rows and weight columns streamed through a TMA ring, and
 // MAC counts added per CTA (integer atomics on counts, none on the output).
+// Row blocks bm_rows divide 32 or are multiples of 32, and the last 32-row
+// tile may be partial (M = 8, say); any other bm_rows (48) is refused.
 // Every output element's fp32 sum order is fixed by the packing alone
 // (ascending j, then k), so a row's result does not depend on the other
 // rows of its block: a decode batch gives bit for bit what each lane gives
@@ -53,13 +55,13 @@ static int run(const void* x, const void* vals, const int* indices,
   a.act = tile::ACT_NONE;
   a.groups = (bn + col_group - 1) / col_group;
   const T* v[2] = {static_cast<const T*>(vals), static_cast<const T*>(vals)};
-  return fgrid::launch<T, false>(a, static_cast<const T*>(x), v, col_group,
-                                    st);
+  return fgrid::launch<T, false, false>(a, static_cast<const T*>(x), v,
+                                        col_group, st);
 }
 
 // x, vals and out are fp32 (bf16 == 0) or bf16 (bf16 == 1). counts, when
-// count_macs, is int32 [M / 32, nb, groups] of per-block partials (groups =
-// ceil(bn / col_group)); the wrapper sums them to [nb, mb].
+// count_macs, is int32 [nb, mb] (mb = M / bm_rows), zeroed by the
+// occupancy launch and added to by every CTA of column group 0.
 // Returns the cudaError_t of the launch (0 = launched).
 extern "C" int bitmask_spmm(const void* x, const void* vals,
                             const int* indices, int* occ, void* out,

@@ -26,7 +26,9 @@
 // accumulators to the in CTA through distributed shared memory before the
 // flush. Each accumulator adds its chunks in ascending j. Nothing is
 // carried between tiles and no atomics touch the output, so every row's
-// result is independent of the other rows of its block.
+// result is independent of the other rows of its block. Row blocks as in
+// bitmask_spmm.cu: dividing or a multiple of 32 rows, the last 32-row tile
+// possibly partial.
 //
 // What bounds it on this card. At decode the work is reading the stored
 // W_in and W_gate tiles once (bytes: 0.030 ms for Qwen3-4B's bf16 streams
@@ -61,8 +63,8 @@ static int run(const void* x, const void* in_vals, const int* in_idx,
   const T* xt = static_cast<const T*>(x);
   const T* v[2] = {static_cast<const T*>(in_vals),
                    static_cast<const T*>(gated ? gate_vals : in_vals)};
-  if (gated) return fgrid::launch<T, true>(a, xt, v, col_group, st);
-  return fgrid::launch<T, false>(a, xt, v, col_group, st);
+  if (gated) return fgrid::launch<T, true, false>(a, xt, v, col_group, st);
+  return fgrid::launch<T, false, false>(a, xt, v, col_group, st);
 }
 
 // act: 0 relu, 1 relu2, 2 gelu (tanh), 3 swiglu, 4 geglu; gate_vals and

@@ -1,8 +1,8 @@
-// The tile core shared by the walker (walk.cu) and the dense-grid conv
-// (conv_grid.cu): one CUDA block owns a 64-row slice of one (n, m) output
-// tile and accumulates it in registers. The LM kernels (bitmask_spmm.cu,
-// fused_ffn.cu) have their own grid (ffn_grid.cuh) and use activate and
-// store from here, with the same sum order.
+// The tile core of the walker's 64-row mode (walk.cu): one CUDA block owns
+// a 64-row slice of one (n, m) output tile and accumulates it in registers.
+// The grid kernels (ffn_grid.cuh: the dense-grid conv, the LM kernels and
+// the walker's grid mode) use activate and store from here, with the same
+// sum order.
 //
 // Staging. x and w are staged in shared memory in 32-deep k-slabs
 // (64x32 + 32x128 floats = 24 KB, under the 48 KB static limit); 256
@@ -14,11 +14,10 @@
 // float both conversions are the identity).
 //
 // Sum order. mac_chunk adds one chunk in ascending k with one fmaf per term,
-// and every kernel calls it once per chunk in ascending j. The fp32 sum order
-// of every output element is therefore fixed here, in one place, and the
-// walker and the dense grid give bit for bit the same output on the same
-// schedule. (A row the dense grid predicates off would add fmaf(0, w, acc) ==
-// acc in the walker.) ffn_grid.cuh adds its terms in the same order.
+// and the walker calls it once per chunk in ascending j. ffn_grid.cuh adds
+// its terms in the same order, so the two give bit for bit the same output
+// on the same schedule. (A row the dense grid predicates off would add
+// fmaf(0, w, acc) == acc in the walker.)
 //
 // Epilogue. flush applies activate (the table of
 // repro_torch.kernels.worklist_core.activate) to the fp32 accumulator, and
@@ -118,13 +117,12 @@ __device__ inline void zero(float (&acc)[4][TN]) {
     for (int c = 0; c < TN; ++c) acc[i][c] = 0.f;
 }
 
-// acc += x[slice rows, bk-chunk at xb] @ w[bk, bn at wb]. With PRED, row i
-// of this thread's 4 takes no term where lv[i] is false (the sub_m skip).
-// Every thread of the block must call it: it holds block barriers.
-template <int TN, bool PRED, typename T>
+// acc += x[slice rows, bk-chunk at xb] @ w[bk, bn at wb]. Every thread of
+// the block must call it: it holds block barriers.
+template <int TN, typename T>
 __device__ inline void mac_chunk(float (&acc)[4][TN], Smem<TN>& sm,
                                  const Slice& s, const T* xb, const T* wb,
-                                 int K, int bk, int bn, const bool (&lv)[4]) {
+                                 int K, int bk, int bn) {
   constexpr int BN = 16 * TN;
   for (int k0 = 0; k0 < bk; k0 += KS) {
     for (int i = s.tid; i < RS * KS; i += THREADS) {
@@ -146,11 +144,9 @@ __device__ inline void mac_chunk(float (&acc)[4][TN], Smem<TN>& sm,
 #pragma unroll
       for (int c = 0; c < TN; ++c) b[c] = sm.ws[kk][s.tx + 16 * c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (PRED && !lv[i]) continue;
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int c = 0; c < TN; ++c) acc[i][c] = fmaf(a[i], b[c], acc[i][c]);
-      }
     }
     __syncthreads();
   }

@@ -21,14 +21,13 @@ PyTorch: the plain version of this kernel, of the fused FFN kernel
 """
 from __future__ import annotations
 
-import dataclasses
-import functools
-from typing import Iterator, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels._cuda import (KERNEL_DTYPES, CudaKernel, I, P,
                                        check_cuda_tensor, ptr)
+from repro_torch.kernels.grid import check_lm_grid, grid_geometry, sm_count
 from repro_torch.kernels.worklist_core import (DEFAULT_BM, LANE, WorkList,
                                                _tile_output,
                                                activation_occupancy,
@@ -40,107 +39,6 @@ BITMASK_SPMM = CudaKernel("bitmask_spmm.cu", "bitmask_spmm", [
     I, I, I, I,                          # two_sided count_macs bf16
                                          # col_group
     P])                                  # stream
-
-# The grid of K3 and K4 (csrc/ffn_grid.cuh): one 64-thread CUDA block per
-# ROW_BLOCK rows x col_group columns of an n-block.
-ROW_BLOCK = 32
-H100_SMS = 132
-
-
-@dataclasses.dataclass(frozen=True)
-class GridGeometry:
-    """Launch geometry of the LM kernels' grid. Block ``b`` is numbered
-    ``(row_block * nb + n) * groups + cg``: 32-row blocks outermost, so a
-    decode step's busy blocks (the first rows of each row block) come first
-    in the launch."""
-
-    M: int
-    nb: int
-    bm: int
-    bn: int
-    col_group: int                # columns per block
-    groups: int                   # column groups per n-block
-
-    @property
-    def blocks(self) -> int:
-        return self.M // ROW_BLOCK * self.nb * self.groups
-
-    @property
-    def counts_shape(self) -> Tuple[int, int, int]:
-        """Shape of the per-block MAC counts, in launch order."""
-        return (self.M // ROW_BLOCK, self.nb, self.groups)
-
-    def reduce_counts(self, partial: torch.Tensor) -> torch.Tensor:
-        """Per-block counts summed to int32 ``[nb, mb]`` counts."""
-        mb = self.M // self.bm
-        return partial.reshape(mb, self.bm // ROW_BLOCK, self.nb,
-                               self.groups).sum((1, 3), dtype=torch.int32) \
-            .T.contiguous()
-
-    def tiles(self) -> Iterator[Tuple[slice, slice]]:
-        """(rows of x / out, columns of out) of every block, in launch
-        order."""
-        for b in range(self.blocks):
-            b, cg = divmod(b, self.groups)
-            rb, n = divmod(b, self.nb)
-            c0 = n * self.bn + cg * self.col_group
-            yield (slice(rb * ROW_BLOCK, (rb + 1) * ROW_BLOCK),
-                   slice(c0, min(c0 + self.col_group, (n + 1) * self.bn)))
-
-
-def grid_geometry(M: int, nb: int, *, bm: int, bn: int,
-                  sms: int = H100_SMS) -> GridGeometry:
-    """32-column groups when a decode step (live rows in the first 32 of a
-    row block) still gets ``2 * sms`` busy blocks of 2 warps, one busy warp
-    per SM scheduler; else 16-column groups, twice the blocks for the same
-    columns. Wider groups give each thread more FMAs per shared-memory
-    load."""
-    if M % bm or bm % ROW_BLOCK:
-        raise ValueError(f"the kernel takes row blocks of a multiple of "
-                         f"{ROW_BLOCK} rows, got M={M}, bm={bm}")
-    col = 32 if nb * -(-bn // 32) >= 2 * sms else 16
-    return GridGeometry(M=M, nb=nb, bm=bm, bn=bn, col_group=col,
-                        groups=-(-bn // col))
-
-
-def count_partials(geom: GridGeometry, occ: torch.Tensor,
-                   indices: torch.Tensor, *, sub_m: int,
-                   two_sided: bool) -> torch.Tensor:
-    """The kernel's count rule in plain PyTorch: the int32 MAC counts each
-    block adds into ``counts[n, m]``, in ``geom.counts_shape``. Column group
-    0 counts; two-sided, each occupied ``sub_m``-row sub-block of a stored
-    chunk counts once, in the block of its first row; one-sided, each
-    stored slot counts once, in the first block of every row block."""
-    out = torch.zeros(geom.counts_shape, dtype=torch.int32,
-                      device=indices.device)
-    valid = indices >= 0
-    if not two_sided:
-        out[::geom.bm // ROW_BLOCK, :, 0] = valid.sum(1, dtype=torch.int32)
-        return out
-    # live[q, n]: stored slots of n-block n whose chunk is occupied in q
-    ks = indices.clamp_min(0).long()
-    live = (occ.bool()[:, ks] & valid).sum(-1, dtype=torch.int32)
-    block = torch.arange(occ.shape[0], device=occ.device) * sub_m \
-        // ROW_BLOCK
-    out[:, :, 0].index_add_(0, block, live)
-    return out
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(device: torch.device) -> int:
-    """The card's SM count (grid_geometry sizes the decode grid by it)."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def check_lm_grid(x: torch.Tensor, tensors, bk: int, bn: int) -> None:
-    """What the LM kernels' 16-byte copies need: bk and bn multiples of 8
-    and bn <= 128, and 16-byte-aligned operands."""
-    if bk % 8 or bn % 8 or bn > 128:
-        raise ValueError(f"the kernel takes bk and bn multiples of 8 and "
-                         f"bn <= 128, got bk={bk}, bn={bn}")
-    for name, t in (("x", x), *tensors):
-        if t is not None and t.data_ptr() % 16:
-            raise ValueError(f"{name} is not 16-byte aligned")
 
 
 def check_grid(x: torch.Tensor, bk: int, bm: int, sub_m: int) -> None:
@@ -243,8 +141,11 @@ def bitmask_spmm(x: torch.Tensor, indices: torch.Tensor, vals: torch.Tensor,
     ``bm``) sets the row granularity of the two-sided skip. Returns
     ``[M, N]`` in ``x.dtype`` (fp32 accumulation) and, with ``count_macs``,
     the int32 ``[nb, mb]`` executed sub-block MACs. A CUDA tensor launches
-    ``csrc/bitmask_spmm.cu`` (fp32 or bf16); a CPU tensor runs
-    :func:`bitmask_spmm_plain`.
+    ``csrc/bitmask_spmm.cu`` (fp32 or bf16), which takes ``bm`` dividing 32
+    or a multiple of 32, ``bk`` and ``bn`` multiples of 8 (``bk <= 248``,
+    ``bn <= 128``) and 16-byte-aligned operands, and raises ``ValueError``
+    otherwise (``bm=48``, say); a CPU tensor runs :func:`bitmask_spmm_plain`,
+    which takes any tiling.
     """
     sub_m = bm if sub_m is None else sub_m
     check_grid(x, bk, bm, sub_m)

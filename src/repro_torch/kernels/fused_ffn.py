@@ -20,11 +20,10 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels._cuda import CudaKernel, I, P, check_cuda_tensor, \
-    ptr
-from repro_torch.kernels.bitmask_spmm import (KERNEL_DTYPES, check_grid,
-                                              check_lm_grid, grid_geometry,
-                                              sm_count, subblock_macs)
+from repro_torch.kernels._cuda import (KERNEL_DTYPES, CudaKernel, I, P,
+                                       check_cuda_tensor, ptr)
+from repro_torch.kernels.bitmask_spmm import check_grid, subblock_macs
+from repro_torch.kernels.grid import check_lm_grid, grid_geometry, sm_count
 from repro_torch.kernels.worklist_core import (ACT_CODE, ACTS, DEFAULT_BM,
                                                GATED_ACTS, LANE, WorkList,
                                                _tile_output, activate,
@@ -125,7 +124,10 @@ def fused_ffn_spmm(x: torch.Tensor, in_idx: torch.Tensor,
     [nb, max_nz, bk, bn]. The gated acts (swiglu, geglu) need the gate
     operands, the others must not get them. Returns the activated hidden
     ``[M, nb*bn]`` in ``x.dtype`` (both projections accumulate in fp32 and
-    the activation is applied to the fp32 accumulators).
+    the activation is applied to the fp32 accumulators). A CUDA tensor
+    launches ``csrc/fused_ffn.cu``, which takes the tilings
+    :func:`~repro_torch.kernels.bitmask_spmm.bitmask_spmm` takes and raises
+    ``ValueError`` for others; a CPU tensor runs the plain version.
     """
     if act not in ACTS:
         raise ValueError(f"act must be one of {ACTS}, got {act!r}")

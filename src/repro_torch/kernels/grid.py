@@ -1,0 +1,212 @@
+"""Launch geometry of the grid kernels (``csrc/ffn_grid.cuh``), and host
+models of what their CTAs compute before the first multiply.
+
+One grid serves the predicated sparse matmul (K3), the fused FFN (K4), the
+dense-grid conv (K2) and the walker's small-row-block mode (K1 at
+``bm_rows`` dividing 32): 64-thread CTAs, each owning ``ROW_BLOCK`` rows x
+``col_group`` columns of one n-block, 32-row blocks outermost in the launch.
+The last 32-row block may be partial (rows past ``M`` are neither read nor
+written), so a row block ``bm`` may divide 32 (several row blocks per CTA)
+or be a multiple of it (several CTAs per row block).
+
+:func:`count_partials` is the host model of the MAC counts each CTA adds,
+and :func:`walk_lists` of the per-CTA live list the walker merges from the
+work-list segments of the row blocks a CTA covers.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Dict, Iterator, List, Optional, Tuple
+
+import torch
+
+ROW_BLOCK = 32
+H100_SMS = 132
+
+
+def check_row_block(M: int, bm: int) -> None:
+    """The grid takes row blocks of a divisor or a multiple of 32 rows that
+    tile ``M``."""
+    if bm <= 0 or M % bm or (bm % ROW_BLOCK and ROW_BLOCK % bm):
+        raise ValueError(f"the grid takes row blocks that divide or are a "
+                         f"multiple of {ROW_BLOCK} rows and tile M, got "
+                         f"M={M}, bm={bm}")
+
+
+@dataclasses.dataclass(frozen=True)
+class GridGeometry:
+    """Launch geometry of the grid. Block ``b`` is numbered
+    ``(row_block * nb + n) * groups + cg``, ``row_block`` counting 32-row
+    blocks: outermost, so a decode step's busy blocks (the first rows of
+    each row block) come first in the launch."""
+
+    M: int
+    nb: int
+    bm: int
+    bn: int
+    col_group: int                # columns per block
+    groups: int                   # column groups per n-block
+
+    @property
+    def row_tiles(self) -> int:
+        """32-row blocks, the last one partial when 32 does not divide M."""
+        return -(-self.M // ROW_BLOCK)
+
+    @property
+    def blocks(self) -> int:
+        return self.row_tiles * self.nb * self.groups
+
+    @property
+    def per_tile(self) -> int:
+        """Row blocks whose first row lies in one 32-row block."""
+        return max(ROW_BLOCK // self.bm, 1)
+
+    @property
+    def counts_shape(self) -> Tuple[int, int, int, int]:
+        """Shape of the per-block MAC counts, in launch order, by the row
+        block (of those starting in the block) they are added to."""
+        return (self.row_tiles, self.nb, self.groups, self.per_tile)
+
+    def reduce_counts(self, partial: torch.Tensor) -> torch.Tensor:
+        """Per-block counts summed to int32 ``[nb, mb]`` counts."""
+        mb = self.M // self.bm
+        p = partial.sum(2, dtype=torch.int32)        # [tiles, nb, per_tile]
+        if self.bm >= ROW_BLOCK:
+            p = p.reshape(mb, self.bm // ROW_BLOCK, self.nb).sum(
+                1, dtype=torch.int32)
+        else:
+            p = p.permute(0, 2, 1).reshape(-1, self.nb)[:mb]
+        return p.T.contiguous()
+
+    def tiles(self) -> Iterator[Tuple[slice, slice]]:
+        """(rows of x / out, columns of out) of every block, in launch
+        order; the rows stop at M."""
+        for b in range(self.blocks):
+            b, cg = divmod(b, self.groups)
+            rb, n = divmod(b, self.nb)
+            c0 = n * self.bn + cg * self.col_group
+            yield (slice(rb * ROW_BLOCK, min((rb + 1) * ROW_BLOCK, self.M)),
+                   slice(c0, min(c0 + self.col_group, (n + 1) * self.bn)))
+
+
+def grid_geometry(M: int, nb: int, *, bm: int, bn: int,
+                  sms: int = H100_SMS) -> GridGeometry:
+    """32-column groups when a decode step (live rows in the first 32 of a
+    row block) still gets ``2 * sms`` busy blocks of 2 warps, one busy warp
+    per SM scheduler; else 16-column groups, twice the blocks for the same
+    columns. Wider groups give each thread more FMAs per shared-memory
+    load."""
+    check_row_block(M, bm)
+    col = 32 if nb * -(-bn // 32) >= 2 * sms else 16
+    return GridGeometry(M=M, nb=nb, bm=bm, bn=bn, col_group=col,
+                        groups=-(-bn // col))
+
+
+def count_partials(geom: GridGeometry, occ: torch.Tensor,
+                   indices: torch.Tensor, *, sub_m: int,
+                   two_sided: bool) -> torch.Tensor:
+    """The kernel's count rule in plain PyTorch: the int32 MAC counts each
+    block adds into ``counts[n, m]``, in ``geom.counts_shape``. Column group
+    0 counts; two-sided, each occupied ``sub_m``-row sub-block of a stored
+    chunk counts once, in the block of its first row; one-sided, each
+    stored slot counts once per row block, in the block of its first
+    row."""
+    valid = indices >= 0
+    if two_sided:
+        # live[q, n]: stored slots of n-block n whose chunk is occupied in q
+        ks = indices.clamp_min(0).long()
+        live = (occ.bool()[:, ks] & valid).sum(-1, dtype=torch.int32)
+        first = torch.arange(occ.shape[0], device=occ.device) * sub_m
+    else:
+        live = valid.sum(1, dtype=torch.int32).expand(geom.M // geom.bm, -1)
+        first = torch.arange(geom.M // geom.bm, device=indices.device) \
+            * geom.bm
+    # (32-row block, row block within it) of each counted first row
+    slot = first // ROW_BLOCK * geom.per_tile \
+        + first % ROW_BLOCK // min(geom.bm, ROW_BLOCK)
+    acc = torch.zeros((geom.row_tiles * geom.per_tile, geom.nb),
+                      dtype=torch.int32, device=indices.device)
+    acc.index_add_(0, slot, live)
+    out = torch.zeros(geom.counts_shape, dtype=torch.int32,
+                      device=indices.device)
+    out[:, :, 0, :] = acc.reshape(geom.row_tiles, geom.per_tile,
+                                  geom.nb).permute(0, 2, 1)
+    return out
+
+
+def walk_lists(pair_ptr: torch.Tensor, ks: torch.Tensor, js: torch.Tensor,
+               *, nb: int, mb: int, bm_rows: int
+               ) -> Dict[Tuple[int, int], List[Tuple[int, int, int]]]:
+    """Host model of the live list a walker CTA merges (``csrc/ffn_grid.cuh``,
+    ``bm_rows`` dividing 32) for one weight stream, whose step chunks are
+    ``ks`` (-1 where the stream is dead). A CTA owns 32 rows of n-block
+    ``n``, so the segments of the ``32 / bm_rows`` pairs ``(n, m)`` its rows
+    cover: it keeps one entry per slot ``j`` some of them schedule live,
+    with that slot's chunk and the 32-bit mask of the rows of those pairs,
+    in ascending ``j``. Returns ``{(row_tile, n): [(j, chunk, mask), ...]}``
+    for every CTA with a live entry."""
+    ptr = pair_ptr.tolist()
+    kl, jl = ks.tolist(), js.tolist()
+    lists: Dict[Tuple[int, int], Dict[int, List[int]]] = {}
+    for n in range(nb):
+        for m in range(mb):
+            row = m * bm_rows
+            bits = ((1 << bm_rows) - 1) << (row % ROW_BLOCK)
+            cta = lists.setdefault((row // ROW_BLOCK, n), {})
+            for t in range(ptr[n * mb + m], ptr[n * mb + m + 1]):
+                if kl[t] < 0:
+                    continue
+                ent = cta.setdefault(jl[t], [kl[t], 0])
+                if ent[0] != kl[t]:
+                    raise ValueError(f"slot {jl[t]} of n-block {n} names "
+                                     f"chunks {ent[0]} and {kl[t]}")
+                ent[1] |= bits
+    return {key: [(j, c, mk) for j, (c, mk) in sorted(ents.items())]
+            for key, ents in lists.items() if ents}
+
+
+def ring_stages(elem_bytes: int, col_group: int, bk: int) -> Tuple[int, int]:
+    """Ring stages (whole chunks) of a CTA in the 32-row and in the one-tile
+    thread layout, as ``csrc/ffn_grid.cuh`` sizes its shared region."""
+    pad, tile, max_stages = 8, 8, 6
+
+    def stage(rows):
+        return rows * (bk + pad) + (bk + pad) * col_group
+    wide_w = elem_bytes == 2 and col_group == 16
+    front = (bk + pad) * (tile + (col_group if wide_w else 0)) * 4 \
+        // elem_bytes
+    region = max(2 * stage(ROW_BLOCK), front + 3 * stage(tile))
+    return (min(max_stages, region // stage(ROW_BLOCK)),
+            min(max_stages, (region - front) // stage(tile)))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's SM count (grid_geometry sizes the decode grid by it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def lm_grid_problem(x: torch.Tensor, tensors, bk: int,
+                    bn: int) -> Optional[str]:
+    """Why the grid's tensor copies cannot take these operands (None when
+    they can): they need bk and bn multiples of 8, bk at most 248 and bn at
+    most 128, and 16-byte-aligned operands whose rows are a multiple of 16
+    bytes."""
+    if bk % 8 or bn % 8 or bk > 248 or bn > 128:
+        return (f"the kernel takes bk and bn multiples of 8, bk <= 248 and "
+                f"bn <= 128, got bk={bk}, bn={bn}")
+    if x.shape[-1] * x.element_size() % 16:
+        return f"x rows of {x.shape[-1]} elements are not a multiple of 16 " \
+               f"bytes"
+    for name, t in (("x", x), *tensors):
+        if t is not None and t.data_ptr() % 16:
+            return f"{name} is not 16-byte aligned"
+    return None
+
+
+def check_lm_grid(x: torch.Tensor, tensors, bk: int, bn: int) -> None:
+    """Raise ``ValueError`` where :func:`lm_grid_problem` finds one."""
+    problem = lm_grid_problem(x, tensors, bk, bn)
+    if problem is not None:
+        raise ValueError(problem)

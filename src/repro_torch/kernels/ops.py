@@ -56,7 +56,10 @@ def sparse_matmul_packed(x: torch.Tensor, indices: torch.Tensor,
                          sub_m: Optional[int] = None, two_sided: bool = True,
                          count_macs: bool = False):
     """x [..., K] @ sparse W [k_total, nb*bn] from raw packed arrays (one
-    :func:`~repro_torch.kernels.bitmask_spmm.bitmask_spmm` launch)."""
+    :func:`~repro_torch.kernels.bitmask_spmm.bitmask_spmm` launch). On a
+    CUDA tensor ``bm_rows`` must divide 32 or be a multiple of 32 and
+    ``bk``/``bn`` multiples of 8 (``bk <= 248``, ``bn <= 128``), else the
+    kernel raises ``ValueError``; the CPU path takes any tiling."""
     x2, lead, M = _pad_rows_k(x, k_total, bm_rows)
     out = bitmask_spmm(x2, indices, vals, bk=bk, bn=bn, bm=bm_rows,
                        sub_m=sub_m, two_sided=two_sided,
@@ -87,7 +90,9 @@ def fused_sparse_ffn(x: torch.Tensor, in_idx: torch.Tensor,
                      sub_m: Optional[int] = None,
                      two_sided: bool = True) -> torch.Tensor:
     """``act(x @ W_in [, x @ W_gate])`` in one launch (fp32 accumulation);
-    see :mod:`repro_torch.kernels.fused_ffn`."""
+    see :mod:`repro_torch.kernels.fused_ffn`. On a CUDA tensor the tiling
+    limits of :func:`sparse_matmul_packed` hold (``bm_rows`` dividing or a
+    multiple of 32, ``bk``/``bn`` multiples of 8), else ``ValueError``."""
     x2, lead, M = _pad_rows_k(x, k_total, bm_rows)
     h = fused_ffn_spmm(x2, in_idx, in_vals, gate_idx, gate_vals, act=act,
                        bk=bk, bn=bn, bm=bm_rows, sub_m=sub_m,

@@ -28,22 +28,36 @@ from repro_torch.core import bitmask as bm
 from repro_torch.core.sparse import Padding, Stride, normalize_stride, \
     resolve_pads
 from repro_torch.core.telescope import combine_schedule_requests
-from repro_torch.kernels._cuda import CudaKernel, I, KERNEL_ROW_SLICE, P, \
-    check_cuda_tensor, ptr
+from repro_torch.kernels._cuda import CudaKernel, I, P, check_cuda_tensor, \
+    ptr
 from repro_torch.kernels.bitmask_spmm import subblock_macs
+from repro_torch.kernels.grid import GridGeometry, check_lm_grid, \
+    check_row_block
 from repro_torch.kernels.worklist_core import (DEFAULT_BM, LANE,
                                                _tile_output,
-                                               activation_occupancy,
                                                build_worklist,
-                                               check_row_tiling,
                                                schedule_counters,
                                                worklist_spmm)
 
 CONV_GRID = CudaKernel("conv_grid.cu", "conv_grid_spmm", [
     P, P, P, P, P, P, P,                 # x vals indices occ out occ cnt
     I, I, I, I, I, I, I, I, I,           # M K nb mb max_nz bk bn bm sub_m
-    I, I, I, I,                          # two_sided relu emit_occ count
+    I, I, I, I, I,                       # two_sided relu emit_occ count
+                                         # col_group
     P])                                  # stream
+
+# columns of a dense-grid conv CTA (csrc/ffn_grid.cuh): the wider group,
+# since a conv layer's rows give the grid CTAs enough
+CONV_COL_GROUP = 32
+
+
+def conv_grid_geometry(M: int, nb: int, *, bm_rows: int,
+                       bn: int) -> GridGeometry:
+    """The dense-grid conv's launch: 32-row x 32-column CTAs."""
+    check_row_block(M, bm_rows)
+    return GridGeometry(M=M, nb=nb, bm=bm_rows, bn=bn,
+                        col_group=CONV_COL_GROUP,
+                        groups=-(-bn // CONV_COL_GROUP))
 
 
 # ---------------------------------------------------------------------------
@@ -79,27 +93,25 @@ def _sparse_conv_spmm_cuda(patches, indices, vals, *, bk, bn, bm_rows, sub_m,
     if tuple(vals.shape) != (nb, max_nz, bk, bn):
         raise ValueError(f"vals {tuple(vals.shape)} does not match indices "
                          f"({nb}, {max_nz}) and tile ({bk}, {bn})")
-    if bn > 128:
-        raise ValueError(f"the dense-grid kernel takes bn <= 128, got {bn}")
-    check_row_tiling(bm_rows, sub_m)
+    # the tensor copies' 16-byte strides and alignment
+    check_lm_grid(patches, [("vals", vals)], bk, bn)
+    geom = conv_grid_geometry(M, nb, bm_rows=bm_rows, bn=bn)
     mb = M // bm_rows
-    occ = activation_occupancy(patches, sub_m, bk)
+    # scratch the kernel fills with the activation occupancy
+    occ = torch.empty((M // sub_m, K // bk), dtype=torch.int32, device=dev)
     out = torch.empty((M, nb * bn), dtype=torch.float32, device=dev)
     occ_out = torch.empty((M // sub_m, nb), dtype=torch.int32, device=dev) \
         if emit_occupancy else None
-    slices = -(-bm_rows // KERNEL_ROW_SLICE)
-    partial = torch.empty((nb * mb, slices), dtype=torch.int32, device=dev) \
+    counts = torch.empty((nb, mb), dtype=torch.int32, device=dev) \
         if count_macs else None
     CONV_GRID.launch(dev, patches.data_ptr(), vals.data_ptr(),
                      indices.data_ptr(), occ.data_ptr(), out.data_ptr(),
-                     ptr(occ_out), ptr(partial),
+                     ptr(occ_out), ptr(counts),
                      M, K, nb, mb, max_nz, bk, bn, bm_rows, sub_m,
                      int(two_sided), int(fuse_relu), int(emit_occupancy),
-                     int(count_macs))
-    res = (out,) + ((occ_out,) if emit_occupancy else ())
-    if count_macs:
-        res += (partial.sum(1, dtype=torch.int32).reshape(nb, mb),)
-    return res
+                     int(count_macs), geom.col_group)
+    return (out,) + ((occ_out,) if emit_occupancy else ()) + \
+        ((counts,) if count_macs else ())
 
 
 def sparse_conv_spmm(patches: torch.Tensor, indices: torch.Tensor,
@@ -110,7 +122,10 @@ def sparse_conv_spmm(patches: torch.Tensor, indices: torch.Tensor,
     """Dense-grid implicit-GEMM core: ``patches [M, K] @ W [K, N]`` + fused
     ReLU, with the in-lane ``sub_m``-row activation skip.
 
-    A CUDA tensor launches ``csrc/conv_grid.cu``; a CPU tensor runs
+    A CUDA tensor launches ``csrc/conv_grid.cu``, which takes ``bm_rows``
+    dividing or a multiple of 32, ``bk`` and ``bn`` multiples of 8
+    (``bk <= 248``, ``bn <= 128``) and 16-byte-aligned operands, and raises
+    ``ValueError`` otherwise; a CPU tensor runs
     :func:`sparse_conv_spmm_plain`. Returns ``out [M, N]``, plus the int32
     ``[M // sub_m, nb]`` occupancy when ``emit_occupancy`` and the int32
     ``[nb, M // bm_rows]`` executed-MAC counts when ``count_macs`` (sub-block

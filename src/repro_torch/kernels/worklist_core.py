@@ -31,6 +31,8 @@ import torch.nn.functional as F
 from repro_torch.kernels._cuda import (KERNEL_DTYPES, KERNEL_ROW_SLICE,
                                        CudaKernel, I, P, check_cuda_tensor,
                                        ptr)
+from repro_torch.kernels.grid import (ROW_BLOCK, grid_geometry,
+                                      lm_grid_problem, sm_count)
 
 DEFAULT_BM = 128
 LANE = 128
@@ -48,6 +50,7 @@ WALK = CudaKernel("walk.cu", "walk_spmm", [
     P, P, P, P, P, P, P, P, P,           # x vals vals2 pair_ptr k k2 j out occ
     I, I, I, I, I, I, I, I, I,           # M K nb mb max_nz bk bn bm sub_m
     I, I, I, I, I,                       # act emit_occ ncolors mb_per_img bf16
+    I,                                   # col_group (0: the 64-row mode)
     P])                                  # stream
 
 
@@ -530,6 +533,19 @@ def worklist_spmm_plain(patches: torch.Tensor, vals: torch.Tensor,
     return _tile_output(out, wl.nb, mb, bm_rows, bn, sub_m, emit_occupancy)
 
 
+def walk_col_group(patches: torch.Tensor, vals: torch.Tensor,
+                   vals2: Optional[torch.Tensor], nb: int, *, bk: int,
+                   bn: int, bm_rows: int) -> int:
+    """The walker's mode on the card: the column group of its grid mode
+    (row blocks dividing 32, on ``csrc/ffn_grid.cuh``), or 0 for its 64-row
+    mode (larger row blocks, or a tile the grid's copies cannot take)."""
+    if ROW_BLOCK % bm_rows or lm_grid_problem(
+            patches, [("vals", vals), ("vals2", vals2)], bk, bn):
+        return 0
+    return grid_geometry(patches.shape[0], nb, bm=bm_rows, bn=bn,
+                         sms=sm_count(patches.device)).col_group
+
+
 def _worklist_spmm_cuda(patches, vals, vals2, wl, *, bk, bn, bm_rows, sub_m,
                         mb_per_img, ncolors, act, emit_occupancy):
     M, K = patches.shape
@@ -548,6 +564,8 @@ def _worklist_spmm_cuda(patches, vals, vals2, wl, *, bk, bn, bm_rows, sub_m,
                              f"work list ({nb}, {max_nz}, {bk}, {bn})")
     if bn > 128:
         raise ValueError(f"the walker takes bn <= 128, got {bn}")
+    col_group = walk_col_group(patches, vals, vals2, nb, bk=bk, bn=bn,
+                               bm_rows=bm_rows)
     ds = wl.on_device(dev)
     out = torch.empty((M, nb * bn), dtype=patches.dtype, device=dev)
     occ = torch.empty((M // sub_m, nb), dtype=torch.int32, device=dev) \
@@ -557,7 +575,7 @@ def _worklist_spmm_cuda(patches, vals, vals2, wl, *, bk, bn, bm_rows, sub_m,
                 ds.j.data_ptr(), out.data_ptr(), ptr(occ),
                 M, K, nb, M // bm_rows, max_nz, bk, bn, bm_rows, sub_m,
                 ACT_CODE[act], int(emit_occupancy), ncolors, mb_per_img,
-                int(patches.dtype == torch.bfloat16))
+                int(patches.dtype == torch.bfloat16), col_group)
     return (out,) if occ is None else (out, occ)
 
 
@@ -573,7 +591,8 @@ def worklist_spmm(patches: torch.Tensor, vals: torch.Tensor, wl: WorkList, *,
     :data:`ACTS`; the gated acts read the second accumulator) and, when
     ``emit_occupancy``, the int32 [M / sub_m, nb] occupancy of the result.
     fp32 or bf16 storage, fp32 sums, output in ``patches``' type. A CUDA
-    tensor launches the walker kernel; a CPU tensor runs
+    tensor launches the walker kernel (its grid mode for ``bm_rows``
+    dividing 32, its 64-row mode otherwise); a CPU tensor runs
     :func:`worklist_spmm_plain`. ``ncolors`` / ``mb_per_img`` carry the
     §3.3 colouring, which cannot change the result here (see
     ``csrc/walk.cu``). Returns ``(out[, occupancy])``."""

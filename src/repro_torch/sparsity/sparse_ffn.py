@@ -247,7 +247,10 @@ def sparsify_model(params: Dict[str, Any], cfg, *, density: float = 0.35,
     (``params["blocks"][p]["p<i>"]["ffn_sparse"]``, one dict per period);
     the model runs them when ``cfg.sparse_ffn`` is set, so one params
     object serves both paths. With ``density=1.0`` the pass is numerically
-    a no-op (pack and balance fold only).
+    a no-op (pack and balance fold only). On the card the FFN kernels take
+    a ``chunk`` that is a multiple of 8, at most 128; another chunk packs
+    here but raises ``ValueError`` at the first CUDA launch (the CPU path
+    takes any).
     """
     if strict:
         raise NotImplementedError(

@@ -15,9 +15,9 @@ from repro.kernels.fused_ffn import fused_ffn_spmm as r_fused_ffn_spmm
 from repro.kernels.worklist_core import activate as r_activate
 from repro.sparsity import sparse_ffn as r_sf
 from repro_torch.kernels import ops
-from repro_torch.kernels.bitmask_spmm import (bitmask_spmm, check_lm_grid,
-                                              count_partials, grid_geometry,
-                                              subblock_macs)
+from repro_torch.kernels.bitmask_spmm import bitmask_spmm, subblock_macs
+from repro_torch.kernels.grid import (check_lm_grid, count_partials,
+                                      grid_geometry)
 from repro_torch.kernels.fused_ffn import fused_ffn_spmm
 from repro_torch.kernels.worklist_core import activate, activation_occupancy
 from repro_torch.sparsity import sparse_ffn as sf

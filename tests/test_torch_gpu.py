@@ -103,6 +103,34 @@ def test_dense_grid_matches_plain(rng, cuda, two_sided, bk, bn):
                                           act="relu")[0])
 
 
+@pytest.mark.parametrize("sub_m", [8, 64])
+@pytest.mark.parametrize("two_sided", [True, False])
+@pytest.mark.parametrize("bm_rows", [64, 128, 256])
+def test_dense_grid_dead_tiles_and_holes(rng, cuda, two_sided, bm_rows,
+                                         sub_m):
+    """The grid conv with all-dead 32-row tiles (the first 72 rows zero), a
+    -1 slot between stored ones, row blocks of 64, 128 and 256 rows, and
+    sub-blocks of 8 or 64 rows (a sub-block over two CTAs): the plain
+    version's output, occupancy and counts, the walker's bits."""
+    x, w = _operands(rng, cuda, M=512, K=6 * 64, N=3 * 64, bk=64, bn=64)
+    idx = torch.cat([w.indices[:, :1], torch.full_like(w.indices[:, :1], -1),
+                     w.indices[:, 1:]], 1).contiguous()
+    vals = torch.cat([w.vals[:, :1], torch.zeros_like(w.vals[:, :1]),
+                      w.vals[:, 1:]], 1).contiguous()
+    kw = dict(bk=64, bn=64, bm_rows=bm_rows, sub_m=sub_m,
+              two_sided=two_sided, emit_occupancy=True, count_macs=True)
+    out, occ, cnt = sparse_conv_spmm(x, idx, vals, **kw)
+    pout, pocc, pcnt = sparse_conv_spmm_plain(x, idx, vals, fuse_relu=True,
+                                              **kw)
+    torch.cuda.synchronize()
+    assert float((out - pout).abs().max() / pout.abs().max()) <= 1e-5
+    assert torch.equal(occ, pocc) and torch.equal(cnt, pcnt)
+    assert bool((out[:64] == 0).all())
+    wl = build_worklist(idx.cpu().numpy(), x.shape[0] // bm_rows)
+    assert torch.equal(out, worklist_spmm(x, vals, wl, bk=64, bn=64,
+                                          bm_rows=bm_rows, act="relu")[0])
+
+
 def test_vgg_head_oracle_and_engine_on_card(rng, cuda):
     model = build_vision_model("VGGNet", num_layers=3, pattern="chunk",
                                device=cuda)
@@ -213,6 +241,26 @@ def test_fused_ffn_matches_plain(rng, cuda, dtype, act, case):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("two_sided", [True, False])
+@pytest.mark.parametrize("M", [8, 40])
+def test_lm_kernels_take_a_partial_row_tile(rng, cuda, dtype, two_sided, M):
+    """K3 and K4 at 8-row blocks whose last 32-row tile is partial: the
+    plain versions' outputs and counts."""
+    x, idx, vals, gidx, gvals, bk, bn = _grid_case(rng, cuda, dtype, "base")
+    x = x[:M].contiguous()
+    kw = dict(bk=bk, bn=bn, bm=8, sub_m=8, two_sided=two_sided)
+    out, cnt = bitmask_spmm(x, idx, vals, count_macs=True, **kw)
+    pout, pcnt = bitmask_spmm_plain(x, idx, vals, count_macs=True, **kw)
+    h = fused_ffn_spmm(x, idx, vals, gidx, gvals, act="swiglu", **kw)
+    ph = fused_ffn_spmm_plain(x, idx, vals, gidx, gvals, act="swiglu", **kw)
+    torch.cuda.synchronize()
+    assert out.shape == (M, 3 * bn) and h.shape == (M, 3 * bn)
+    _close(out, pout, dtype)
+    _close(h, ph, dtype)
+    assert torch.equal(cnt, pcnt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ffn_kernels_rows_independent_bitwise(rng, cuda, dtype):
     """A decode block gives bit for bit what each lane gives alone."""
     x, idx, vals = _ffn_operands(rng, cuda, dtype, M=128, live=4)
@@ -283,6 +331,66 @@ def test_walker_two_stream_matches_plain(rng, cuda, dtype, act):
         out32 = worklist_spmm(x.float(), vals.float(), wl,
                               vals2=gvals.float(), **kw)[0]
         assert torch.equal(out, out32.to(torch.bfloat16))
+
+
+# (weight streams, act) of the walker's grid mode: every act, the gated
+# ones on two streams
+WALK_GRID_ACTS = [(1, None), (1, "relu"), (1, "relu2"), (1, "gelu"),
+                  (2, "swiglu"), (2, "geglu")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("streams,act", WALK_GRID_ACTS)
+@pytest.mark.parametrize("M", [8, 24, 40, 128])
+def test_walker_grid_mode_matches_plain(rng, cuda, dtype, streams, act, M):
+    """K1 at 8-row blocks (its grid mode, a partial last 32-row tile below
+    M = 128): the plain version's output and occupancy, padded rows exact
+    zeros, and in bf16 the rounding of its own fp32 sums."""
+    live = M - 2
+    x, idx, vals, gidx, gvals = _two_stream_operands(rng, cuda, dtype, M=M,
+                                                     live=live)
+    occ = (x.reshape(M // 8, 8, 3, 128) != 0).any(3).any(1).cpu().numpy()
+    two = streams == 2
+    wl = build_worklist(idx.cpu().numpy(), M // 8, occ_blk=occ,
+                        gate_indices=gidx.cpu().numpy() if two else None)
+    v2 = gvals if two else None
+    kw = dict(bk=128, bn=128, bm_rows=8, sub_m=8, act=act,
+              emit_occupancy=True)
+    before = WALK.launches
+    out, occ_out = worklist_spmm(x, vals, wl, vals2=v2, **kw)
+    assert WALK.launches == before + 1
+    pout, pocc = worklist_spmm_plain(x, vals, wl, vals2=v2, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (M, 3 * 128)
+    _close(out, pout, dtype)
+    assert torch.equal(occ_out, pocc)
+    assert bool((out[live:] == 0).all())
+    if dtype == torch.bfloat16:
+        out32 = worklist_spmm(x.float(), vals.float(), wl,
+                              vals2=v2.float() if two else None, **kw)[0]
+        assert torch.equal(out, out32.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("bm_rows", [16, 32])
+@pytest.mark.parametrize("act", ["swiglu", "relu"])
+def test_walker_grid_mode_wider_row_blocks(rng, cuda, bm_rows, act):
+    """16- and 32-row blocks also run on the grid (one CTA covers two
+    pairs, or one)."""
+    M = 96
+    x, idx, vals, gidx, gvals = _two_stream_operands(rng, cuda,
+                                                     torch.float32, M=M,
+                                                     live=80)
+    two = act == "swiglu"
+    wl = build_worklist(idx.cpu().numpy(), M // bm_rows,
+                        gate_indices=gidx.cpu().numpy() if two else None)
+    v2 = gvals if two else None
+    kw = dict(bk=128, bn=128, bm_rows=bm_rows, sub_m=8, act=act,
+              emit_occupancy=True)
+    out, occ_out = worklist_spmm(x, vals, wl, vals2=v2, **kw)
+    pout, pocc = worklist_spmm_plain(x, vals, wl, vals2=v2, **kw)
+    torch.cuda.synchronize()
+    _close(out, pout, torch.float32)
+    assert torch.equal(occ_out, pocc)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

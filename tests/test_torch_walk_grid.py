@@ -1,0 +1,181 @@
+"""Host models of the grid kernels (``csrc/ffn_grid.cuh``), at small sizes:
+the live list a walker CTA merges from the work-list segments of the row
+blocks it covers (K1 at ``bm_rows`` dividing 32), the MAC counts the CTAs
+of the dense-grid conv (K2) and of the LM kernels (K3) add, and the launch
+geometry with a partial last 32-row tile. No kernel runs here: these are
+the plain models the card tests and ``chip_smoke.py`` hold the kernels to.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.bitmask_spmm import subblock_macs
+from repro_torch.kernels.grid import (ROW_BLOCK, count_partials,
+                                      grid_geometry, lm_grid_problem,
+                                      walk_lists)
+from repro_torch.kernels.sparse_conv import conv_grid_geometry
+from repro_torch.kernels.worklist_core import (activation_occupancy,
+                                               build_worklist)
+
+
+def _chunk_lists(rng, nb, max_nz, kb, dead=0.25):
+    idx = np.stack([rng.permutation(kb)[:max_nz]
+                    for _ in range(nb)]).astype(np.int32)
+    idx[rng.random(idx.shape) < dead] = -1
+    return idx
+
+
+# (bm_rows, M): the compact FFN's 8-row blocks at decode (one partial
+# 32-row tile), a few tiles and a prefill; 16- and 32-row blocks
+WALK_SHAPES = [(8, 8), (8, 24), (8, 40), (8, 128), (16, 48), (16, 128),
+               (32, 96), (32, 128)]
+
+
+@pytest.mark.parametrize("bm_rows,M", WALK_SHAPES)
+def test_walk_lists_reproduce_every_segment(bm_rows, M):
+    """Each stream's merged per-CTA lists hold every live (pair, j) step of
+    the work list once, in each pair's schedule order, and nothing else;
+    row masks cover whole pairs inside x."""
+    rng = np.random.default_rng(bm_rows * 1000 + M)
+    nb, max_nz, kb = 5, 6, 8
+    mb = M // bm_rows
+    idx = _chunk_lists(rng, nb, max_nz, kb)
+    gidx = _chunk_lists(rng, nb, max_nz, kb)
+    occ = rng.random((mb, kb)) < 0.4
+    idx[0] = gidx[0] = -1                        # dead pairs
+    idx[1, 0], gidx[1, 0] = 0, 1                 # gate-only steps
+    occ[:, 0], occ[:, 1] = False, True
+    if mb > 1:
+        occ[-1] = False                          # a dead row block
+    wl = build_worklist(idx, mb, occ_blk=occ, gate_indices=gidx)
+    assert ((wl.k < 0) & (wl.k2 < 0)).any()      # flush-only steps
+    assert ((wl.k < 0) & (wl.k2 >= 0)).any()     # gate-only steps
+    ptr = wl.pair_ptr()
+    for ks in (wl.k, wl.k2):
+        lists = walk_lists(torch.as_tensor(ptr), torch.as_tensor(ks),
+                           torch.as_tensor(wl.j), nb=nb, mb=mb,
+                           bm_rows=bm_rows)
+        seen = []
+        for (tile, n), ents in lists.items():
+            assert 0 <= n < nb and 0 <= tile * ROW_BLOCK < M
+            js = [j for j, _, _ in ents]
+            assert js == sorted(set(js))         # one entry a slot, by j
+            for j, chunk, mask in ents:
+                assert mask and mask >> min(ROW_BLOCK,
+                                            M - tile * ROW_BLOCK) == 0
+                for q in range(ROW_BLOCK // bm_rows):
+                    bits = ((1 << bm_rows) - 1) << (q * bm_rows)
+                    if mask & bits:
+                        assert mask & bits == bits
+                        m = (tile * ROW_BLOCK + q * bm_rows) // bm_rows
+                        seen.append((n, m, j, chunk))
+        want = []
+        for p in range(nb * mb):
+            n, m = divmod(p, mb)
+            seg = [(int(wl.j[t]), int(ks[t]))
+                   for t in range(ptr[p], ptr[p + 1]) if ks[t] >= 0]
+            want += [(n, m, j, k) for j, k in seg]
+            row = m * bm_rows
+            got = [(j, c) for j, c, mask in
+                   lists.get((row // ROW_BLOCK, n), [])
+                   if mask >> (row % ROW_BLOCK) & 1]
+            assert got == seg                    # the pair's own order
+        assert sorted(seen) == sorted(want)
+        assert len(seen) == len(set(seen))
+
+
+def test_walk_lists_refuse_a_slot_with_two_chunks():
+    """The merge keeps one chunk per slot: a list that names two for one
+    slot of an n-block is no schedule the grid can run."""
+    ptr = torch.tensor([0, 1, 2])
+    with pytest.raises(ValueError):
+        walk_lists(ptr, torch.tensor([3, 4]), torch.tensor([0, 0]), nb=1,
+                   mb=2, bm_rows=8)
+
+
+def _counts_case(rng, M, K, bk, nb, max_nz):
+    x = torch.as_tensor(rng.normal(size=(M, K)).astype(np.float32))
+    x[torch.as_tensor(rng.random(M // 4) < 0.5).repeat_interleave(4)] = 0
+    x[:, :bk][torch.as_tensor(rng.random(M) < 0.5)] = 0
+    x[:min(M, 32)] = 0                           # an all-dead 32-row tile
+    idx = torch.as_tensor(_chunk_lists(rng, nb, max_nz, K // bk, dead=0.2))
+    vals = torch.zeros(1, 1, 1, 1).expand(nb, max_nz, bk, 8)
+    return x, idx, vals
+
+
+@pytest.mark.parametrize("two_sided", [True, False])
+@pytest.mark.parametrize("bm_rows", [64, 128, 256])
+def test_conv_grid_counts_reduce_to_subblock_macs(two_sided, bm_rows):
+    """The dense-grid conv's per-CTA MAC counts (32-row x 32-column CTAs,
+    integer atomics into [nb, mb]) add up to the plain version's."""
+    rng = np.random.default_rng(bm_rows + two_sided)
+    bk, sub_m, nb = 64, 8, 3
+    x, idx, vals = _counts_case(rng, 512, 6 * bk, bk, nb, 4)
+    _, want = subblock_macs(x, idx, vals, bk=bk, bm=bm_rows, sub_m=sub_m,
+                            two_sided=two_sided)
+    geom = conv_grid_geometry(512, nb, bm_rows=bm_rows, bn=64)
+    assert geom.col_group == 32 and geom.groups == 2
+    part = count_partials(geom, activation_occupancy(x, sub_m, bk), idx,
+                          sub_m=sub_m, two_sided=two_sided)
+    assert part.shape == geom.counts_shape
+    assert bool((part[:, :, 1:] == 0).all())     # column group 0 counts
+    assert torch.equal(geom.reduce_counts(part), want)
+
+
+# (bm, sub_m, M): row blocks that divide 32, with a partial last tile
+SMALL_BLOCKS = [(8, 8, 8), (8, 8, 40), (8, 4, 24), (16, 8, 48),
+                (32, 8, 96), (4, 4, 12)]
+
+
+@pytest.mark.parametrize("two_sided", [True, False])
+@pytest.mark.parametrize("bm,sub_m,M", SMALL_BLOCKS)
+def test_count_partials_small_row_blocks(two_sided, bm, sub_m, M):
+    """With row blocks of at most 32 rows a CTA adds to each row block it
+    covers; the counts still add up to the plain version's."""
+    rng = np.random.default_rng(bm * 100 + M)
+    bk, nb = 128, 3
+    x, idx, vals = _counts_case(rng, M, 3 * bk, bk, nb, 3)
+    _, want = subblock_macs(x, idx, vals, bk=bk, bm=bm, sub_m=sub_m,
+                            two_sided=two_sided)
+    geom = grid_geometry(M, nb, bm=bm, bn=128)
+    part = count_partials(geom, activation_occupancy(x, sub_m, bk), idx,
+                          sub_m=sub_m, two_sided=two_sided)
+    assert part.shape == geom.counts_shape
+    assert torch.equal(geom.reduce_counts(part), want)
+
+
+@pytest.mark.parametrize("M,bm", [(8, 8), (24, 8), (40, 8), (48, 16),
+                                  (96, 32), (12, 4), (384, 128)])
+def test_grid_geometry_partial_last_tile(M, bm):
+    """Every output element lies in exactly one CTA, the last 32-row tile
+    cut at M."""
+    geom = grid_geometry(M, 3, bm=bm, bn=96)
+    cover = torch.zeros(M, 3 * 96, dtype=torch.int32)
+    for rows, cols in geom.tiles():
+        assert rows.stop <= M
+        cover[rows, cols] += 1
+    assert bool((cover == 1).all())
+    assert geom.blocks == len(list(geom.tiles())) \
+        == -(-M // ROW_BLOCK) * 3 * geom.groups
+
+
+@pytest.mark.parametrize("M,bm", [(96, 48), (40, 24), (40, 16), (60, 12)])
+def test_grid_geometry_rejects_other_row_blocks(M, bm):
+    with pytest.raises(ValueError):
+        grid_geometry(M, 3, bm=bm, bn=128)
+    with pytest.raises(ValueError):
+        conv_grid_geometry(M, 3, bm_rows=bm, bn=128)
+
+
+@pytest.mark.parametrize("pattern", ["chunk", "unstructured"])
+def test_every_vgg16_layer_fits_the_conv_grid_copies(pattern):
+    """The dense-grid conv's tensor copies take every VGG16 layer's packed
+    tile and patch rows, the stem's padded K included."""
+    from repro_torch.core import simulator as S
+    from repro_torch.sparsity.structured import choose_chunk_layout
+    for spec in S.BENCHMARKS["VGGNet"].layers:
+        shape = (spec.k, spec.k, spec.d, spec.n)
+        _, bk, bn = choose_chunk_layout(shape) if pattern == "chunk" \
+            else ("channel", 128, 128)
+        K = -(-spec.k * spec.k * spec.d // bk) * bk
+        assert lm_grid_problem(torch.zeros(8, K), [], bk, bn) is None, spec
