@@ -12,13 +12,14 @@ a CUDA graph, replayed between CUDA events (a loop of calls would also time
 the host, whose Python and launches take as long as a decode kernel), at
 the main paths' shapes:
 
-* K1, the walker: its 64-row mode at VGG16 layers 1 and 8 (4 images at
-  224 px, chunk pattern, fp32); its 8-row mode (the compact FFN schedule,
-  bf16) on Qwen3-4B layer 0, two streams (in/gate, swiglu) and one stream
-  (the out projection) at 2 and 4 decode rows and a 128-row prefill, and on
-  RWKV6-3B layer 0's channel-mix (in, relu2; out) at 4 rows and 128 rows;
-* K2, the dense-grid conv, at VGG16 layers 1 and 8 (two-sided, with the
-  output occupancy and the MAC counts);
+* K1, the walker: its tile mode at VGG16 layers 1, 8 and 10 (4 images at
+  224 px, chunk pattern, fp32; 1568, 112 and 32 pairs); its 8-row mode
+  (the compact FFN schedule, bf16) on Qwen3-4B layer 0, two streams
+  (in/gate, swiglu) and one stream (the out projection) at 2 and 4 decode
+  rows and a 128-row prefill, and on RWKV6-3B layer 0's channel-mix (in,
+  relu2; out) at 4 rows and 128 rows;
+* K2, the dense-grid conv, at VGG16 layers 1, 8 and 10 (two-sided, with
+  the output occupancy and the MAC counts);
 * K3 and K4 on Qwen3-4B layer 0 (bf16): decode (4 live rows of a 128-row
   block) and a 128-row prefill.
 
@@ -73,7 +74,7 @@ def cuda_ms(fn, reps: int = REPS, replays: int = 4) -> float:
 
 
 def vision_times(dev):
-    """K1's 64-row mode and K2 at VGG16 layers 1 and 8."""
+    """K1's tile mode and K2 at VGG16 layers 1, 8 and 10."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import simulator as S
@@ -90,7 +91,7 @@ def vision_times(dev):
     imgs = blob_images(np.random.default_rng(SEED), 4, 224,
                        S.BENCHMARKS["VGGNet"].map_density)
     out = {}
-    for layer in (1, 8):
+    for layer in (1, 8, 10):
         head = VisionModel(model.name, model.layers[:layer],
                            model.input_size, model.density, dev)
         x = dense_forward(head, torch.as_tensor(imgs, device=dev))
@@ -107,7 +108,7 @@ def vision_times(dev):
         wl = build_worklist(w.host_indices(), mb, mb_per_img=m_pad // 128)
         kw1 = dict(bk=w.bk, bn=w.bn, bm_rows=128, sub_m=SUB_M, act="relu",
                    emit_occupancy=True)
-        out[f"K1 64-row VGG16 L{layer}"] = cuda_ms(
+        out[f"K1 tile VGG16 L{layer}"] = cuda_ms(
             lambda: worklist_spmm(flat, w.vals, wl, mb_per_img=m_pad // 128,
                                   ncolors=2, **kw1))
         kw2 = dict(bk=w.bk, bn=w.bn, bm_rows=128, sub_m=SUB_M,

@@ -12,16 +12,22 @@ Phases, each of which stops the script with a non-zero exit when it fails:
 3. the vision kernels against their plain PyTorch versions at two VGG16
    layer shapes (layer 1 with 4 images, layer 8 with 4 images, 224 px,
    chunk pattern): max abs/rel error, exact occupancy and MAC counts,
-   batched == per-image bitwise for the walker (its 64-row mode), the dense
+   batched == per-image bitwise for the walker (its tile mode), the dense
    grid bitwise equal to the walker, each launch's grid, and CUDA-event
    times of the kernel, the plain version and one dense ``F.conv2d`` (TF32
    off) as a yardstick, beside the bound (live FLOPs at 67 TFLOP/s fp32 or
-   bytes at 3.35 TB/s);
+   bytes at 3.35 TB/s) and, for the walker, the terms it executes, the
+   share of them that are zero in x and their FMA roof;
 4. the vision main path, with the launch counters set to 0 first: full
    VGG16 at 224 px through ``oracle_check`` (dense-grid kernel) for the
    chunk and unstructured patterns, rel err <= 1e-5 against the dense
    oracle; then ``VisionEngine`` (work-list walker) serving 8 staggered
    requests on 4 slots, every output bitwise equal to the solo forward;
+   then one compiled forward of 4 images (``compile_forward``, the
+   engine's path) against ``dense_forward`` (cuDNN, TF32 off), median and
+   range of several windows, and one forward's kernels from a
+   ``torch.profiler`` trace: the walker (each layer), pooling, the other
+   kernels (im2col, pad, copies) by name, and the card's idle time;
 6. the LM FFN kernels (predicated sparse matmul, fused FFN) against their
    plain versions at Qwen3-4B full-width shapes, layer 0 of the packed
    model (and, in phase 10, at RWKV6-3B's channel-mix), each with its
@@ -211,7 +217,7 @@ def kernel_phase(model, imgs, layer: int, card: str):
                                                  sparse_conv_spmm,
                                                  sparse_conv_spmm_plain)
     from repro_torch.kernels.worklist_core import (
-        activation_occupancy, build_worklist, worklist_spmm,
+        activation_occupancy, build_worklist, walk_mode, worklist_spmm,
         worklist_spmm_plain)
     lay = model.layers[layer]
     c, w = lay.conv, lay.conv.packed
@@ -273,6 +279,13 @@ def kernel_phase(model, imgs, layer: int, card: str):
     bytes1 = 4.0 * (rows * w.bk * used.size + stored * w.bk * w.bn
                     + wl.num_steps * 2 + wl.num_pairs + 1) + out_bytes
     b1, by1 = bound(flops, bytes1)
+    # the gap to the bound: the sub_m-row terms the pack-time list schedules
+    # (every row block, live or not), the share of them that are zero in x
+    # (which the tile mode's warps skip where their band is zero), and
+    # their FMA roof
+    terms = wl.mac_steps * bm_rows // sub_m
+    zero_share = 1.0 - live_macs / terms
+    roof1 = 2.0 * sub_m * w.bk * w.bn * terms / FP32_FLOPS * 1e3
 
     # K2: the dense grid with the sub_m skip and the MAC counters
     kw2 = dict(bk=w.bk, bn=w.bn, bm_rows=bm_rows, sub_m=sub_m,
@@ -307,16 +320,16 @@ def kernel_phase(model, imgs, layer: int, card: str):
                     + w.n_blocks * mb) + out_bytes
     b2, by2 = bound(flops, bytes2)
 
-    # the launches: the walker's 64-row mode, one block per pair and 64-row
-    # slice; the grid conv's CTAs, busy where some sub-block of their rows
-    # is occupied in a stored chunk
+    # the launches: the walker's tile mode (CTA tiles of a pair); the grid
+    # conv's CTAs, busy where some sub-block of their rows is occupied in a
+    # stored chunk
     g2 = conv_grid_geometry(M, w.n_blocks, bm_rows=bm_rows, bn=w.bn)
     stored_occ = occ_in[:, torch.as_tensor(used, device=occ_in.device)]
     busy = int(stored_occ.reshape(-1, ROW_BLOCK // sub_m, used.size)
                .any(2).any(1).sum()) * w.n_blocks * g2.groups
     wide2, one2 = ring_stages(4, g2.col_group, w.bk)
-    grid1 = (f"{wl.num_pairs * (bm_rows // 64)} blocks of 256 threads (pairs "
-             f"x 64-row slices)")
+    grid1 = walk_mode(flat, w.vals, None, wl, bk=w.bk, bn=w.bn,
+                      bm_rows=bm_rows).describe()
     grid2 = (f"{g2.blocks} CTAs of 64 threads, {busy} busy, "
              f"{g2.col_group}-column groups, ring {wide2} whole-chunk "
              f"stages ({one2} in the one-tile layout)")
@@ -324,9 +337,10 @@ def kernel_phase(model, imgs, layer: int, card: str):
     print(f"  walker:     max abs err {abs1:.3e}, max rel err {rel1:.3e}, "
           f"occupancy equal, batch == per-image bitwise; {wl.mac_steps} live "
           f"steps of {wl.num_steps}, {live_macs} live sub-block MACs; "
-          f"{grid1}; kernel {k1_ms:.4f} ms, plain "
-          f"{p1_ms:.4f} ms, bound {b1:.4f} ms ({by1}), dense conv2d "
-          f"{lib_ms:.4f} ms")
+          f"{terms} executed {sub_m}-row terms, {zero_share:.4f} of them "
+          f"zero in x; {grid1}; kernel {k1_ms:.4f} ms, plain "
+          f"{p1_ms:.4f} ms, bound {b1:.4f} ms ({by1}), FMA roof of the "
+          f"executed terms {roof1:.4f} ms, dense conv2d {lib_ms:.4f} ms")
     print(f"  dense grid: max abs err {abs2:.3e}, max rel err {rel2:.3e}, "
           f"occupancy and counts equal, bitwise equal to the walker; "
           f"{executed} sub-block MACs; {grid2}; kernel "
@@ -337,8 +351,88 @@ def kernel_phase(model, imgs, layer: int, card: str):
         return {"at": at, "mode": mode, "max_abs_err": abs_,
                 "max_rel_err": rel, "ms": k, "plain_ms": p, "bound_ms": b,
                 "bound_by": by, "library_ms": lib_ms, "grid": grid}
-    return rec(abs1, rel1, k1_ms, p1_ms, b1, by1, grid1, "64-row"), \
+    return rec(abs1, rel1, k1_ms, p1_ms, b1, by1, grid1, "tile"), \
         rec(abs2, rel2, k2_ms, p2_ms, b2, by2, grid2, "grid")
+
+
+def forward_split(model, imgs, card: str, windows: int = 7,
+                  calls: int = 5):
+    """Phase 4's timing of one compiled VGG16 forward of ``imgs`` (the
+    engine's path) against ``dense_forward`` (cuDNN, TF32 off): CUDA events
+    around ``windows`` windows of ``calls`` calls each, their median and
+    range. Then the split of one forward's own run: a ``torch.profiler``
+    trace of the card's activity (CUPTI) whose kernels are grouped by name,
+    the walker's launches (one a layer, in order), pooling, and every other
+    kernel (im2col's unfold and pad, the output copies) by its name; the
+    card is idle for the rest of the forward's time (the host's gaps).
+    Checks only that the times are finite; returns the record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.vision import compile_forward, dense_forward
+    torch.backends.cudnn.allow_tf32 = False
+    x0 = torch.as_tensor(imgs, device=model.device)
+    B = x0.shape[0]
+    fn = compile_forward(model)
+
+    def windows_ms(f):
+        f()
+        out = []
+        for _ in range(windows):
+            out.append(cuda_ms(f, reps=calls, warmup=0))
+        return float(np.median(out)), min(out), max(out)
+    total, t_lo, t_hi = windows_ms(lambda: fn(x0))
+    dense, d_lo, d_hi = windows_ms(lambda: dense_forward(model, x0))
+
+    def trace():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn(x0)
+            torch.cuda.synchronize()
+        return [(e.name, e.time_range.elapsed_us() / 1e3)
+                for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+    trace()                      # the profiler's own first-call set-up
+    kernels = trace()
+    walker = [t for name, t in kernels if "tile_kernel" in name]
+    pool = sum(t for name, t in kernels if "max_pool" in name)
+    other = {}
+    for name, t in kernels:
+        if "tile_kernel" not in name and "max_pool" not in name:
+            n, ms = other.get(name, (0, 0.0))
+            other[name] = (n + 1, ms + t)
+    busy = sum(t for _, t in kernels)
+    times = [total, t_lo, t_hi, dense, d_lo, d_hi, busy, pool, *walker] + \
+        [ms for _, ms in other.values()]
+    require(all(np.isfinite(times)), "forward split: a time is not finite")
+    print(f"VGG16 forward, {B} images at {x0.shape[1]} px, compiled (the "
+          f"engine's path), {windows} windows of {calls} calls: median "
+          f"{total:.4f} ms (range {t_lo:.4f}-{t_hi:.4f}; "
+          f"{B / total * 1e3:.2f} img/s); dense_forward (cuDNN, TF32 off) "
+          f"median {dense:.4f} ms (range {d_lo:.4f}-{d_hi:.4f}) [{card}]")
+    if not kernels:
+        print("  split: the profiler saw no kernel on the card (not "
+              "measured)")
+        return {"images": B, "forward_ms": total, "forward_ms_range":
+                [t_lo, t_hi], "dense_forward_ms": dense,
+                "dense_forward_ms_range": [d_lo, d_hi], "card": card}
+    rest = sum(ms for _, ms in other.values())
+    print(f"  split of one traced forward (torch.profiler, kernel device "
+          f"times): walker {sum(walker):.4f} ms ({len(walker)} launches), "
+          f"pooling {pool:.4f} ms, other kernels {rest:.4f} ms; the card "
+          f"busy {busy:.4f} ms of the median forward, idle "
+          f"{total - busy:.4f} ms (the host's gaps)")
+    print("  walker by layer (ms): " + ", ".join(
+        f"L{i} {t:.4f}" for i, t in enumerate(walker)))
+    print("  other kernels (launches, ms): " + "; ".join(
+        f"{name[:60]} ({n}, {ms:.4f})" for name, (n, ms) in
+        sorted(other.items(), key=lambda kv: -kv[1][1])))
+    return {"images": B, "forward_ms": total, "forward_ms_range":
+            [t_lo, t_hi], "dense_forward_ms": dense,
+            "dense_forward_ms_range": [d_lo, d_hi],
+            "walker_ms_by_layer": walker, "pool_ms": pool,
+            "other_kernels_ms": {name: ms for name, (_, ms) in
+                                 other.items()},
+            "card": card}
 
 
 def drive(card: str):
@@ -422,6 +516,7 @@ def drive(card: str):
                 f"request {r.rid}: engine output != solo forward")
     print(f"engine outputs bitwise equal to the solo forward "
           f"({len(reqs)} requests)")
+    split = forward_split(chunk, imgs[:4], card)
 
     meta = {
         "walker": ("worklist_spmm", "src/repro_torch/csrc/walk.cu",
@@ -441,6 +536,7 @@ def drive(card: str):
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"], "library_ms": first["library_ms"],
             "at": first["at"], "shapes": recs[key]})
+    kernels[0]["vgg16_forward"] = split
     return kernels
 
 
@@ -1130,7 +1226,7 @@ def main() -> int:
 
     walker = kernels[0]
     walker["shapes"] += k1_recs + k1_rwkv_recs
-    # per mode, the shape its path runs most: VGG16 layer 1 for the 64-row
+    # per mode, the shape its path runs most: VGG16 layer 1 for the tile
     # mode, Qwen3-4B decode (4 rows) in bf16 for the grid modes
     modes = {}
     for r in walker["shapes"]:

@@ -29,7 +29,7 @@
 // occupancy read and no shared atomic: a TMA ring of 2 whole-chunk stages
 // feeds it, and each thread takes its rows' predicate once per entry, not
 // in the k loop. MAC counts are integer atomics per CTA into [nb, mb]
-// (order-free). Every element's sum order is tile::mac_chunk's (+0, k
+// (order-free). Every element's sum order is the walker's (+0, k
 // ascending, j ascending), so the output is bit for bit the walker's
 // (walk.cu) on the same chunks: a row the grid predicates off would add
 // fmaf(0, w, acc) == acc there.
@@ -40,8 +40,8 @@
 // how well the FMA latency is hidden: 32-deep stages, more stages, or the
 // occupancy read off each staged chunk instead of a first launch were each
 // slower at one of VGG16's layers 1 and 8 (PERF.md). The previous design
-// (one 256-thread block per 64-row slice of a tile, as the walker's 64-row
-// mode) paid an occupancy read, a shared atomic and a block barrier per
+// (one 256-thread block per 64-row slice of a tile, as the walker's first
+// 64-row mode) paid an occupancy read, a shared atomic and a block barrier per
 // slot and a row predicate inside the FMA loop.
 #include "ffn_grid.cuh"
 

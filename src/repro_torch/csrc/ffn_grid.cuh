@@ -69,13 +69,13 @@
 //
 // Sum order. Every output element is one fp32 chain per stream: +0, then
 // acc = fmaf(x, w, acc) for k ascending within a chunk and j ascending
-// across entries: the order of tile::mac_chunk, so the walker's 64-row mode
-// (tile.cuh) and this grid give bit for bit the same output on the same
-// terms (a row predicated off here adds fmaf(0, w, acc) == acc there), and
-// the compact FFN schedule (K1 here) gives bit for bit what the dense one
-// (K4, K3) gives. The flush computes what tile::flush computes (None and
-// ReLU inline, every other act through the out-of-line tile::activate, one
-// rounding at the store). No atomics touch the output, and nothing is
+// across entries: the order of the walker's tile mode (walk.cu), so that
+// mode and this grid give bit for bit the same output on the same terms (a
+// row predicated off here adds fmaf(0, w, acc) == acc there), and the
+// compact FFN schedule (K1 here) gives bit for bit what the dense one (K4,
+// K3) gives. The flush computes what the tile mode's flush computes (None
+// and ReLU inline, every other act through the out-of-line tile::activate,
+// one rounding at the store). No atomics touch the output, and nothing is
 // carried between tiles: a row's result does not depend on the other rows
 // of its block.
 //
@@ -478,7 +478,7 @@ __device__ inline void widen_tile(const T* st, float* xf, float* wf, int bk) {
   }
 }
 
-// act(h[, g]) as tile::flush computes it
+// act(h[, g]): None and ReLU inline, every other act out of line
 __device__ inline float act_of(float h, float g, int act) {
   if (act == tile::ACT_NONE) return h;
   if (act == tile::ACT_RELU) return fmaxf(h, 0.f);
@@ -854,10 +854,12 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
   return fn;
 }
 
-// A row-major tensor of `rank` dims (innermost first) and a box.
+// A row-major tensor of `rank` dims (innermost first) and a box, laid out
+// in shared memory as `swizzle` says.
 template <typename T>
 inline bool encode(CUtensorMap* map, const void* base, int rank,
-                   const cuuint64_t* dims, const cuuint32_t* box) {
+                   const cuuint64_t* dims, const cuuint32_t* box,
+                   CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   const auto fn = encode_tiled();
   if (fn == nullptr) return false;
   cuuint64_t strides[2];
@@ -868,7 +870,7 @@ inline bool encode(CUtensorMap* map, const void* base, int rank,
             sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                            : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
             rank, const_cast<void*>(base), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

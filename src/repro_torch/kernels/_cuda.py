@@ -31,9 +31,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P = ctypes.c_void_p   # every pointer and the stream
 I = ctypes.c_int
 
-# rows per CUDA block of the walker's 64-row mode (RS in csrc/tile.cuh)
-KERNEL_ROW_SLICE = 64
-
 # storage types the walker and the LM kernels take (fp32 arithmetic either
 # way)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)

@@ -1,5 +1,6 @@
-"""Launch geometry of the grid kernels (``csrc/ffn_grid.cuh``), and host
-models of what their CTAs compute before the first multiply.
+"""Launch geometry of the grid kernels (``csrc/ffn_grid.cuh``) and of the
+walker's tile mode (``csrc/walk.cu``), and host models of what their CTAs
+compute before the first multiply.
 
 One grid serves the predicated sparse matmul (K3), the fused FFN (K4), the
 dense-grid conv (K2) and the walker's small-row-block mode (K1 at
@@ -12,6 +13,11 @@ or be a multiple of it (several CTAs per row block).
 :func:`count_partials` is the host model of the MAC counts each CTA adds,
 and :func:`walk_lists` of the per-CTA live list the walker merges from the
 work-list segments of the row blocks a CTA covers.
+
+The walker's tile mode (K1 at ``bm_rows`` not dividing 32, VGG16's 128-row
+blocks) owns one tile of one (n, m) pair per CTA: :func:`walk_tiles` picks
+its rows x columns and the rows a thread owns from the pairs' shape and
+depth and the SM count (:class:`WalkTiles`).
 """
 from __future__ import annotations
 
@@ -23,6 +29,15 @@ import torch
 
 ROW_BLOCK = 32
 H100_SMS = 132
+
+# The walker's tile mode (csrc/walk.cu)
+WALK_KS = 32                      # k depth of a ring stage
+WALK_STAGES = 2                   # ring stages of tensor copies
+WALK_TILE_OUTPUTS = 4096          # outputs of a CTA tile
+WALK_TILE_COLS = (128, 64, 32)
+# 8 rows a thread where a CTA walks at least this many ring stages and the
+# launch gives every SM this many warps of 8 x 8 threads
+WALK_TM8_STAGES, WALK_TM8_WARPS = 24, 4
 
 
 def check_row_block(M: int, bm: int) -> None:
@@ -210,3 +225,123 @@ def check_lm_grid(x: torch.Tensor, tensors, bk: int, bn: int) -> None:
     problem = lm_grid_problem(x, tensors, bk, bn)
     if problem is not None:
         raise ValueError(problem)
+
+
+@dataclasses.dataclass(frozen=True)
+class WalkTiles:
+    """Launch geometry of the walker's tile mode. A CTA owns ``rows`` x
+    ``cols`` outputs of one (n, m) pair: ``slices`` tiles down a row block
+    (the last one cut at ``bm``), ``groups`` across an n-block (the last one
+    cut at ``bn``). Block ``b`` is numbered ``((m * nb + n) * slices + s) *
+    groups + cg``, row block outermost. Each computing thread owns
+    ``thread_rows`` x 8 outputs; a warp a band of ``band`` rows. ``tma``:
+    a ring of ``WALK_STAGES`` stages of tensor copies, else plain copies
+    into one stage."""
+
+    M: int
+    nb: int
+    bm: int
+    bn: int
+    rows: int
+    cols: int
+    thread_rows: int
+    tma: bool = True
+
+    @property
+    def mb(self) -> int:
+        return self.M // self.bm
+
+    @property
+    def slices(self) -> int:
+        return -(-self.bm // self.rows)
+
+    @property
+    def groups(self) -> int:
+        return -(-self.bn // self.cols)
+
+    @property
+    def threads(self) -> int:
+        """Threads of a CTA: the computing ones, and with tensor copies a
+        warp that only issues them."""
+        return self.rows * self.cols // (8 * self.thread_rows) \
+            + (32 if self.tma else 0)
+
+    @property
+    def band(self) -> int:
+        """Rows of a warp: its row groups (32 lanes over cols / 8 column
+        lanes) times the rows a thread owns."""
+        return self.thread_rows * 256 // self.cols
+
+    @property
+    def blocks(self) -> int:
+        return self.mb * self.nb * self.slices * self.groups
+
+    def tiles(self) -> Iterator[Tuple[slice, slice]]:
+        """(rows of x / out, columns of out) each block stores, in launch
+        order."""
+        for b in range(self.blocks):
+            b, cg = divmod(b, self.groups)
+            b, s = divmod(b, self.slices)
+            m, n = divmod(b, self.nb)
+            r0 = m * self.bm + s * self.rows
+            c0 = n * self.bn + cg * self.cols
+            yield (slice(r0, min(r0 + self.rows, (m + 1) * self.bm)),
+                   slice(c0, min(c0 + self.cols, (n + 1) * self.bn)))
+
+    def describe(self) -> str:
+        copies = (f"ring of {WALK_STAGES} stages of tensor copies"
+                  if self.tma else "plain copies")
+        return (f"tile mode: {self.blocks} CTAs of {self.rows}x{self.cols} "
+                f"({self.threads} threads, {self.thread_rows}x8 a computing "
+                f"thread, warp bands of {self.band} rows), {copies}")
+
+
+def walk_tiles(M: int, nb: int, *, bm: int, bn: int, depth: float,
+               sms: int = H100_SMS, gated: bool = False) -> WalkTiles:
+    """The tile mode's geometry, a rule fitted to a sweep of every tile
+    shape at VGG16 layers 1, 4, 8 and 10 on an H100:
+
+    * CTA tiles of ``WALK_TILE_OUTPUTS`` outputs: the columns of
+      ``WALK_TILE_COLS`` that cut the fewest from an n-block of ``bn``
+      (the larger on a tie), rows the rest (32 at 128 columns, at least a
+      warp band); at those layers the fastest tile of the sweep or close
+      to it;
+    * threads of 8 x 8 outputs where a CTA walks at least
+      ``WALK_TM8_STAGES`` ring stages (``depth``: a pair's live chunks
+      times its stages a chunk) and the launch gives every SM
+      ``WALK_TM8_WARPS`` warps of them, else 4 x 8 (always for two
+      streams, whose accumulators double): the 4-row threads' finer warp
+      bands skip more zero rows and their CTAs hide the walk's start where
+      a CTA is short (layers 1 and 4) or the launch small (layer 10); 8 x 8
+      issues fewer loads a FMA, faster at layer 8.
+
+    Raises ``ValueError`` for a row block that does not tile M or bn outside
+    1..128."""
+    if bm <= 0 or M % bm or bn <= 0 or bn > 128:
+        raise ValueError(f"the tile mode takes row blocks that tile M and "
+                         f"bn <= 128, got M={M}, bm={bm}, bn={bn}")
+    cols = min(WALK_TILE_COLS, key=lambda c: (-(-bn // c) * c - bn, -c))
+    rows = WALK_TILE_OUTPUTS // cols
+    mb, groups = M // bm, -(-bn // cols)
+    warps8 = mb * nb * -(-bm // rows) * groups * rows * cols // (64 * 32)
+    tm = 8 if (not gated and depth >= WALK_TM8_STAGES
+               and warps8 >= WALK_TM8_WARPS * sms) else 4
+    band = tm * 256 // cols
+    return WalkTiles(M=M, nb=nb, bm=bm, bn=bn, rows=max(rows, band),
+                     cols=cols, thread_rows=tm)
+
+
+def walk_tma_problem(x: torch.Tensor, tensors, bn: int) -> Optional[str]:
+    """Why the tile mode's tensor copies cannot take these operands (None
+    when they can): x rows and weight rows a multiple of 16 bytes, every
+    operand 16-byte aligned."""
+    eb = x.element_size()
+    if x.shape[-1] * eb % 16:
+        return f"x rows of {x.shape[-1]} elements are not a multiple of 16 " \
+               f"bytes"
+    if bn * eb % 16:
+        return f"weight rows of {bn} elements are not a multiple of 16 bytes"
+    for name, t in (("x", x), *tensors):
+        if t is not None and t.data_ptr() % 16:
+            return f"{name} is not 16-byte aligned"
+    return None

@@ -22,17 +22,19 @@ path and the work-list ("compact") FFN schedule:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels._cuda import (KERNEL_DTYPES, KERNEL_ROW_SLICE,
-                                       CudaKernel, I, P, check_cuda_tensor,
-                                       ptr)
-from repro_torch.kernels.grid import (ROW_BLOCK, grid_geometry,
-                                      lm_grid_problem, sm_count)
+from repro_torch.kernels._cuda import (KERNEL_DTYPES, CudaKernel, I, P,
+                                       check_cuda_tensor, ptr)
+from repro_torch.kernels.grid import (ROW_BLOCK, WALK_KS, GridGeometry,
+                                      WalkTiles, grid_geometry,
+                                      lm_grid_problem, sm_count, walk_tiles,
+                                      walk_tma_problem)
 
 DEFAULT_BM = 128
 LANE = 128
@@ -50,7 +52,8 @@ WALK = CudaKernel("walk.cu", "walk_spmm", [
     P, P, P, P, P, P, P, P, P,           # x vals vals2 pair_ptr k k2 j out occ
     I, I, I, I, I, I, I, I, I,           # M K nb mb max_nz bk bn bm sub_m
     I, I, I, I, I,                       # act emit_occ ncolors mb_per_img bf16
-    I,                                   # col_group (0: the 64-row mode)
+    I,                                   # col_group (0: the tile mode)
+    I, I, I, I,                          # tile rows cols thread_rows tma
     P])                                  # stream
 
 
@@ -227,6 +230,12 @@ class WorkList:
     @property
     def mac_steps(self) -> int:
         return int(self.live_mask.sum())
+
+    @functools.cached_property
+    def live_items(self) -> int:
+        """Chunk multiplies the walk runs: live (step, stream) pairs."""
+        n = int((self.k >= 0).sum())
+        return n if self.k2 is None else n + int((self.k2 >= 0).sum())
 
     @property
     def flush_only_steps(self) -> int:
@@ -476,11 +485,13 @@ def schedule_counters(wl: WorkList, *,
 # executors
 # ---------------------------------------------------------------------------
 def check_row_tiling(bm_rows: int, sub_m: int) -> None:
-    """The kernels cut a row block into 64-row slices and emit occupancy
-    (and skip, in the dense grid) per ``sub_m`` rows inside one slice."""
-    if bm_rows % sub_m or KERNEL_ROW_SLICE % sub_m:
-        raise ValueError(f"sub_m={sub_m} must divide bm_rows={bm_rows} and "
-                         f"{KERNEL_ROW_SLICE}")
+    """The walker emits occupancy per ``sub_m``-row sub-block of a row
+    block. Its CTAs cut a row block into tiles of 32 to 128 rows (the tile
+    mode) or cover 32 rows of several (the grid mode) and OR their rows'
+    bits into the sub-block's entry with integer atomics, so a sub-block
+    may span CTAs: ``sub_m`` need only divide ``bm_rows``."""
+    if sub_m <= 0 or bm_rows % sub_m:
+        raise ValueError(f"sub_m={sub_m} must divide bm_rows={bm_rows}")
 
 
 def _tile_output(acc: torch.Tensor, nb: int, mb: int, bm_rows: int, bn: int,
@@ -533,17 +544,37 @@ def worklist_spmm_plain(patches: torch.Tensor, vals: torch.Tensor,
     return _tile_output(out, wl.nb, mb, bm_rows, bn, sub_m, emit_occupancy)
 
 
-def walk_col_group(patches: torch.Tensor, vals: torch.Tensor,
-                   vals2: Optional[torch.Tensor], nb: int, *, bk: int,
-                   bn: int, bm_rows: int) -> int:
-    """The walker's mode on the card: the column group of its grid mode
-    (row blocks dividing 32, on ``csrc/ffn_grid.cuh``), or 0 for its 64-row
-    mode (larger row blocks, or a tile the grid's copies cannot take)."""
-    if ROW_BLOCK % bm_rows or lm_grid_problem(
-            patches, [("vals", vals), ("vals2", vals2)], bk, bn):
-        return 0
-    return grid_geometry(patches.shape[0], nb, bm=bm_rows, bn=bn,
-                         sms=sm_count(patches.device)).col_group
+def walk_mode(patches: torch.Tensor, vals: torch.Tensor,
+              vals2: Optional[torch.Tensor], wl: WorkList, *, bk: int,
+              bn: int, bm_rows: int) -> Union[GridGeometry, WalkTiles]:
+    """The walker's mode on the card, chosen by shape before the launch:
+
+    * the grid mode (``csrc/ffn_grid.cuh``, a :class:`GridGeometry`) for
+      row blocks dividing 32 whose operands its tensor copies take
+      (``lm_grid_problem``: bk and bn multiples of 8, bk <= 248, 16-byte
+      rows and alignment);
+    * else the tile mode (``csrc/walk.cu``, a :class:`WalkTiles`), CTA tiles
+      from :func:`~repro_torch.kernels.grid.walk_tiles` at the card's SM
+      count and the ring stages a pair's walk takes on average: a ring of
+      tensor copies where ``walk_tma_problem`` finds none, plain copies
+      into one stage where it finds one (x or weight rows not a multiple
+      of 16 bytes, an operand not 16-byte aligned). The tile mode takes every shape the walker
+      does (any bk, bn <= 128, any row block).
+
+    Nothing falls back after a launch: a CUDA tensor launches the mode
+    chosen here or raises."""
+    dev = patches.device
+    M = patches.shape[0]
+    tensors = [("vals", vals), ("vals2", vals2)]
+    if ROW_BLOCK % bm_rows == 0 and \
+            lm_grid_problem(patches, tensors, bk, bn) is None:
+        return grid_geometry(M, wl.nb, bm=bm_rows, bn=bn, sms=sm_count(dev))
+    depth = -(-bk // WALK_KS) * wl.live_items / max(wl.num_pairs, 1)
+    tiles = walk_tiles(M, wl.nb, bm=bm_rows, bn=bn, depth=depth,
+                       sms=sm_count(dev), gated=vals2 is not None)
+    if walk_tma_problem(patches, tensors, bn) is not None:
+        tiles = dataclasses.replace(tiles, tma=False)
+    return tiles
 
 
 def _worklist_spmm_cuda(patches, vals, vals2, wl, *, bk, bn, bm_rows, sub_m,
@@ -564,8 +595,12 @@ def _worklist_spmm_cuda(patches, vals, vals2, wl, *, bk, bn, bm_rows, sub_m,
                              f"work list ({nb}, {max_nz}, {bk}, {bn})")
     if bn > 128:
         raise ValueError(f"the walker takes bn <= 128, got {bn}")
-    col_group = walk_col_group(patches, vals, vals2, nb, bk=bk, bn=bn,
-                               bm_rows=bm_rows)
+    mode = walk_mode(patches, vals, vals2, wl, bk=bk, bn=bn, bm_rows=bm_rows)
+    if isinstance(mode, GridGeometry):
+        col_group, tile = mode.col_group, (0, 0, 0, 0)
+    else:
+        col_group = 0
+        tile = (mode.rows, mode.cols, mode.thread_rows, int(mode.tma))
     ds = wl.on_device(dev)
     out = torch.empty((M, nb * bn), dtype=patches.dtype, device=dev)
     occ = torch.empty((M // sub_m, nb), dtype=torch.int32, device=dev) \
@@ -575,7 +610,7 @@ def _worklist_spmm_cuda(patches, vals, vals2, wl, *, bk, bn, bm_rows, sub_m,
                 ds.j.data_ptr(), out.data_ptr(), ptr(occ),
                 M, K, nb, M // bm_rows, max_nz, bk, bn, bm_rows, sub_m,
                 ACT_CODE[act], int(emit_occupancy), ncolors, mb_per_img,
-                int(patches.dtype == torch.bfloat16), col_group)
+                int(patches.dtype == torch.bfloat16), col_group, *tile)
     return (out,) if occ is None else (out, occ)
 
 
@@ -591,8 +626,9 @@ def worklist_spmm(patches: torch.Tensor, vals: torch.Tensor, wl: WorkList, *,
     :data:`ACTS`; the gated acts read the second accumulator) and, when
     ``emit_occupancy``, the int32 [M / sub_m, nb] occupancy of the result.
     fp32 or bf16 storage, fp32 sums, output in ``patches``' type. A CUDA
-    tensor launches the walker kernel (its grid mode for ``bm_rows``
-    dividing 32, its 64-row mode otherwise); a CPU tensor runs
+    tensor launches the walker kernel in the mode :func:`walk_mode` picks
+    by shape (its grid mode for ``bm_rows`` dividing 32, its tile mode
+    otherwise); a CPU tensor runs
     :func:`worklist_spmm_plain`. ``ncolors`` / ``mb_per_img`` carry the
     §3.3 colouring, which cannot change the result here (see
     ``csrc/walk.cu``). Returns ``(out[, occupancy])``."""

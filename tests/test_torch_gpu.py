@@ -434,3 +434,159 @@ def test_sparse_rwkv_serving_on_card(cuda):
     ref = Scheduler(cfg, cpu, num_slots=2, max_len=16).run(
         [Request(r.rid, r.prompt, r.max_new, r.arrival) for r in reqs])
     assert ref == got
+
+
+# The walker's tile mode (csrc/walk.cu, row blocks not dividing 32)
+def _tile_operands(rng, dev, dtype, M, bk, bn, nb=3, kb=6):
+    """x with all-zero 8-row sub-blocks inside chunks the list schedules
+    (rows 64..79 everywhere, rows 104..111 in the first two chunks, and
+    _operands' zero rows) and chunk-sparse weights."""
+    x, w = _operands(rng, dev, M=M, K=kb * bk, N=nb * bn, bk=bk, bn=bn)
+    x[64:80] = 0
+    x[104:112, :2 * bk] = 0
+    return x.to(dtype), w, w.vals.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bm_rows,sub_m", [
+    (64, 8), (64, 16), (64, 64), (128, 8), (128, 16), (128, 64), (128, 128),
+    (256, 8), (256, 16), (256, 64), (256, 128)])
+@pytest.mark.parametrize("bk,bn", [(64, 64), (128, 128)])
+def test_walker_tile_mode_matches_plain(rng, cuda, dtype, bm_rows, sub_m, bk,
+                                        bn):
+    """K1's tile mode against its plain version: output (fp32 rel err, bf16
+    the rounding of its own fp32 sums) and occupancy, with live chunks
+    whose 8-row sub-blocks are all zero in x. The occupancy's sub-blocks
+    lie in one warp's band (one ballot), in one CTA tile over several
+    bands, or over several CTA tiles (sub_m 64 and 128 at 32-row tiles:
+    integer atomics into a zeroed map)."""
+    from repro_torch.kernels.grid import WalkTiles
+    from repro_torch.kernels.worklist_core import walk_mode
+    x, w, vals = _tile_operands(rng, cuda, dtype, 512, bk, bn)
+    wl = build_worklist(w.host_indices(), 512 // bm_rows)
+    assert isinstance(walk_mode(x, vals, None, wl, bk=bk, bn=bn,
+                                bm_rows=bm_rows), WalkTiles)
+    kw = dict(bk=bk, bn=bn, bm_rows=bm_rows, sub_m=sub_m, act="relu",
+              emit_occupancy=True)
+    before = WALK.launches
+    out, occ = worklist_spmm(x, vals, wl, **kw)
+    assert WALK.launches == before + 1
+    pout, pocc = worklist_spmm_plain(x, vals, wl, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype
+    _close(out, pout, dtype)
+    assert torch.equal(occ, pocc)
+    assert bool((out[64:80] == 0).all())
+    if dtype == torch.bfloat16:
+        out32 = worklist_spmm(x.float(), vals.float(), wl, **kw)[0]
+        assert torch.equal(out, out32.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["swiglu", "geglu"])
+def test_walker_tile_mode_two_streams(rng, cuda, dtype, act):
+    """Two weight streams with a gated act at bm_rows = 128: the tile
+    mode's two-stream kernel against the plain version, with steps live in
+    one stream only."""
+    x, idx, vals, gidx, gvals = _two_stream_operands(rng, cuda, dtype,
+                                                     M=256, live=200)
+    occ = (x.reshape(2, 128, 3, 128) != 0).any(3).any(1).cpu().numpy()
+    occ[1, 0] = False
+    wl = build_worklist(idx.cpu().numpy(), 2, occ_blk=occ,
+                        gate_indices=gidx.cpu().numpy())
+    assert ((wl.k < 0) & (wl.k2 >= 0)).any() or \
+        ((wl.k >= 0) & (wl.k2 < 0)).any()
+    kw = dict(bk=128, bn=128, bm_rows=128, sub_m=8, act=act,
+              emit_occupancy=True)
+    out, occ_out = worklist_spmm(x, vals, wl, vals2=gvals, **kw)
+    pout, pocc = worklist_spmm_plain(x, vals, wl, vals2=gvals, **kw)
+    torch.cuda.synchronize()
+    _close(out, pout, dtype)
+    assert torch.equal(occ_out, pocc)
+    assert bool((out[200:] == 0).all())
+    if dtype == torch.bfloat16:
+        out32 = worklist_spmm(x.float(), vals.float(), wl,
+                              vals2=gvals.float(), **kw)[0]
+        assert torch.equal(out, out32.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("bm_rows", [64, 128, 256])
+@pytest.mark.parametrize("bk,bn", [(32, 64), (64, 64), (128, 128)])
+def test_walker_tile_mode_equals_dense_grid_bitwise(rng, cuda, bm_rows, bk,
+                                                    bn):
+    """K1's tile mode == K2 bit for bit on random operands with zero rows
+    and sub-blocks (the same fp32 chains; K2 predicates off what K1's
+    warps skip)."""
+    x, w, vals = _tile_operands(rng, cuda, torch.float32, 512, bk, bn)
+    wl = build_worklist(w.host_indices(), 512 // bm_rows)
+    k1 = worklist_spmm(x, vals, wl, bk=bk, bn=bn, bm_rows=bm_rows,
+                       act="relu")[0]
+    k2 = sparse_conv_spmm(x, w.indices, vals, bk=bk, bn=bn, bm_rows=bm_rows,
+                          sub_m=8)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(k1, k2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_walker_tile_mode_batched_equals_per_image(rng, cuda, dtype):
+    """A batch of 4 images gives bit for bit what each image gives alone,
+    though the tile geometry differs between the two launches."""
+    x, w, vals = _tile_operands(rng, cuda, dtype, 4 * 256, 128, 128)
+    kw = dict(bk=128, bn=128, bm_rows=128, act="relu")
+    whole = worklist_spmm(x, vals, build_worklist(w.host_indices(), 8),
+                          **kw)[0]
+    wl1 = build_worklist(w.host_indices(), 2)
+    parts = [worklist_spmm(x[i * 256:(i + 1) * 256].contiguous(), vals, wl1,
+                           **kw)[0] for i in range(4)]
+    torch.cuda.synchronize()
+    assert torch.equal(whole, torch.cat(parts))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_walker_tile_mode_same_bits_for_every_tile(rng, cuda, dtype,
+                                                   monkeypatch):
+    """Every CTA tile and thread tile the mode builds gives the same bits
+    (the geometry only splits rows and columns), and so do its plain
+    copies."""
+    import dataclasses
+    from repro_torch.kernels import worklist_core as wc
+    x, w, vals = _tile_operands(rng, cuda, dtype, 512, 128, 128)
+    wl = build_worklist(w.host_indices(), 4)
+    kw = dict(bk=128, bn=128, bm_rows=128, sub_m=8, act="relu",
+              emit_occupancy=True)
+    want, wocc = worklist_spmm(x, vals, wl, **kw)
+    chosen = wc.walk_mode
+
+    for tm, cols, rows, tma in [
+            (8, 128, 32, True), (8, 128, 128, True), (8, 64, 64, True),
+            (4, 128, 64, True), (4, 32, 128, True), (4, 64, 32, False)]:
+        def forced(*a, _g=(tm, cols, rows, tma), **k):
+            return dataclasses.replace(
+                chosen(*a, **k), thread_rows=_g[0], cols=_g[1], rows=_g[2],
+                tma=_g[3])
+        monkeypatch.setattr(wc, "walk_mode", forced)
+        got, occ = worklist_spmm(x, vals, wl, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (tm, cols, rows, tma)
+        assert torch.equal(occ, wocc)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bk", [10, 12, 36])
+def test_walker_tile_mode_plain_copies(rng, cuda, dtype, bk):
+    """Rows the tensor copies refuse (K not a multiple of 16 bytes) or a
+    chunk 32 does not divide: the tile mode with plain copies or a partial
+    last stage, against the plain version."""
+    from repro_torch.kernels.grid import walk_tma_problem
+    from repro_torch.kernels.worklist_core import walk_mode
+    x, w, vals = _tile_operands(rng, cuda, dtype, 256, bk, 64, kb=3)
+    wl = build_worklist(w.host_indices(), 2)
+    mode = walk_mode(x, vals, None, wl, bk=bk, bn=64, bm_rows=128)
+    assert mode.tma == (walk_tma_problem(x, [("vals", vals)], 64) is None)
+    kw = dict(bk=bk, bn=64, bm_rows=128, sub_m=8, act="relu",
+              emit_occupancy=True)
+    out, occ = worklist_spmm(x, vals, wl, **kw)
+    pout, pocc = worklist_spmm_plain(x, vals, wl, **kw)
+    torch.cuda.synchronize()
+    _close(out, pout, dtype)
+    assert torch.equal(occ, pocc)

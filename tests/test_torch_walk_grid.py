@@ -1,9 +1,12 @@
-"""Host models of the grid kernels (``csrc/ffn_grid.cuh``), at small sizes:
-the live list a walker CTA merges from the work-list segments of the row
-blocks it covers (K1 at ``bm_rows`` dividing 32), the MAC counts the CTAs
-of the dense-grid conv (K2) and of the LM kernels (K3) add, and the launch
-geometry with a partial last 32-row tile. No kernel runs here: these are
-the plain models the card tests and ``chip_smoke.py`` hold the kernels to.
+"""Host models of the grid kernels (``csrc/ffn_grid.cuh``) and of the
+walker's tile mode (``csrc/walk.cu``), at small sizes: the live list a
+walker CTA merges from the work-list segments of the row blocks it covers
+(K1 at ``bm_rows`` dividing 32), the MAC counts the CTAs of the dense-grid
+conv (K2) and of the LM kernels (K3) add, the launch geometry with a
+partial last 32-row tile, and the tile mode's CTA tiles (``walk_tiles``:
+every output once, its choice at VGG16's pair counts). No kernel runs
+here: these are the plain models the card tests and ``chip_smoke.py``
+hold the kernels to.
 """
 import numpy as np
 import pytest
@@ -179,3 +182,92 @@ def test_every_vgg16_layer_fits_the_conv_grid_copies(pattern):
             else ("channel", 128, 128)
         K = -(-spec.k * spec.k * spec.d // bk) * bk
         assert lm_grid_problem(torch.zeros(8, K), [], bk, bn) is None, spec
+
+
+# The walker's tile mode (csrc/walk.cu): (M, nb, bm, bn) with row blocks the
+# tiles cut (bm 96, 200) and n-blocks they cut (bn 100, 48)
+TILE_SHAPES = [(512, 3, 128, 128), (512, 3, 128, 64), (384, 2, 96, 96),
+               (400, 2, 200, 128), (256, 3, 64, 100), (512, 2, 256, 48)]
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("depth", [4, 48])
+@pytest.mark.parametrize("M,nb,bm,bn", TILE_SHAPES)
+def test_walk_tiles_cover_every_output_once(M, nb, bm, bn, depth, gated):
+    """Every output element lies in exactly one CTA tile, partial slices of
+    a row block and partial column groups of an n-block cut at bm and bn;
+    whole warp bands, at most 256 computing threads and a producer warp."""
+    from repro_torch.kernels.grid import walk_tiles
+    t = walk_tiles(M, nb, bm=bm, bn=bn, depth=depth, gated=gated)
+    cover = torch.zeros(M, nb * bn, dtype=torch.int32)
+    for rows, cols in t.tiles():
+        assert rows.stop - rows.start <= t.rows
+        assert cols.stop - cols.start <= t.cols
+        cover[rows, cols] += 1
+    assert bool((cover == 1).all())
+    assert t.blocks == len(list(t.tiles())) == M // bm * nb * t.slices \
+        * t.groups
+    assert t.rows % t.band == 0 and t.thread_rows in (4, 8)
+    assert 32 < t.threads <= 288 and t.threads % 32 == 0
+    if gated:
+        assert t.thread_rows == 4
+
+
+@pytest.mark.parametrize("pairs,mb,nb,bn,depth,want", [
+    # VGG16 layer 1 (4 images at 224 px): 64-column n-blocks, 3 live
+    # chunks of 64 a pair
+    (1568, 1568, 1, 64, 6, (64, 64, 4, 3136)),
+    # layer 8: 12 live chunks of 128 a pair, 896 warps of 8 x 8
+    (112, 28, 4, 128, 48, (32, 128, 8, 448)),
+    # layer 10: 32 pairs, 256 warps of 8 x 8 for 132 SMs
+    (32, 8, 4, 128, 48, (32, 128, 4, 128))])
+def test_walk_tiles_choice_at_vgg16_pair_counts(pairs, mb, nb, bn, depth,
+                                                want):
+    """The tile choice at 1568, 112 and 32 pairs on 132 SMs: CTA tiles of
+    4096 outputs; 8 x 8 threads only where a CTA walks 24 stages or more
+    and the launch gives every SM 4 warps of them."""
+    from repro_torch.kernels.grid import H100_SMS, walk_tiles
+    assert mb * nb == pairs
+    t = walk_tiles(mb * 128, nb, bm=128, bn=bn, depth=depth, sms=H100_SMS)
+    assert (t.rows, t.cols, t.thread_rows, t.blocks) == want
+    assert walk_tiles(mb * 128, nb, bm=128, bn=bn, depth=depth,
+                      gated=True).thread_rows == 4
+    # fewer SMs make the same launch fill them: 8 x 8 at layer 10 too
+    if pairs == 32:
+        assert walk_tiles(mb * 128, nb, bm=128, bn=bn, depth=depth,
+                          sms=32).thread_rows == 8
+
+
+@pytest.mark.parametrize("M,bm,bn", [(512, 128, 200), (512, 96, 0),
+                                     (500, 128, 64)])
+def test_walk_tiles_rejects_what_the_mode_cannot_take(M, bm, bn):
+    from repro_torch.kernels.grid import walk_tiles
+    with pytest.raises(ValueError):
+        walk_tiles(M, 2, bm=bm, bn=bn, depth=4)
+
+
+def test_walk_tma_problem_names_the_shapes_for_plain_copies():
+    """The tile mode's tensor copies need 16-byte rows and alignment; the
+    shapes they refuse run its plain copies (worklist_core.walk_mode)."""
+    from repro_torch.kernels.grid import walk_tma_problem
+    x = torch.zeros(64, 3 * 64)
+    w = torch.zeros(4, 3, 64, 64)
+    assert walk_tma_problem(x, [("vals", w)], 64) is None
+    assert walk_tma_problem(torch.zeros(64, 30), [], 64) is not None
+    assert walk_tma_problem(x.bfloat16(), [], 36) is not None
+    assert walk_tma_problem(torch.zeros(64 * 192 + 1)[1:].view(64, 192), [],
+                            64) is not None
+
+
+def test_worklist_live_items_count_both_streams():
+    """The walk's chunk multiplies (the depth walk_tiles reads): live steps
+    of each stream."""
+    rng = np.random.default_rng(3)
+    idx = _chunk_lists(rng, 4, 5, 8)
+    gidx = _chunk_lists(rng, 4, 5, 8)
+    occ = rng.random((6, 8)) < 0.5
+    one = build_worklist(idx, 6, occ_blk=occ)
+    two = build_worklist(idx, 6, occ_blk=occ, gate_indices=gidx)
+    assert one.live_items == int((one.k >= 0).sum()) == one.mac_steps
+    assert two.live_items == int((two.k >= 0).sum() + (two.k2 >= 0).sum())
+    assert two.live_items >= two.mac_steps
