@@ -13,7 +13,9 @@ the host, whose Python and launches take as long as a decode kernel), at
 the main paths' shapes:
 
 * K1, the walker: its tile mode at VGG16 layers 1, 8 and 10 (4 images at
-  224 px, chunk pattern, fp32; 1568, 112 and 32 pairs); its 8-row mode
+  224 px, chunk pattern, fp32; 1568, 112 and 32 pairs) on the patch matrix
+  and, in a tree that has it, on the tap-slab operand (the NHWC map, lazy
+  im2col; a tree without it has no such rows); its 8-row mode
   (the compact FFN schedule, bf16) on Qwen3-4B layer 0, two streams
   (in/gate, swiglu) and one stream (the out projection) at 2 and 4 decode
   rows and a 128-row prefill, and on RWKV6-3B layer 0's channel-mix (in,
@@ -85,6 +87,10 @@ def vision_times(dev):
     from repro_torch.launch.vision import blob_images
     from repro_torch.vision import build_vision_model, dense_forward
     from repro_torch.vision.model import VisionModel
+    try:
+        from repro_torch.kernels.sparse_conv import worklist_spmm_slabs
+    except ImportError:          # a tree before the tap-slab operand
+        worklist_spmm_slabs = None
     torch.backends.cudnn.allow_tf32 = False
     model = build_vision_model("VGGNet", pattern="chunk", seed=SEED,
                                device=dev)
@@ -111,6 +117,12 @@ def vision_times(dev):
         out[f"K1 tile VGG16 L{layer}"] = cuda_ms(
             lambda: worklist_spmm(flat, w.vals, wl, mb_per_img=m_pad // 128,
                                   ncolors=2, **kw1))
+        if worklist_spmm_slabs is not None:
+            xc = x.contiguous()
+            out[f"K1 tap slabs VGG16 L{layer}"] = cuda_ms(
+                lambda: worklist_spmm_slabs(
+                    xc, w.vals, wl, kh=c.kh, kw=c.kw, stride=lay.stride,
+                    padding=lay.padding, m_pad=m_pad, **kw1))
         kw2 = dict(bk=w.bk, bn=w.bn, bm_rows=128, sub_m=SUB_M,
                    two_sided=True, emit_occupancy=True, count_macs=True)
         out[f"K2 VGG16 L{layer}"] = cuda_ms(
@@ -275,12 +287,19 @@ def main(argv) -> int:
     roots = list(dict.fromkeys(argv))
     print(f"mean ms over each tree's runs [{runs[0]['card']}]")
     print("| kernel, shape | " + " | ".join(roots) + " | ratio |")
-    for key in runs[0]["ms"]:
-        means = [np.mean([r["ms"][key] for r in runs if r["root"] == root])
-                 for root in roots]
-        ratio = means[0] / means[-1] if len(means) > 1 else 1.0
-        print(f"| {key} | " + " | ".join(f"{m:.4f}" for m in means)
-              + f" | {ratio:.2f}x |")
+    # every tree's rows, in the order they first appear; a row a tree lacks
+    # (a kernel mode it does not have) reads "-"
+    keys = list(dict.fromkeys(k for r in runs for k in r["ms"]))
+    for key in keys:
+        means = [np.mean([r["ms"][key] for r in runs
+                          if r["root"] == root and key in r["ms"]])
+                 if any(r["root"] == root and key in r["ms"] for r in runs)
+                 else None for root in roots]
+        ratio = (f"{means[0] / means[-1]:.2f}x"
+                 if len(means) > 1 and None not in means else "-")
+        print(f"| {key} | " + " | ".join(
+            "-" if m is None else f"{m:.4f}" for m in means)
+            + f" | {ratio} |")
     if json_out is not None:
         json_out.parent.mkdir(parents=True, exist_ok=True)
         json_out.write_text(json.dumps(runs, indent=1))

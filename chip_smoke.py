@@ -69,7 +69,29 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    ``schedule="compact"`` (the
    walker's one-stream relu2 epilogue) bitwise equal to ``"dense"`` at
    decode and prefill, its two walker launches (in, relu2; out) checked and
-   timed as in phase 9, and the fp32 oracle of phase 8.
+   timed as in phase 9, and the fp32 oracle of phase 8;
+11. lazy im2col, autotuning and the SLA-aware server on a fresh VGG16
+   (224 px, 4 images, chunk pattern, fp32): (a) K1's tap-slab operand (the
+   walker reading each live ``(tap, channel group)`` slab from the NHWC
+   map with im2col tensor copies) at layers 1 and 8 against its plain
+   version (rel err <= 1e-5, occupancy equal) and bitwise against K1 on the
+   taps patch matrix, with its launch grid and graph-replay times beside
+   its bound (bytes of the map, the weights and the output, or the needed
+   FLOPs), K1 on the patch matrix, the layer call with ``taps`` (im2col +
+   K1) and with ``lazy``, and one ``F.conv2d`` (TF32 off); (b) every
+   tap-layout layer pinned to ``im2col="lazy"`` at 128-row blocks through
+   ``autotune_conv(candidates=...)``: the ``compile_forward(use_tuned=True)``
+   forward bitwise equal to the taps forward, the walker's launches of one
+   forward counted from zero, both forwards timed in turns (median and
+   range of 7 windows) and the lazy one split by a ``torch.profiler``
+   trace; (c) ``autotune_model`` modelled, then ``measure=True``: each
+   layer's modelled and measured pick with their measured times, both tuned
+   forwards bitwise equal to the default, and the tuned model's oracle (K2
+   at the tuned row blocks) within 1e-5; (d) ``VisionServer`` on a virtual
+   clock, buckets 112 and 224, 4 slots, 12 requests of mixed sizes (the
+   larger downscaled by ``fit_image``): 0 SLA misses, every output bitwise
+   equal to the solo forward of its fitted image, the walker's launches of
+   the served run counted from zero, the cross-request combine factor.
 
 Kernel and library times are device times, CUDA-graph replays of 20
 calls (``graph_ms``); the plain versions, host loops, are timed by a loop
@@ -1177,6 +1199,352 @@ def channel_mix_compact_phase(params, cfg, card):
     return launches, recs
 
 
+# ---------------------------------------------------------------------------
+# phase 11: lazy im2col (K1's tap-slab operand), autotuning, VisionServer
+# ---------------------------------------------------------------------------
+def tap_slab_phase(model, imgs, layer: int, card: str):
+    """K1 reading the tap slabs straight from the NHWC map at one VGG16
+    layer: against its plain version and, bitwise, against K1 on the taps
+    patch matrix; timed beside its bound, the taps path (im2col and K1),
+    and one dense ``F.conv2d``. Returns the record."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.grid import tap_geometry
+    from repro_torch.kernels.sparse_conv import (sparse_conv2d_nhwc,
+                                                 worklist_spmm_slabs,
+                                                 worklist_spmm_slabs_plain)
+    from repro_torch.kernels.worklist_core import (activation_occupancy,
+                                                   build_worklist, walk_mode,
+                                                   worklist_spmm)
+    lay = model.layers[layer]
+    c, w = lay.conv, lay.conv.packed
+    x, flat, m_img, m_pad = layer_inputs(model, layer, imgs)
+    x = x.contiguous()
+    B = x.shape[0]
+    bm_rows, sub_m = 128, 8
+    mpi = m_pad // bm_rows
+    wl = build_worklist(w.host_indices(), B * mpi, mb_per_img=mpi)
+    kw = dict(kh=c.kh, kw=c.kw, stride=lay.stride, padding=lay.padding,
+              bk=w.bk, bn=w.bn, bm_rows=bm_rows, sub_m=sub_m, m_pad=m_pad,
+              act="relu", emit_occupancy=True)
+    out, occ = worklist_spmm_slabs(x, w.vals, wl, **kw)
+    pout, pocc = worklist_spmm_slabs_plain(x, w.vals, wl, **kw)
+    kw1 = dict(bk=w.bk, bn=w.bn, bm_rows=bm_rows, sub_m=sub_m, act="relu",
+               emit_occupancy=True)
+    tout, tocc = worklist_spmm(flat, w.vals, wl, mb_per_img=mpi, ncolors=2,
+                               **kw1)
+    torch.cuda.synchronize()
+    abs_, rel = errors(out, pout)
+    at = (f"VGG16 layer {layer} ({c.kh}x{c.kw}x{c.cin}->{c.cout}), {B} "
+          f"images, {imgs.shape[1]} px, chunk pattern, bk={w.bk} bn={w.bn}")
+    require(rel <= TOL, f"tap slabs vs plain at layer {layer}: rel "
+                        f"{rel:.3e}")
+    require(torch.equal(occ, pocc),
+            f"tap-slab occupancy differs from plain at layer {layer}")
+    require(torch.equal(out, tout) and torch.equal(occ, tocc),
+            f"tap slabs != K1 on the patch matrix bitwise at layer {layer}")
+    geom = tap_geometry(x.shape, c.kh, c.kw, lay.stride, lay.padding,
+                        m_pad=m_pad)
+    grid = walk_mode(x, w.vals, None, wl, bk=w.bk, bn=w.bn, bm_rows=bm_rows,
+                     taps=geom).describe()
+    k_ms = graph_ms(lambda: worklist_spmm_slabs(x, w.vals, wl, **kw),
+                    reps=20)
+    p_ms = cuda_ms(lambda: worklist_spmm_slabs_plain(x, w.vals, wl, **kw),
+                   reps=3)
+    k1_ms = graph_ms(lambda: worklist_spmm(flat, w.vals, wl, mb_per_img=mpi,
+                                          ncolors=2, **kw1), reps=20)
+    # the layer call either way: im2col (stack, pad), K1 and the output copy
+    # for taps; K1 on the map and the output copy for lazy
+    layer_kw = dict(stride=lay.stride, padding=lay.padding, sub_m=sub_m,
+                    bm_rows=bm_rows, layout=c.layout, emit_occupancy=True,
+                    wl_cache={B * mpi: wl})
+    taps_ms = graph_ms(lambda: sparse_conv2d_nhwc(
+        x, w, c.kh, c.kw, c.cout, im2col="taps", **layer_kw), reps=10)
+    lazy_ms = graph_ms(lambda: sparse_conv2d_nhwc(
+        x, w, c.kh, c.kw, c.cout, im2col="lazy", **layer_kw), reps=10)
+    torch.backends.cudnn.allow_tf32 = False
+    xn = x.permute(0, 3, 1, 2).contiguous()
+    wd = torch.as_tensor(c.w_dense, device=x.device).permute(3, 2, 0, 1) \
+        .contiguous()
+    lib_ms = graph_ms(lambda: F.conv2d(xn, wd, padding=c.kh // 2), reps=10)
+    # the function's needs: a MAC for every occupied sub_m-row sub-block of
+    # a stored chunk; the map, the stored weights and the output of the
+    # real rows moved once
+    idx = w.host_indices()
+    per_chunk = activation_occupancy(flat, sub_m, w.bk).sum(0).cpu().numpy()
+    live_macs = int(per_chunk[idx[idx >= 0]].sum())
+    rows = B * m_img
+    nbytes = 4.0 * (x.numel() + int((idx >= 0).sum()) * w.bk * w.bn
+                    + rows * w.n_blocks * w.bn + rows // sub_m * w.n_blocks)
+    b_ms, b_by = bound(2.0 * sub_m * w.bk * w.bn * live_macs, nbytes)
+    print(f"tap slabs @ {at} [{card}]")
+    print(f"  walker, tap-slab operand: max abs err {abs_:.3e}, max rel err "
+          f"{rel:.3e}, occupancy equal to the plain version, bitwise equal "
+          f"to K1 on the taps patch matrix (output and occupancy); {grid}; "
+          f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}); K1 on the patch matrix {k1_ms:.4f} ms; the layer call "
+          f"with taps (im2col + K1) {taps_ms:.4f} ms, lazy {lazy_ms:.4f} ms;"
+          f" dense conv2d {lib_ms:.4f} ms")
+    return {"at": at, "mode": "tile, tap slabs", "max_abs_err": abs_,
+            "max_rel_err": rel, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "grid": grid, "patch_matrix_k1_ms": k1_ms,
+            "taps_layer_ms": taps_ms, "lazy_layer_ms": lazy_ms}
+
+
+def pin_lazy(model):
+    """Every tap-layout layer tuned to the lazy operand at 128-row blocks
+    and its pack-time bn (the stem keeps the global knobs)."""
+    from repro_torch.kernels.autotune import ConvTileConfig, autotune_conv
+    from repro_torch.vision import layer_geometry
+    for layer, g in zip(model.layers, layer_geometry(model, SIZE)):
+        c = layer.conv
+        if c.layout == "tap":
+            autotune_conv(c, g["m_img"], batch=4, candidates=[ConvTileConfig(
+                bm_rows=128, bn=c.packed.bn, sub_m=8, im2col="lazy")])
+
+
+def lazy_forward_split(model, x0, card: str, windows: int = 7,
+                       calls: int = 5):
+    """The lazy forward against the taps (default) forward: windows of each
+    in turns, median and range; one ``torch.profiler`` trace of the lazy
+    forward split by kernel name. Returns the record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.vision import compile_forward
+    taps = compile_forward(model)
+    lazy = compile_forward(model, use_tuned=True)
+    taps(x0), lazy(x0)
+    t_win, l_win = [], []
+    for _ in range(windows):
+        t_win.append(cuda_ms(lambda: taps(x0), reps=calls, warmup=0))
+        l_win.append(cuda_ms(lambda: lazy(x0), reps=calls, warmup=0))
+    t_med, l_med = float(np.median(t_win)), float(np.median(l_win))
+    for _ in range(2):           # the first trace pays the profiler's set-up
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            lazy(x0)
+            torch.cuda.synchronize()
+    kernels = [(e.name, e.time_range.elapsed_us() / 1e3) for e in
+               prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    walker = sum(t for n, t in kernels if "tile_kernel" in n)
+    n_walker = sum(1 for n, _ in kernels if "tile_kernel" in n)
+    pool = sum(t for n, t in kernels if "max_pool" in n)
+    other = {}
+    for n, t in kernels:
+        if "tile_kernel" not in n and "max_pool" not in n:
+            k, ms = other.get(n, (0, 0.0))
+            other[n] = (k + 1, ms + t)
+    busy = sum(t for _, t in kernels)
+    times = t_win + l_win + [walker, pool, busy]
+    require(all(np.isfinite(times)), "lazy forward: a time is not finite")
+    B = x0.shape[0]
+    n_lazy = sum(1 for layer in model.layers if layer.conv.tuned is not None
+                 and layer.conv.tuned.config.im2col == "lazy")
+    print(f"VGG16 forward, {B} images at {x0.shape[1]} px, {windows} windows "
+          f"of {calls} calls in turns: lazy (tap slabs at {n_lazy} layers) "
+          f"median "
+          f"{l_med:.4f} ms (range {min(l_win):.4f}-{max(l_win):.4f}; "
+          f"{B / l_med * 1e3:.2f} img/s), taps median {t_med:.4f} ms "
+          f"(range {min(t_win):.4f}-{max(t_win):.4f}) [{card}]")
+    rest = sum(ms for _, ms in other.values())
+    if kernels:
+        print(f"  split of one traced lazy forward (torch.profiler): walker "
+              f"{walker:.4f} ms ({n_walker} launches), pooling {pool:.4f} "
+              f"ms, other kernels {rest:.4f} ms; the card busy {busy:.4f} "
+              f"ms, idle {l_med - busy:.4f} ms of the median")
+        print("  other kernels (launches, ms): " + "; ".join(
+            f"{n[:60]} ({k}, {ms:.4f})" for n, (k, ms) in
+            sorted(other.items(), key=lambda kv: -kv[1][1])))
+    else:
+        print("  split: the profiler saw no kernel on the card (not "
+              "measured)")
+    return {"images": B, "lazy_forward_ms": l_med,
+            "lazy_forward_ms_range": [min(l_win), max(l_win)],
+            "taps_forward_ms": t_med,
+            "taps_forward_ms_range": [min(t_win), max(t_win)],
+            "walker_ms": walker, "pool_ms": pool,
+            "other_kernels_ms": {n: ms for n, (_, ms) in other.items()},
+            "busy_ms": busy, "card": card}
+
+
+def tuned_oracle(model, x, card: str):
+    """``oracle_check`` of a tuned model: every layer through the dense
+    grid (K2) at its tuned row block and ``sub_m`` (lazy demotes to taps
+    there), held to the dense oracle. Returns the rel err."""
+    import torch
+    from repro_torch.kernels.sparse_conv import sparse_conv2d_nhwc
+    from repro_torch.vision import dense_forward, max_pool
+    h = x
+    with torch.no_grad():
+        for layer in model.layers:
+            c, cfg = layer.conv, layer.conv.tuned.config
+            h, _ = sparse_conv2d_nhwc(
+                h, c.packed, c.kh, c.kw, c.cout, stride=layer.stride,
+                padding=layer.padding, sub_m=cfg.sub_m, bm_rows=cfg.bm_rows,
+                im2col=cfg.im2col, layout=c.layout, schedule="dense",
+                emit_occupancy=True, count_macs=True, wl_cache=c.wl_cache)
+            if layer.pool_after is not None:
+                h = max_pool(h, *layer.pool_after)
+        ref = dense_forward(model, x)
+    _, rel = errors(h, ref)
+    return rel
+
+
+def autotune_phase(model, x0, default, card: str):
+    """``autotune_model`` modelled, then ``measure=True``: the per-layer
+    picks and their measured times, the tuned forwards bitwise equal to the
+    default, and the tuned oracle. Returns the table."""
+    import torch
+    from repro_torch.kernels.autotune import autotune_model
+    from repro_torch.kernels.sparse_conv import CONV_GRID
+    from repro_torch.vision import compile_forward
+    t0 = time.perf_counter()
+    modelled = autotune_model(model, SIZE, batch=x0.shape[0])
+    t_mod = time.perf_counter() - t0
+    out = compile_forward(model, use_tuned=True)(x0)
+    torch.cuda.synchronize()
+    require(torch.equal(out, default),
+            "the modelled tuned forward != the default forward bitwise")
+    grid_before = CONV_GRID.launches
+    rel_mod = tuned_oracle(model, x0[:1], card)
+    require(CONV_GRID.launches > grid_before,
+            "the tuned oracle never launched the dense grid")
+    require(rel_mod <= TOL, f"tuned (modelled) oracle rel err {rel_mod:.3e}")
+    t0 = time.perf_counter()
+    measured = autotune_model(model, SIZE, batch=x0.shape[0], measure=True,
+                              x=x0)
+    t_meas = time.perf_counter() - t0
+    out = compile_forward(model, use_tuned=True)(x0)
+    torch.cuda.synchronize()
+    require(torch.equal(out, default),
+            "the measured tuned forward != the default forward bitwise")
+    rel_meas = tuned_oracle(model, x0[:1], card)
+    require(rel_meas <= TOL, f"tuned (measured) oracle rel err "
+                             f"{rel_meas:.3e}")
+    rows, agree = [], 0
+    print(f"autotune, VGG16 at {SIZE} px, batch {x0.shape[0]}: modelled "
+          f"{t_mod:.1f} s, measured {t_meas:.1f} s (each candidate a layer "
+          f"call, CUDA events over 5 calls) [{card}]")
+    print("  layer | modelled pick (bm, bn, im2col): its measured ms | "
+          "measured pick: ms")
+    for i in sorted(measured):
+        m_cfg = modelled[i].config
+        by_key = {cfg.key(): cost for cfg, cost, _ in measured[i].table}
+        m_ms = by_key[m_cfg.key()] * 1e3
+        w_cfg, w_ms = measured[i].config, measured[i].cost * 1e3
+        agree += m_cfg.key() == w_cfg.key()
+        rows.append({"layer": i,
+                     "modelled": [m_cfg.bm_rows, m_cfg.bn, m_cfg.im2col],
+                     "modelled_ms": m_ms,
+                     "measured": [w_cfg.bm_rows, w_cfg.bn, w_cfg.im2col],
+                     "measured_ms": w_ms})
+        print(f"  L{i} | ({m_cfg.bm_rows}, {m_cfg.bn}, {m_cfg.im2col}): "
+              f"{m_ms:.4f} | ({w_cfg.bm_rows}, {w_cfg.bn}, {w_cfg.im2col})"
+              f": {w_ms:.4f}")
+    print(f"  the picks agree at {agree} of {len(rows)} layers; the tuned "
+          f"forwards (modelled, measured) bitwise equal to the default; "
+          f"tuned oracle (K2 at the tuned row blocks) rel err {rel_mod:.3e} "
+          f"/ {rel_meas:.3e}")
+    return {"layers": rows, "agree": agree, "oracle_rel_err":
+            [rel_mod, rel_meas], "card": card}
+
+
+def server_phase(model, card: str):
+    """``VisionServer`` on a virtual clock: 12 requests of mixed sizes into
+    buckets of 112 and 224 px on 4 slots (the larger ones downscaled), 0
+    SLA misses, every output bitwise equal to the solo forward of its
+    fitted image. Returns the walker's launches of the served run."""
+    import torch
+    from repro_torch.kernels.worklist_core import WALK
+    from repro_torch.launch.vision import blob_images
+    from repro_torch.serve.vision import VirtualClock, VisionServer
+    from repro_torch.vision import (ImageRequest, compile_forward, fit_image,
+                                    route_bucket)
+    from repro_torch.core import simulator as S
+    rng = np.random.default_rng(SEED + 11)
+    big = blob_images(rng, 12, 300, S.BENCHMARKS["VGGNet"].map_density)
+    sizes = [(100, 90), (112, 112), (150, 120), (224, 200), (300, 260),
+             (80, 112), (224, 224), (240, 224), (112, 60), (180, 224),
+             (260, 300), (64, 64)]
+    reqs = [ImageRequest(rid=i, image=big[i, :h, :w], arrival_s=0.004 * i,
+                         deadline_s=0.004 * i + 0.5)
+            for i, (h, w) in enumerate(sizes)]
+    srv = VisionServer(model, num_slots=4, buckets=(112, 224),
+                       clock=VirtualClock(), step_cost_s={112: 0.01,
+                                                          224: 0.03})
+    srv.warmup()
+    WALK.launches = 0
+    produced = srv.run(reqs)
+    torch.cuda.synchronize()
+    launches = WALK.launches
+    st = srv.stats
+    require(st.images == len(reqs) and st.sla_misses == 0,
+            f"server: {st.sla_misses} SLA misses of {st.images}")
+    require(launches > 0, "the server never launched the walker")
+    solo = compile_forward(model)
+    for r in reqs:
+        canon = fit_image(r.image, route_bucket(srv.buckets,
+                                                *r.image.shape[:2]))
+        one = solo(torch.as_tensor(canon[None], device=model.device))[0]
+        got = produced[r.rid]
+        require(np.isfinite(got).all() and np.array_equal(
+            got, one.cpu().numpy()), f"server request {r.rid}: output != "
+                                     f"the solo forward of its fitted image")
+    sc = srv.schedule_counters()
+    lat = st.latency_percentiles()
+    print(f"VisionServer (virtual clock, step costs 0.01 / 0.03 s, SLA 0.5 "
+          f"s): {st.images} requests on 4 slots into buckets "
+          f"{dict(sorted(st.bucket_steps.items()))} steps, {st.sla_misses} "
+          f"SLA misses, latency p50 {lat['p50']:.3f} / p95 {lat['p95']:.3f} "
+          f"s (virtual), slot utilization {st.slot_utilization:.3f}, "
+          f"cross-request combine factor "
+          f"{sc['cross_request_combine_factor']:.2f}x; every output bitwise "
+          f"equal to the solo forward of its fitted image; walker launches "
+          f"{launches} ({launches / st.engine_steps:.0f} a step) [{card}]")
+    return launches
+
+
+def lazy_phase(card: str):
+    """Phase 11 on a fresh VGG16 (chunk pattern): the tap-slab operand at
+    layers 1 and 8, the lazy forward, autotuning, and the server. Returns
+    the walker's tap-slab records and its launches by path."""
+    import torch
+    from repro_torch.core import simulator as S
+    from repro_torch.kernels.worklist_core import WALK
+    from repro_torch.launch.vision import blob_images
+    from repro_torch.vision import build_vision_model, compile_forward
+    dev = torch.device("cuda")
+    md = S.BENCHMARKS["VGGNet"].map_density
+    imgs = blob_images(np.random.default_rng(SEED), 4, SIZE, md)
+    model = build_vision_model("VGGNet", pattern="chunk", seed=SEED,
+                               device=dev)
+    recs = [tap_slab_phase(model, imgs, layer, card) for layer in (1, 8)]
+    x0 = torch.as_tensor(imgs, device=dev)
+    default = compile_forward(model)(x0)
+    pin_lazy(model)
+    WALK.launches = 0
+    lazy = compile_forward(model, use_tuned=True)(x0)
+    torch.cuda.synchronize()
+    lazy_launches = WALK.launches
+    require(lazy_launches == model.num_layers,
+            f"the lazy forward launched the walker {lazy_launches} times")
+    require(torch.equal(lazy, default),
+            "the lazy forward != the taps forward bitwise")
+    print(f"lazy forward ({model.num_layers - 1} tap-layout layers on the "
+          f"tap-slab operand): bitwise equal to the taps forward, "
+          f"{lazy_launches} walker launches")
+    split = lazy_forward_split(model, x0, card)
+    tune = autotune_phase(model, x0, default, card)
+    server = server_phase(model, card)
+    recs[0]["lazy_forward"] = split
+    recs[0]["autotune"] = tune
+    return recs, {"vgg16_lazy_forward": lazy_launches,
+                  "vgg16_vision_server": server}
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1223,9 +1591,12 @@ def main() -> int:
     launches["rwkv6_3b_serving"] = lm_serving_phase(rcfg, rparams, card)
     k1_rwkv, k1_rwkv_recs = channel_mix_compact_phase(rparams, rcfg, card)
     lm_oracle_phase(rcfg, rparams)
+    del rparams
+    torch.cuda.empty_cache()
+    slab_recs, slab_launches = lazy_phase(card)    # phase 11
 
     walker = kernels[0]
-    walker["shapes"] += k1_recs + k1_rwkv_recs
+    walker["shapes"] += k1_recs + k1_rwkv_recs + slab_recs
     # per mode, the shape its path runs most: VGG16 layer 1 for the tile
     # mode, Qwen3-4B decode (4 rows) in bf16 for the grid modes
     modes = {}
@@ -1238,7 +1609,7 @@ def main() -> int:
     walker["launches_by_path"] = {
         "vgg16_engine": walker["launches"],
         "qwen3_4b_ffn_compact": k1_qwen,
-        "rwkv6_3b_channel_mix_compact": k1_rwkv}
+        "rwkv6_3b_channel_mix_compact": k1_rwkv, **slab_launches}
     walker["launches"] = sum(walker["launches_by_path"].values())
     for key in ("max_abs_err", "max_rel_err"):
         walker[key] = max(r[key] for r in walker["shapes"])

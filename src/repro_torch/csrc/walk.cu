@@ -54,6 +54,28 @@
 // body with plain copies into one stage, chosen by the wrapper from the
 // shape; nothing falls back at run time.
 //
+// The tap-slab operand (lazy im2col, the tile mode, one stream). Instead of
+// a patch matrix [M, K] x may be the conv's NHWC input map [B, H, W, cin]
+// with the layer's geometry: output row r is pixel p = r % m_pad of image
+// r / m_pad, a real pixel when p < m_img = oh * ow, and K-chunk c = tap *
+// (cin / bk) + sub, (dy, dx) = divmod(tap, kw), of that row is channels
+// sub * bk .. of input pixel (oy * sh + dy - ph0, ox * sw + dx - pw0),
+// zero outside the map: the column of the tap-major patch matrix the chunk
+// stands for, without the patch matrix. The producer fetches a stage with
+// one im2col tensor copy of the unpadded map (cuTensorMapEncodeIm2col:
+// KS channels a pixel, the tile's rows as pixels a column, element strides
+// (sw, sh), the window's (dx, dy) as the copy's offsets); pixels outside
+// the map arrive as zeros, in the same swizzle as a patch-matrix box. The
+// copy runs on through W, then H, then N, so a tile whose rows pass m_img
+// (VGG16 at 56, 28 and 14 px against 128-row blocks) receives the next
+// image's first pixels there: the warps zero rows p >= m_img while they
+// transpose their band (and vote on the zeroed band), so those rows give
+// act(0) and occupancy 0 as the patch matrix's zero pad rows do, and a tile
+// with no real row skips its walk. Shapes the im2col copies refuse (pixels
+// not a multiple of 16 bytes, a stride above 8) take the plain copies with
+// the same address map. Every stage holds the values the patch-matrix
+// operand stages, so the result is bit for bit K1's on the patch matrix.
+//
 // The grid mode (bm_rows dividing 32: the compact FFN schedule's 8-row
 // blocks, also 16 and 32). This mode runs on the grid of the dense FFN
 // kernels (ffn_grid.cuh): 64-thread CTAs over 32-row x 16- or 32-column
@@ -231,7 +253,76 @@ struct TileArgs {
   int slices, groups;   // CTA tiles per row block, per n-block
   int tma;              // 1: tensor copies into the ring; 0: plain copies
   int vec_out;          // 1: 16-byte output stores (bn * sizeof(T) % 16 == 0)
+  // the tap-slab operand: x is the map [B, H, W, cin] (cpt = cin / bk
+  // chunks a tap), its images img_stride elements apart (its pixels
+  // contiguous), rows are pixels of images of m_pad rows, m_img real
+  int H, W, cin, cpt, kw, sh, sw, ph0, pw0, ow, m_img, m_pad;
+  long img_stride;
 };
+
+// The conv geometry of the tap-slab operand, as the C entry takes it.
+struct MapGeom {
+  int H, W, cin, kh, kw, sh, sw, ph0, ph1, pw0, pw1, m_pad, img_stride;
+};
+
+// cuTensorMapEncodeIm2col, looked up as ffn_grid.cuh looks up the tiled
+// encoder (no link against libcuda)
+inline PFN_cuTensorMapEncodeIm2col_v12000 encode_im2col_fn() {
+  static PFN_cuTensorMapEncodeIm2col_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeIm2col", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeIm2col_v12000>(p);
+  }
+  return fn;
+}
+
+// The im2col map of the NHWC input: `pixels` pixels a column of KS
+// channels each, the bounding box of the window's top-left positions
+// (lower corner -pads, upper corner pads - (window - 1)) walked with the
+// conv's strides, in the stage's swizzle.
+template <typename T>
+inline bool encode_im2col(CUtensorMap* map, const void* x, int B,
+                          const MapGeom& g, int pixels) {
+  const auto fn = encode_im2col_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)g.cin, (cuuint64_t)g.W,
+                              (cuuint64_t)g.H, (cuuint64_t)B};
+  const cuuint64_t px = (cuuint64_t)g.cin * sizeof(T);
+  const cuuint64_t strides[3] = {px, px * g.W,
+                                 (cuuint64_t)g.img_stride * sizeof(T)};
+  const int lower[2] = {-g.pw0, -g.ph0};
+  const int upper[2] = {g.pw1 - (g.kw - 1), g.ph1 - (g.kh - 1)};
+  const cuuint32_t estr[4] = {1, (cuuint32_t)g.sw, (cuuint32_t)g.sh, 1};
+  return fn(map,
+            sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                           : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+            4, const_cast<void*>(x), dims, strides, lower, upper, KS,
+            (cuuint32_t)pixels, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            sizeof(T) == 4 ? CU_TENSOR_MAP_SWIZZLE_128B
+                           : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// One im2col tensor copy: the pixels from (w, h) of image n on, channels
+// from c, each shifted by the window offset (dx, dy).
+__device__ inline void tma_im2col(void* dst, const CUtensorMap* map, int c,
+                                  int w, int h, int n, int dx, int dy,
+                                  unsigned long long* bar) {
+  const unsigned short ox = static_cast<unsigned short>(dx);
+  const unsigned short oy = static_cast<unsigned short>(dy);
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n" ::
+          "r"(fgrid::smem_addr(dst)),
+      "l"(map), "r"(fgrid::smem_addr(bar)), "r"(c), "r"(w), "r"(h), "r"(n),
+      "h"(ox), "h"(oy)
+      : "memory");
+}
 
 template <typename T>
 __device__ inline T zero_of();
@@ -245,9 +336,11 @@ __device__ inline __nv_bfloat16 zero_of<__nv_bfloat16>() {
 // The warp's band of a staged x (xb: its first row, xs_at apart) widened and
 // transposed into the warp's fp32 copy xt[k][row], its first kn k; returns
 // whether any of them is non-zero (-0 is zero), the warp's vote: every lane
-// must call it.
-template <typename T, int TM, int CT>
-__device__ inline bool stage_band(const T* xb, float* xt, int kn, int lane) {
+// must call it. MAP: rows from vrows on are not pixels of the image and
+// read as zeros.
+template <typename T, int TM, int CT, bool MAP>
+__device__ inline bool stage_band(const T* xb, float* xt, int kn, int lane,
+                                  int vrows) {
   using L = Lay<T, TM, CT>;
   using V = V16<T>;
   unsigned nz = 0;
@@ -258,7 +351,10 @@ __device__ inline bool stage_band(const T* xb, float* xt, int kn, int lane) {
     for (int it = 0; it < L::BAND * VR / 32; ++it) {
       const int u = it * 32 + lane;
       const int r = u % L::BAND, kq = u / L::BAND;
-      const typename V::R v = ld16(xb + xs_at<T>(r, kq * L::VK));
+      typename V::R v = ld16(xb + xs_at<T>(r, kq * L::VK));
+      if constexpr (MAP) {
+        if (r >= vrows) v = typename V::R{};
+      }
       const uint4 bits = *reinterpret_cast<const uint4*>(&v);
       nz |= bits.x | bits.y | bits.z | bits.w;
 #pragma unroll
@@ -269,7 +365,8 @@ __device__ inline bool stage_band(const T* xb, float* xt, int kn, int lane) {
   } else {
     for (int u = lane; u < L::BAND * kn; u += 32) {
       const int r = u % L::BAND, k = u / L::BAND;
-      const float v = tile::widen(xb[xs_at<T>(r, k)]);
+      const float v =
+          MAP && r >= vrows ? 0.f : tile::widen(xb[xs_at<T>(r, k)]);
       xt[k * L::XTP + r] = v;
       nz |= v != 0.f;
     }
@@ -322,8 +419,9 @@ __device__ __forceinline__ void mac(float (&acc)[TM][8], const float* xt,
   if (k < kn) step(0);
 }
 
-// One CTA: RT = a.rows rows x CT columns of one pair's output.
-template <typename T, int TM, int CT, bool GATED>
+// One CTA: RT = a.rows rows x CT columns of one pair's output. MAP: x is
+// the input map (the tap-slab operand).
+template <typename T, int TM, int CT, bool GATED, bool MAP>
 __global__ void __launch_bounds__((Lay<T, TM, CT>::THREADS))
     tile_kernel(const TileArgs<T> a, const __grid_constant__ CUtensorMap tx,
                 const __grid_constant__ CUtensorMap tw0,
@@ -352,6 +450,18 @@ __global__ void __launch_bounds__((Lay<T, TM, CT>::THREADS))
   const int rows = min(a.rows, a.bm - r0);  // rows stored
   const int c0 = cg * CT, cols = min(CT, a.bn - c0);
   const int stage = a.rows * KS + KS * CT;  // elements of a stage
+  // MAP: the tile lies in image img from its pixel p0 on, and holds vlim
+  // real pixels (all its rows when more); the copies start at the window
+  // position (w0, h0) of pixel p0
+  int img = 0, p0 = 0, vlim = MAX_ROWS, w0 = 0, h0 = 0;
+  if constexpr (MAP) {
+    img = static_cast<int>(row_base / a.m_pad);
+    p0 = static_cast<int>(row_base - (long)img * a.m_pad);
+    vlim = a.m_img - p0;
+    const int oy0 = p0 / a.ow;
+    w0 = (p0 - oy0 * a.ow) * a.sw - a.pw0;
+    h0 = oy0 * a.sh - a.ph0;
+  }
   // 1024-byte aligned for the swizzled tensor copies, by pointer arithmetic
   // on the shared array so that the compiler keeps shared (not generic)
   // loads
@@ -394,7 +504,8 @@ __global__ void __launch_bounds__((Lay<T, TM, CT>::THREADS))
   }
   __syncthreads();
   const int nsl = (a.bk + KS - 1) / KS;  // stages of a chunk
-  const int total = s_len * nsl;
+  // a tile of pad rows only walks nothing: its rows flush act(0)
+  const int total = MAP && vlim <= 0 ? 0 : s_len * nsl;
   const unsigned stage_bytes = stage * static_cast<unsigned>(sizeof(T));
 
   // the producer starts stage e's tensor copies into ring slot e % STAGES
@@ -403,7 +514,13 @@ __global__ void __launch_bounds__((Lay<T, TM, CT>::THREADS))
     const int k0 = e % nsl * KS, s = e % STAGES;
     T* st = ring + s * stage;
     fgrid::mbar_expect(&full[s], stage_bytes);
-    fgrid::tma2(st, &tx, it.x * a.bk + k0, (int)row_base, &full[s]);
+    if constexpr (MAP) {
+      const int tap = it.x / a.cpt, dy = tap / a.kw;
+      tma_im2col(st, &tx, (it.x - tap * a.cpt) * a.bk + k0, w0, h0, img,
+                 tap - dy * a.kw, dy, &full[s]);
+    } else {
+      fgrid::tma2(st, &tx, it.x * a.bk + k0, (int)row_base, &full[s]);
+    }
     fgrid::tma3(st + a.rows * KS, (it.y & 1) ? &tw1 : &tw0, c0, k0,
                 n * a.max_nz + (it.y >> 1), &full[s]);
   };
@@ -412,12 +529,30 @@ __global__ void __launch_bounds__((Lay<T, TM, CT>::THREADS))
   auto copy = [&](int e) {
     const int2 it = list[e / nsl];
     const int k0 = e % nsl * KS;
-    const long xc = (long)it.x * a.bk + k0;
-    for (int u = tid; u < a.rows * KS; u += blockDim.x) {
-      const int r = u / KS, c = u % KS;
-      ring[xs_at<T>(r, c)] = row_base + r < a.M && xc + c < a.K
-                                 ? a.x[(row_base + r) * a.K + xc + c]
-                                 : zero_of<T>();
+    if constexpr (MAP) {
+      // the im2col copy's address map: pixel p0 + r, shifted by the tap
+      const int tap = it.x / a.cpt, dy = tap / a.kw, dx = tap - dy * a.kw;
+      const int ch = (it.x - tap * a.cpt) * a.bk + k0;
+      for (int u = tid; u < a.rows * KS; u += blockDim.x) {
+        const int r = u / KS, c = u % KS;
+        T v = zero_of<T>();
+        if (r < vlim && ch + c < a.cin) {
+          const int oy = (p0 + r) / a.ow, ox = p0 + r - oy * a.ow;
+          const int iy = oy * a.sh + dy - a.ph0, ix = ox * a.sw + dx - a.pw0;
+          if (iy >= 0 && iy < a.H && ix >= 0 && ix < a.W)
+            v = a.x[img * a.img_stride + ((long)iy * a.W + ix) * a.cin +
+                    ch + c];
+        }
+        ring[xs_at<T>(r, c)] = v;
+      }
+    } else {
+      const long xc = (long)it.x * a.bk + k0;
+      for (int u = tid; u < a.rows * KS; u += blockDim.x) {
+        const int r = u / KS, c = u % KS;
+        ring[xs_at<T>(r, c)] = row_base + r < a.M && xc + c < a.K
+                                   ? a.x[(row_base + r) * a.K + xc + c]
+                                   : zero_of<T>();
+      }
     }
     const T* w =
         a.vals[it.y & 1] + ((long)n * a.max_nz + (it.y >> 1)) * a.bk * a.bn;
@@ -443,12 +578,14 @@ __global__ void __launch_bounds__((Lay<T, TM, CT>::THREADS))
   float* xt = xts + warp * L::XT;               // the warp's copy
   const int wo = a.rows * KS + cl * L::VK;  // the thread's first column
   const int bo = band0 * KS;                // the warp's band
+  const int vrows = vlim - band0;           // MAP: real rows of the band
 
   // one stage: the warp skips it when its band of x is all zero there
   auto consume = [&](int e, const T* st) {
     const int kn = min(KS, a.bk - e % nsl * KS);
     __syncwarp();  // the warp is done with its copy of e - 1
-    const bool live = stage_band<T, TM, CT>(st + bo, xt, kn, lane);
+    const bool live =
+        stage_band<T, TM, CT, MAP>(st + bo, xt, kn, lane, vrows);
     __syncwarp();
     if (!live) return;
     if constexpr (GATED) {
@@ -556,10 +693,10 @@ __global__ void __launch_bounds__((Lay<T, TM, CT>::THREADS))
   }
 }
 
-template <typename T, int TM, int CT, bool GATED>
-int launch_tile_ct(TileArgs<T> a, cudaStream_t st) {
+template <typename T, int TM, int CT, bool GATED, bool MAP>
+int launch_tile_ct(TileArgs<T> a, const MapGeom& g, cudaStream_t st) {
   using L = Lay<T, TM, CT>;
-  const auto kernel = tile_kernel<T, TM, CT, GATED>;
+  const auto kernel = tile_kernel<T, TM, CT, GATED, MAP>;
   const int threads = a.rows * CT / (TM * 8) + (a.tma ? 32 : 0);
   if (a.rows <= 0 || a.rows > MAX_ROWS || a.rows % L::BAND ||
       threads > L::THREADS)
@@ -568,9 +705,10 @@ int launch_tile_ct(TileArgs<T> a, cudaStream_t st) {
   if (a.tma) {
     const cuuint64_t xd[2] = {(cuuint64_t)a.K, (cuuint64_t)a.M};
     const cuuint32_t xb[2] = {(cuuint32_t)KS, (cuuint32_t)a.rows};
-    if (!fgrid::encode<T>(&tx, a.x, 2, xd, xb,
-                          sizeof(T) == 4 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                         : CU_TENSOR_MAP_SWIZZLE_64B))
+    if (MAP ? !encode_im2col<T>(&tx, a.x, a.M / a.m_pad, g, a.rows)
+            : !fgrid::encode<T>(&tx, a.x, 2, xd, xb,
+                                sizeof(T) == 4 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                               : CU_TENSOR_MAP_SWIZZLE_64B))
       return static_cast<int>(cudaErrorInvalidValue);
     tw[0] = tw[1] = tx;  // no weights to map when max_nz == 0
     if (a.max_nz > 0) {
@@ -601,15 +739,16 @@ int launch_tile_ct(TileArgs<T> a, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int TM, bool GATED>
-int launch_tile_tm(const TileArgs<T>& a, int cols, cudaStream_t st) {
+template <typename T, int TM, bool GATED, bool MAP>
+int launch_tile_tm(const TileArgs<T>& a, const MapGeom& g, int cols,
+                   cudaStream_t st) {
   switch (cols) {
     case 128:
-      return launch_tile_ct<T, TM, 128, GATED>(a, st);
+      return launch_tile_ct<T, TM, 128, GATED, MAP>(a, g, st);
     case 64:
-      return launch_tile_ct<T, TM, 64, GATED>(a, st);
+      return launch_tile_ct<T, TM, 64, GATED, MAP>(a, g, st);
     case 32:
-      return launch_tile_ct<T, TM, 32, GATED>(a, st);
+      return launch_tile_ct<T, TM, 32, GATED, MAP>(a, g, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -617,14 +756,14 @@ int launch_tile_tm(const TileArgs<T>& a, int cols, cudaStream_t st) {
 
 // The tile mode: CTAs of rows x cols with thread_rows rows a thread (8, or
 // 4; two streams take 4), a ring of tensor copies (tma = 1) or plain copies
-// (tma = 0).
+// (tma = 0); with g.m_pad > 0 x is the input map (the tap-slab operand).
 template <typename T>
 int launch_tile(const void* x, const void* vals, const void* vals2,
                 const int* pair_ptr, const int* ks, const int* k2s,
                 const int* js, void* out, int* occ_out, int M, int K, int nb,
                 int mb, int max_nz, int bk, int bn, int bm_rows, int sub_m,
                 int act, int emit_occ, int rows, int cols, int thread_rows,
-                int tma, cudaStream_t st) {
+                int tma, const MapGeom& g, cudaStream_t st) {
   TileArgs<T> a{};
   a.pair_ptr = pair_ptr;
   a.ks[0] = ks, a.ks[1] = k2s;
@@ -644,6 +783,21 @@ int launch_tile(const void* x, const void* vals, const void* vals2,
   if (bm_rows <= 0 || M != mb * bm_rows || bk <= 0 || K % bk || bn <= 0 ||
       bn > 128 || sub_m <= 0 || bm_rows % sub_m || max_nz < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool map = g.m_pad > 0;
+  if (map) {
+    const int oh = (g.H + g.ph0 + g.ph1 - g.kh) / g.sh + 1;
+    a.ow = (g.W + g.pw0 + g.pw1 - g.kw) / g.sw + 1;
+    a.H = g.H, a.W = g.W, a.cin = g.cin, a.cpt = g.cin / bk, a.kw = g.kw;
+    a.sh = g.sh, a.sw = g.sw, a.ph0 = g.ph0, a.pw0 = g.pw0;
+    a.m_img = oh * a.ow, a.m_pad = g.m_pad, a.img_stride = g.img_stride;
+    // one stream; images of whole row blocks; every chunk a (tap, channel
+    // group) of the map
+    if (vals2 != nullptr || g.cin % bk || g.sh <= 0 || g.sw <= 0 ||
+        oh <= 0 || a.ow <= 0 || g.m_pad < a.m_img || g.m_pad % bm_rows ||
+        M % g.m_pad || K != g.kh * g.kw * g.cin ||
+        g.img_stride < (long)g.H * g.W * g.cin)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   // tiles of whole sub-blocks and whole n-blocks store the occupancy, no
   // memset before the launch and no atomics
   a.occ_whole = rows > 0 && rows % sub_m == 0 && a.groups == 1;
@@ -653,10 +807,14 @@ int launch_tile(const void* x, const void* vals, const void* vals2,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if (vals2 != nullptr)
-    return thread_rows == 4 ? launch_tile_tm<T, 4, true>(a, cols, st)
+    return thread_rows == 4 ? launch_tile_tm<T, 4, true, false>(a, g, cols, st)
                             : static_cast<int>(cudaErrorInvalidValue);
-  if (thread_rows == 8) return launch_tile_tm<T, 8, false>(a, cols, st);
-  if (thread_rows == 4) return launch_tile_tm<T, 4, false>(a, cols, st);
+  if (thread_rows == 8)
+    return map ? launch_tile_tm<T, 8, false, true>(a, g, cols, st)
+               : launch_tile_tm<T, 8, false, false>(a, g, cols, st);
+  if (thread_rows == 4)
+    return map ? launch_tile_tm<T, 4, false, true>(a, g, cols, st)
+               : launch_tile_tm<T, 4, false, false>(a, g, cols, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -696,7 +854,12 @@ extern "C" const char* cuda_error_string(int code) {
 // out are fp32 (bf16 == 0) or bf16 (bf16 == 1). col_group 16 or 32 runs the
 // grid mode (bm_rows dividing 32); col_group 0 the tile mode, with CTA tiles
 // of tile_rows x tile_cols, thread_rows rows a thread, a ring of tensor
-// copies when tma == 1 or plain copies when tma == 0.
+// copies when tma == 1 or plain copies when tma == 0. m_pad > 0 (the tile
+// mode, one stream): x is the NHWC input map [M / m_pad, H, W, cin] of a
+// kh x kw conv with strides (sh, sw) and pads (ph0, ph1), (pw0, pw1), its
+// images img_stride elements apart (each image's pixels contiguous), whose
+// outputs take m_pad rows an image, and K = kh * kw * cin (the tap-slab
+// operand); m_pad == 0: x is the patch matrix [M, K].
 // Returns the cudaError_t of the launch (0 = launched).
 extern "C" int walk_spmm(const void* x, const void* vals, const void* vals2,
                          const int* pair_ptr, const int* ks, const int* k2s,
@@ -705,14 +868,20 @@ extern "C" int walk_spmm(const void* x, const void* vals, const void* vals2,
                          int bm_rows, int sub_m, int act, int emit_occ,
                          int ncolors, int mb_per_img, int bf16,
                          int col_group, int tile_rows, int tile_cols,
-                         int thread_rows, int tma, void* stream) {
+                         int thread_rows, int tma, int H, int W, int cin,
+                         int kh, int kw, int sh, int sw, int ph0, int ph1,
+                         int pw0, int pw1, int m_pad, int img_stride,
+                         void* stream) {
   (void)ncolors;     // see the note on colouring above
   (void)mb_per_img;
   if ((vals2 == nullptr) != (k2s == nullptr) || act < tile::ACT_NONE ||
       act > tile::ACT_GEGLU)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const MapGeom g{H, W, cin, kh, kw, sh, sw, ph0, ph1, pw0, pw1, m_pad,
+                  img_stride};
   if (col_group != 0) {
+    if (m_pad != 0) return static_cast<int>(cudaErrorInvalidValue);
     if (bf16)
       return launch_grid<__nv_bfloat16>(x, vals, vals2, pair_ptr, ks, k2s, js,
                                         out, occ_out, M, K, nb, max_nz, bk,
@@ -726,9 +895,9 @@ extern "C" int walk_spmm(const void* x, const void* vals, const void* vals2,
     return launch_tile<__nv_bfloat16>(
         x, vals, vals2, pair_ptr, ks, k2s, js, out, occ_out, M, K, nb, mb,
         max_nz, bk, bn, bm_rows, sub_m, act, emit_occ, tile_rows, tile_cols,
-        thread_rows, tma, st);
+        thread_rows, tma, g, st);
   return launch_tile<float>(x, vals, vals2, pair_ptr, ks, k2s, js, out,
                             occ_out, M, K, nb, mb, max_nz, bk, bn, bm_rows,
                             sub_m, act, emit_occ, tile_rows, tile_cols,
-                            thread_rows, tma, st);
+                            thread_rows, tma, g, st);
 }

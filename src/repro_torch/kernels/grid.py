@@ -17,7 +17,11 @@ work-list segments of the row blocks a CTA covers.
 The walker's tile mode (K1 at ``bm_rows`` not dividing 32, VGG16's 128-row
 blocks) owns one tile of one (n, m) pair per CTA: :func:`walk_tiles` picks
 its rows x columns and the rows a thread owns from the pairs' shape and
-depth and the SM count (:class:`WalkTiles`).
+depth and the SM count (:class:`WalkTiles`). Its tap-slab operand (lazy
+im2col) reads x from the NHWC input map through the conv geometry
+(:class:`TapGeometry`): :func:`tap_row_pixels` is the host model of its row
+-> pixel map, :func:`tap_rows_real` of the rows a tile zeroes, and
+:func:`walk_im2col_problem` says where its im2col tensor copies cannot go.
 """
 from __future__ import annotations
 
@@ -26,6 +30,8 @@ import functools
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
+
+from repro_torch.core.sparse import normalize_stride, resolve_pads
 
 ROW_BLOCK = 32
 H100_SMS = 132
@@ -331,17 +337,145 @@ def walk_tiles(M: int, nb: int, *, bm: int, bn: int, depth: float,
                      cols=cols, thread_rows=tm)
 
 
-def walk_tma_problem(x: torch.Tensor, tensors, bn: int) -> Optional[str]:
+def walk_tma_problem(x: torch.Tensor, tensors, bn: int,
+                     bk: int) -> Optional[str]:
     """Why the tile mode's tensor copies cannot take these operands (None
     when they can): x rows and weight rows a multiple of 16 bytes, every
-    operand 16-byte aligned."""
+    operand 16-byte aligned, and chunks of a multiple of 16 bytes, so that
+    every box of x starts 16-byte aligned (an H100 stops a swizzled box
+    that does not with an illegal instruction)."""
     eb = x.element_size()
     if x.shape[-1] * eb % 16:
         return f"x rows of {x.shape[-1]} elements are not a multiple of 16 " \
                f"bytes"
+    if bk * eb % 16:
+        return f"chunks of {bk} elements are not a multiple of 16 bytes"
     if bn * eb % 16:
         return f"weight rows of {bn} elements are not a multiple of 16 bytes"
     for name, t in (("x", x), *tensors):
         if t is not None and t.data_ptr() % 16:
             return f"{name} is not 16-byte aligned"
+    return None
+
+
+# ---------------------------------------------------------------------------
+# The tile mode's tap-slab operand (lazy im2col)
+# ---------------------------------------------------------------------------
+# What one im2col tensor copy takes (cuTensorMapEncodeIm2col, a rank-4 map):
+# at most this many pixels a column, element strides 1..8 and box corners
+# in a signed byte
+IM2COL_PIXELS = 256
+IM2COL_STRIDES = 8
+IM2COL_CORNER = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class TapGeometry:
+    """The conv geometry through which the walker's tile mode reads x
+    straight from the NHWC input map ``[B, H, W, cin]`` (lazy im2col, the
+    ``layout="tap"`` packing): output row ``r`` is pixel ``p = r % m_pad``
+    of image ``r // m_pad``, a real pixel when ``p < m_img``; K-chunk
+    ``c = tap * (cin / bk) + sub`` of it is channels ``sub * bk ..`` of the
+    input pixel ``(oy * sh + dy - ph0, ox * sw + dx - pw0)``, ``(dy, dx) =
+    divmod(tap, kw)``, zero outside the map."""
+
+    B: int
+    H: int
+    W: int
+    cin: int
+    kh: int
+    kw: int
+    sh: int
+    sw: int
+    ph0: int
+    ph1: int
+    pw0: int
+    pw1: int
+    m_pad: int
+
+    @property
+    def oh(self) -> int:
+        return (self.H + self.ph0 + self.ph1 - self.kh) // self.sh + 1
+
+    @property
+    def ow(self) -> int:
+        return (self.W + self.pw0 + self.pw1 - self.kw) // self.sw + 1
+
+    @property
+    def m_img(self) -> int:
+        return self.oh * self.ow
+
+    @property
+    def rows(self) -> int:
+        """Rows of the output: every image's ``m_pad``."""
+        return self.B * self.m_pad
+
+    @property
+    def k(self) -> int:
+        """Columns of the patch matrix the map stands for."""
+        return self.kh * self.kw * self.cin
+
+
+def tap_geometry(shape, kh: int, kw: int, stride, padding, *,
+                 m_pad: int) -> TapGeometry:
+    """The :class:`TapGeometry` of a conv over an NHWC map of ``shape``."""
+    B, H, W, cin = (int(v) for v in shape)
+    sh, sw = normalize_stride(stride)
+    (ph0, ph1), (pw0, pw1) = resolve_pads((H, W), kh, kw, stride, padding)
+    g = TapGeometry(B, H, W, cin, kh, kw, sh, sw, ph0, ph1, pw0, pw1, m_pad)
+    if m_pad < g.m_img:
+        raise ValueError(f"m_pad={m_pad} is below the {g.m_img} output "
+                         f"pixels of an image")
+    return g
+
+
+def tap_row_pixels(geom: TapGeometry, rows: torch.Tensor
+                   ) -> Tuple[torch.Tensor, ...]:
+    """Host model of the row -> pixel map: ``(img, oy, ox, valid)`` of each
+    output row (``oy``, ``ox`` 0 where the row is a pad row)."""
+    img = rows // geom.m_pad
+    p = rows % geom.m_pad
+    valid = p < geom.m_img
+    p = torch.where(valid, p, torch.zeros_like(p))
+    return img, p // geom.ow, p % geom.ow, valid
+
+
+def tap_rows_real(geom: TapGeometry, row_base: int, rows: int) -> int:
+    """How many of the ``rows`` rows from ``row_base`` (all in one image,
+    as a tile of one row block is) are real pixels; the walker zeroes the
+    rest (and, at 0, skips the tile's walk)."""
+    p0 = row_base % geom.m_pad
+    return max(0, min(rows, geom.m_img - p0))
+
+
+def walk_im2col_problem(x: torch.Tensor, geom: TapGeometry, tensors,
+                        bk: int, bn: int, rows: int) -> Optional[str]:
+    """Why the tile mode's tensor copies cannot take this map and these
+    weights (None when they can): ``bk`` and a stage's ``WALK_KS`` channels
+    a multiple of 16 bytes, the map's pixels (``cin`` channels) a multiple
+    of 16 bytes and its images 16-byte aligned, at most ``IM2COL_PIXELS``
+    rows a tile, strides 1..8 and the window's corners within a signed byte
+    (the im2col copies of x); weight rows a multiple of 16 bytes and the
+    weights 16-byte aligned (their tiled copies)."""
+    eb = x.element_size()
+    if bn * eb % 16:
+        return f"weight rows of {bn} elements are not a multiple of 16 bytes"
+    for name, t in tensors:
+        if t is not None and t.data_ptr() % 16:
+            return f"{name} is not 16-byte aligned"
+    if bk * eb % 16 or WALK_KS * eb % 16:
+        return f"a chunk of {bk} channels is not a multiple of 16 bytes"
+    if geom.cin * eb % 16:
+        return f"pixels of {geom.cin} channels are not a multiple of 16 " \
+               f"bytes"
+    if x.data_ptr() % 16 or (x.shape[0] > 1 and x.stride(0) * eb % 16):
+        return "the map's images are not 16-byte aligned"
+    if rows > IM2COL_PIXELS:
+        return f"a tile of {rows} rows is more than {IM2COL_PIXELS} pixels"
+    if not (1 <= geom.sh <= IM2COL_STRIDES and 1 <= geom.sw <= IM2COL_STRIDES):
+        return f"strides ({geom.sh}, {geom.sw}) are outside 1..8"
+    corners = (-geom.pw0, -geom.ph0, geom.pw1 - (geom.kw - 1),
+               geom.ph1 - (geom.kh - 1), geom.kw - 1, geom.kh - 1)
+    if any(not -IM2COL_CORNER <= c < IM2COL_CORNER for c in corners):
+        return f"the window's corners {corners} do not fit a signed byte"
     return None

@@ -15,12 +15,23 @@ Two schedules drive the layer:
 
 Both fuse ReLU into the flush and can emit the next layer's ``sub_m``-row
 occupancy. Images are stacked with their rows padded to whole ``bm_rows``
-blocks. The lazy im2col (``im2col="lazy"``) is not ported yet.
+blocks.
+
+The lazy im2col (``im2col="lazy"``, ``layout="tap"`` packing, the compact
+schedule) never builds the patch matrix: in the tap layout a K-chunk is one
+``(tap, channel group)`` slab of the input map. On the CPU the plain
+version :func:`worklist_spmm_slabs_plain` stacks only the live slabs
+(:func:`extract_tap_slabs`) and walks them; on CUDA the walker reads each
+live slab straight from the NHWC map (its tap-slab operand, im2col tensor
+copies). Both compute the ``taps`` path's terms in its order, so the result
+is bitwise the ``taps`` path's.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -32,12 +43,16 @@ from repro_torch.kernels._cuda import CudaKernel, I, P, check_cuda_tensor, \
     ptr
 from repro_torch.kernels.bitmask_spmm import subblock_macs
 from repro_torch.kernels.grid import GridGeometry, check_lm_grid, \
-    check_row_block
-from repro_torch.kernels.worklist_core import (DEFAULT_BM, LANE,
+    check_row_block, tap_geometry
+from repro_torch.kernels.worklist_core import (DEFAULT_BM, LANE, WorkList,
                                                _tile_output,
+                                               _worklist_spmm_cuda,
                                                build_worklist,
+                                               check_row_tiling,
+                                               map_pixels_contiguous,
                                                schedule_counters,
-                                               worklist_spmm)
+                                               worklist_spmm,
+                                               worklist_spmm_plain)
 
 CONV_GRID = CudaKernel("conv_grid.cu", "conv_grid_spmm", [
     P, P, P, P, P, P, P,                 # x vals indices occ out occ cnt
@@ -202,6 +217,100 @@ def extract_patches(x: torch.Tensor, kh: int, kw: int, stride: Stride,
     return p.reshape(b, oh * ow, cin * kh * kw), (oh, ow)
 
 
+def extract_tap_slabs(x: torch.Tensor, kh: int, kw: int, stride: Stride,
+                      padding: Padding, *, chunks, bk: int,
+                      m_pad: int) -> torch.Tensor:
+    """Lazy im2col: only the listed K-chunks of the tap-major patch matrix.
+
+    In ``layout="tap"`` a K-chunk ``c = tap * (cin / bk) + sub`` is one
+    shifted strided slice of the padded input (``(dy, dx) = divmod(tap,
+    kw)``, channels ``sub * bk ..``). Returns ``[len(chunks), B * m_pad,
+    bk]``, each image's rows zero-padded to ``m_pad``, equal value for value
+    to those columns of :func:`extract_patches` (``strategy="taps"``).
+    """
+    b, _, _, cin = x.shape
+    if cin % bk:
+        raise ValueError(f"tap slabs need cin % bk == 0, got cin={cin} "
+                         f"bk={bk}")
+    cpt = cin // bk                               # chunks per tap
+    xp, oh, ow, sh, sw = _padded_input(x, kh, kw, stride, padding)
+    m_img = oh * ow
+    slabs = []
+    for c in np.asarray(chunks).tolist():
+        tap, sub = divmod(int(c), cpt)
+        dy, dx = divmod(tap, kw)
+        s = xp[:, dy:dy + (oh - 1) * sh + 1:sh,
+               dx:dx + (ow - 1) * sw + 1:sw, sub * bk:(sub + 1) * bk]
+        slabs.append(s.reshape(b, m_img, bk))
+    p = torch.stack(slabs, dim=0)                 # [L, b, m_img, bk]
+    p = F.pad(p, (0, 0, 0, m_pad - m_img))
+    return p.reshape(len(slabs), b * m_pad, bk)
+
+
+def worklist_spmm_slabs_plain(x: torch.Tensor, vals: torch.Tensor,
+                              wl: WorkList, *, kh: int, kw: int,
+                              stride: Stride, padding: Padding, bk: int,
+                              bn: int, bm_rows: int, sub_m: int, m_pad: int,
+                              act: Optional[str], emit_occupancy: bool):
+    """Plain version of the walker's tap-slab operand (the port of the
+    reference's slab executor): the live slabs of the work list
+    (:func:`extract_tap_slabs` of the union of its chunks), then the plain
+    walker with ``wl.k`` remapped to the slabs' order. No live step: zeros
+    and zero occupancy."""
+    M = x.shape[0] * m_pad
+    live = wl.k >= 0
+    union = np.unique(wl.k[live])
+    if union.size == 0:
+        out = torch.zeros((M, wl.nb * bn), dtype=x.dtype, device=x.device)
+        occ = torch.zeros((M // sub_m, wl.nb), dtype=torch.int32,
+                          device=x.device)
+        return (out, occ) if emit_occupancy else (out,)
+    slot_of = np.zeros(int(union[-1]) + 1, np.int32)
+    slot_of[union] = np.arange(union.size, dtype=np.int32)
+    slabs = extract_tap_slabs(x, kh, kw, stride, padding, chunks=union,
+                              bk=bk, m_pad=m_pad)          # [L, M, bk]
+    flat = slabs.permute(1, 0, 2).reshape(M, union.size * bk)
+    k = np.where(live, slot_of[np.maximum(wl.k, 0)], -1).astype(np.int32)
+    wl_slabs = dataclasses.replace(wl, k=k, _combined={}, _device={},
+                                   _live={})
+    return worklist_spmm_plain(flat, vals, wl_slabs, bk=bk, bn=bn,
+                               bm_rows=bm_rows, sub_m=sub_m, act=act,
+                               emit_occupancy=emit_occupancy)
+
+
+def worklist_spmm_slabs(x: torch.Tensor, vals: torch.Tensor, wl: WorkList,
+                        *, kh: int, kw: int, stride: Stride,
+                        padding: Padding, bk: int, bn: int, bm_rows: int,
+                        sub_m: int, m_pad: int, act: Optional[str] = "relu",
+                        emit_occupancy: bool = False):
+    """The walker over the tap-major patch matrix of NHWC ``x`` without
+    that matrix: ``wl``'s chunks are ``(tap, channel group)`` slabs of the
+    map, each image ``m_pad`` rows. A CUDA tensor launches the walker's
+    tap-slab operand (``csrc/walk.cu``: its tile mode reading the slabs
+    from ``x`` with im2col tensor copies, or plain copies where
+    :func:`~repro_torch.kernels.grid.walk_im2col_problem` finds them
+    refused) or raises; a CPU tensor runs
+    :func:`worklist_spmm_slabs_plain`. Returns ``(out [B * m_pad, nb * bn][,
+    occupancy])`` as :func:`~repro_torch.kernels.worklist_core.
+    worklist_spmm` does on the patch matrix."""
+    geom = tap_geometry(x.shape, kh, kw, stride, padding, m_pad=m_pad)
+    if m_pad % bm_rows or wl.mb * bm_rows != geom.rows:
+        raise ValueError(f"a work list of {wl.mb} row blocks of {bm_rows} "
+                         f"does not cover {geom.B} images of {m_pad} rows")
+    kw_ = dict(bk=bk, bn=bn, bm_rows=bm_rows, sub_m=sub_m, act=act,
+               emit_occupancy=emit_occupancy)
+    if x.device.type == "cpu":
+        return worklist_spmm_slabs_plain(x, vals, wl, kh=kh, kw=kw,
+                                         stride=stride, padding=padding,
+                                         m_pad=m_pad, **kw_)
+    if x.device.type != "cuda":
+        raise ValueError(f"no walker for device {x.device}")
+    if emit_occupancy:
+        check_row_tiling(bm_rows, sub_m)
+    return _worklist_spmm_cuda(x, vals, None, wl, mb_per_img=m_pad // bm_rows,
+                               ncolors=2, taps=geom, **kw_)
+
+
 def _static_worklist(w: bm.BlockSparseMatrix, mb: int, mb_per_img: int,
                      wl_cache: Optional[dict]):
     """The pack-time (weight-only) schedule for ``mb`` row blocks, cached
@@ -240,6 +349,12 @@ def sparse_conv2d_nhwc(x: torch.Tensor, w: bm.BlockSparseMatrix, kh: int,
     ``schedule="dense"`` is the instrumented dense grid (required for
     ``count_macs``, which switches to it).
 
+    ``im2col="lazy"`` (``layout="tap"`` only, else ``ValueError``) reads the
+    live tap slabs of ``x`` instead of the patch matrix
+    (:func:`worklist_spmm_slabs`); it is demoted to ``"taps"`` under
+    ``schedule="dense"`` and ``compact_activations``, which need the whole
+    patch matrix. The result is bitwise the ``taps`` path's.
+
     Returns ``(out, aux)``: ``aux`` carries ``occupancy`` (int32 [B,
     ceil(M_img/sub_m), n_blocks]) and ``mac_counts`` when asked, the patch
     geometry, and — for compact schedules or ``report_schedule`` — the
@@ -248,26 +363,37 @@ def sparse_conv2d_nhwc(x: torch.Tensor, w: bm.BlockSparseMatrix, kh: int,
     if count_macs and schedule == "compact":
         schedule = "dense"
         report_schedule = True
-    if im2col == "lazy":
-        raise NotImplementedError("im2col='lazy' is not ported yet")
     if layout == "tap":
         if im2col in ("auto", "patches", "slices"):
             im2col = "taps"
-    elif im2col == "taps":
-        raise ValueError("im2col='taps' needs layout='tap' packing")
+    elif im2col in ("taps", "lazy"):
+        raise ValueError(f"im2col={im2col!r} needs layout='tap' packing")
+    lazy = im2col == "lazy"
+    if lazy and (schedule != "compact" or compact_activations):
+        im2col, lazy = "taps", False
     b = x.shape[0]
-    patches, (oh, ow) = extract_patches(x, kh, kw, stride, padding,
-                                        strategy=im2col)
+    if lazy:
+        oh, ow = conv_out_size(x.shape[1], x.shape[2], kh, kw, stride,
+                               padding)
+        flat = None
+        if not map_pixels_contiguous(x):
+            # the operand reads whole images of NHWC pixels (a layer's own
+            # output, cut from its padded rows, already is one)
+            x = x.contiguous()
+    else:
+        patches, (oh, ow) = extract_patches(x, kh, kw, stride, padding,
+                                            strategy=im2col)
     m_img = oh * ow
     k_total = w.shape[0]
     pad_rows = (-m_img) % bm_rows
     m_pad = m_img + pad_rows
-    pad_k = k_total - patches.shape[-1]
-    if pad_k < 0:
-        raise ValueError(f"patches have {patches.shape[-1]} features, the "
-                         f"packed filters {k_total}")
-    flat = F.pad(patches, (0, pad_k, 0, pad_rows)).reshape(b * m_pad,
-                                                           k_total)
+    if not lazy:
+        pad_k = k_total - patches.shape[-1]
+        if pad_k < 0:
+            raise ValueError(f"patches have {patches.shape[-1]} features, "
+                             f"the packed filters {k_total}")
+        flat = F.pad(patches, (0, pad_k, 0, pad_rows)).reshape(b * m_pad,
+                                                               k_total)
     mb = (b * m_pad) // bm_rows
     aux = {"m_img": m_img, "k_total": k_total, "oh": oh, "ow": ow}
 
@@ -300,7 +426,13 @@ def sparse_conv2d_nhwc(x: torch.Tensor, w: bm.BlockSparseMatrix, kh: int,
                 if compact_activations else wl
             aux["schedule"]["static_scheduled_steps"] = static.num_steps
 
-    if schedule == "compact":
+    if lazy:
+        res = worklist_spmm_slabs(
+            x, w.vals, wl, kh=kh, kw=kw, stride=stride, padding=padding,
+            bk=w.bk, bn=w.bn, bm_rows=bm_rows, sub_m=sub_m, m_pad=m_pad,
+            act="relu" if fuse_relu else None,
+            emit_occupancy=emit_occupancy)
+    elif schedule == "compact":
         res = worklist_spmm(
             flat, w.vals, wl, bk=w.bk, bn=w.bn, bm_rows=bm_rows, sub_m=sub_m,
             mb_per_img=m_pad // bm_rows, ncolors=2,

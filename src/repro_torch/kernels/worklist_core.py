@@ -10,7 +10,9 @@ path and the work-list ("compact") FFN schedule:
    numpy, array-equal to the reference.
 2. :func:`worklist_spmm` — run the schedule, one or two weight streams,
    with any epilogue of :data:`ACTS`, in fp32 or bf16 storage. On a CUDA
-   tensor it launches the hand-written walker (``csrc/walk.cu``); on a CPU
+   tensor it launches the hand-written walker (``csrc/walk.cu``; its tile
+   mode also reads x straight from a conv's NHWC map, the tap-slab operand
+   of :func:`repro_torch.kernels.sparse_conv.worklist_spmm_slabs`); on a CPU
    tensor it runs the plain version :func:`worklist_spmm_plain` (gather the
    scheduled tile pairs of each stream, one batched matmul each, the
    products summed per (n, m) pair in schedule order, epilogue) — the port
@@ -32,8 +34,9 @@ import torch.nn.functional as F
 from repro_torch.kernels._cuda import (KERNEL_DTYPES, CudaKernel, I, P,
                                        check_cuda_tensor, ptr)
 from repro_torch.kernels.grid import (ROW_BLOCK, WALK_KS, GridGeometry,
-                                      WalkTiles, grid_geometry,
-                                      lm_grid_problem, sm_count, walk_tiles,
+                                      TapGeometry, WalkTiles, grid_geometry,
+                                      lm_grid_problem, sm_count,
+                                      walk_im2col_problem, walk_tiles,
                                       walk_tma_problem)
 
 DEFAULT_BM = 128
@@ -54,6 +57,8 @@ WALK = CudaKernel("walk.cu", "walk_spmm", [
     I, I, I, I, I,                       # act emit_occ ncolors mb_per_img bf16
     I,                                   # col_group (0: the tile mode)
     I, I, I, I,                          # tile rows cols thread_rows tma
+    I, I, I, I, I, I, I,                 # map: H W cin kh kw sh sw
+    I, I, I, I, I, I,                    # ph0 ph1 pw0 pw1 m_pad img_stride
     P])                                  # stream
 
 
@@ -546,7 +551,9 @@ def worklist_spmm_plain(patches: torch.Tensor, vals: torch.Tensor,
 
 def walk_mode(patches: torch.Tensor, vals: torch.Tensor,
               vals2: Optional[torch.Tensor], wl: WorkList, *, bk: int,
-              bn: int, bm_rows: int) -> Union[GridGeometry, WalkTiles]:
+              bn: int, bm_rows: int,
+              taps: Optional[TapGeometry] = None
+              ) -> Union[GridGeometry, WalkTiles]:
     """The walker's mode on the card, chosen by shape before the launch:
 
     * the grid mode (``csrc/ffn_grid.cuh``, a :class:`GridGeometry`) for
@@ -557,34 +564,83 @@ def walk_mode(patches: torch.Tensor, vals: torch.Tensor,
       from :func:`~repro_torch.kernels.grid.walk_tiles` at the card's SM
       count and the ring stages a pair's walk takes on average: a ring of
       tensor copies where ``walk_tma_problem`` finds none, plain copies
-      into one stage where it finds one (x or weight rows not a multiple
-      of 16 bytes, an operand not 16-byte aligned). The tile mode takes every shape the walker
-      does (any bk, bn <= 128, any row block).
+      into one stage where it finds one (x rows, weight rows or chunks not
+      a multiple of 16 bytes, an operand not 16-byte aligned). The tile
+      mode takes every shape the walker does (any bk, bn <= 128, any row
+      block).
+
+    With ``taps`` (the tap-slab operand: ``patches`` is the NHWC input map)
+    always the tile mode, its x copies im2col tensor copies of the map
+    where ``walk_im2col_problem`` finds nothing against them.
 
     Nothing falls back after a launch: a CUDA tensor launches the mode
     chosen here or raises."""
     dev = patches.device
-    M = patches.shape[0]
+    M = patches.shape[0] if taps is None else taps.rows
     tensors = [("vals", vals), ("vals2", vals2)]
-    if ROW_BLOCK % bm_rows == 0 and \
+    if taps is None and ROW_BLOCK % bm_rows == 0 and \
             lm_grid_problem(patches, tensors, bk, bn) is None:
         return grid_geometry(M, wl.nb, bm=bm_rows, bn=bn, sms=sm_count(dev))
     depth = -(-bk // WALK_KS) * wl.live_items / max(wl.num_pairs, 1)
     tiles = walk_tiles(M, wl.nb, bm=bm_rows, bn=bn, depth=depth,
                        sms=sm_count(dev), gated=vals2 is not None)
-    if walk_tma_problem(patches, tensors, bn) is not None:
+    if taps is None:
+        problem = walk_tma_problem(patches, tensors, bn, bk)
+    else:
+        problem = walk_im2col_problem(patches, taps, tensors, bk, bn,
+                                      tiles.rows)
+    if problem is not None:
         tiles = dataclasses.replace(tiles, tma=False)
     return tiles
 
 
+def map_pixels_contiguous(x: torch.Tensor) -> bool:
+    """Whether NHWC ``x`` is laid out as the tap-slab operand reads it:
+    each image's pixels contiguous, images any multiple of that apart (a
+    layer's output cut from its padded rows is such a view)."""
+    B, H, W, C = x.shape
+    s = x.stride()
+    return (s[3] == 1 or C == 1) and s[2] == C and s[1] == W * C and \
+        (B == 1 or s[0] >= H * W * C)
+
+
 def _worklist_spmm_cuda(patches, vals, vals2, wl, *, bk, bn, bm_rows, sub_m,
-                        mb_per_img, ncolors, act, emit_occupancy):
-    M, K = patches.shape
+                        mb_per_img, ncolors, act, emit_occupancy,
+                        taps: Optional[TapGeometry] = None):
+    """Launch the walker. ``patches`` is the patch matrix ``[M, K]``, or
+    with ``taps`` the NHWC input map it stands for (the tap-slab operand,
+    whose work-list chunks name ``(tap, channel group)`` slabs of it)."""
     dev = patches.device
+    if taps is None:
+        M, K = patches.shape
+        geom = (0,) * 13
+    else:
+        if tuple(patches.shape) != (taps.B, taps.H, taps.W, taps.cin):
+            raise ValueError(f"the map {tuple(patches.shape)} does not match "
+                             f"its geometry {taps}")
+        if not map_pixels_contiguous(patches):
+            raise ValueError(f"the tap-slab operand takes a map whose images"
+                             f" are contiguous NHWC, got strides "
+                             f"{patches.stride()}")
+        if taps.cin % bk:
+            raise ValueError(f"the tap-slab operand needs cin % bk == 0, got "
+                             f"cin={taps.cin} bk={bk}")
+        if vals2 is not None:
+            raise ValueError("the tap-slab operand takes one weight stream")
+        M, K = taps.rows, taps.k
+        geom = (taps.H, taps.W, taps.cin, taps.kh, taps.kw, taps.sh, taps.sw,
+                taps.ph0, taps.ph1, taps.pw0, taps.pw1, taps.m_pad,
+                patches.stride(0) if taps.B > 1 else
+                taps.H * taps.W * taps.cin)
+        live = wl.k[wl.k >= 0]
+        if live.size and int(live.max()) >= K // bk:
+            raise ValueError(f"the work list names chunk {int(live.max())} "
+                             f"of a map with {K // bk}")
     if patches.dtype not in KERNEL_DTYPES:
         raise ValueError(f"the walker takes {KERNEL_DTYPES}, got "
                          f"{patches.dtype}")
-    check_cuda_tensor("patches", patches, patches.dtype, dev)
+    if taps is None:
+        check_cuda_tensor("patches", patches, patches.dtype, dev)
     nb, max_nz = wl.nb, wl.max_nz
     for name, w in (("vals", vals), ("vals2", vals2)):
         if w is None:
@@ -595,7 +651,11 @@ def _worklist_spmm_cuda(patches, vals, vals2, wl, *, bk, bn, bm_rows, sub_m,
                              f"work list ({nb}, {max_nz}, {bk}, {bn})")
     if bn > 128:
         raise ValueError(f"the walker takes bn <= 128, got {bn}")
-    mode = walk_mode(patches, vals, vals2, wl, bk=bk, bn=bn, bm_rows=bm_rows)
+    if M % bm_rows or K % bk:
+        raise ValueError(f"{M} rows and {K} columns do not tile by "
+                         f"({bm_rows}, {bk})")
+    mode = walk_mode(patches, vals, vals2, wl, bk=bk, bn=bn, bm_rows=bm_rows,
+                     taps=taps)
     if isinstance(mode, GridGeometry):
         col_group, tile = mode.col_group, (0, 0, 0, 0)
     else:
@@ -610,7 +670,8 @@ def _worklist_spmm_cuda(patches, vals, vals2, wl, *, bk, bn, bm_rows, sub_m,
                 ds.j.data_ptr(), out.data_ptr(), ptr(occ),
                 M, K, nb, M // bm_rows, max_nz, bk, bn, bm_rows, sub_m,
                 ACT_CODE[act], int(emit_occupancy), ncolors, mb_per_img,
-                int(patches.dtype == torch.bfloat16), col_group, *tile)
+                int(patches.dtype == torch.bfloat16), col_group, *tile,
+                *geom)
     return (out,) if occ is None else (out, occ)
 
 

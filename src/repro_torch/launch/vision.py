@@ -4,13 +4,17 @@
     PYTHONPATH=src python -m repro_torch.launch.vision --bench VGGNet \\
         --image-size 224 --pattern chunk --requests 8 --slots 4
     PYTHONPATH=src python -m repro_torch.launch.vision --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.vision --smoke --pattern \
+        chunk --autotune --device cpu
 
 Builds a pruned network for one of the Table-1 benchmarks, checks the first
 image against the dense oracle through the instrumented dense-grid kernel,
 prints per-layer measured densities and skipped-tile fractions, and serves
 staggered image requests through the round-robin engine (the work-list
-walker). ``--device`` defaults to ``cuda``; wall-clock numbers from any
-other device are not the card's.
+walker). ``--autotune`` tunes every layer's tile config first (the
+deterministic cost model of :mod:`repro_torch.kernels.autotune`) and the
+engine runs the tuned configs. ``--device`` defaults to ``cuda``;
+wall-clock numbers from any other device are not the card's.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import simulator as S
+from repro_torch.kernels.autotune import autotune_model
 from repro_torch.vision import (ImageRequest, VisionEngine,
                                 build_vision_model, layer_table,
                                 measured_densities, oracle_check)
@@ -63,6 +68,9 @@ def main(argv=None) -> None:
                     choices=["unstructured", "chunk"],
                     help="pruning pattern: chunk = tile-aligned structured "
                          "pruning (real dead chunks for the schedule)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="per-layer tile autotuning (deterministic cost "
+                         "model); the engine runs the tuned configs")
     ap.add_argument("--map-density", type=float, default=None,
                     help="input live-pixel fraction (default: Table 1)")
     ap.add_argument("--requests", type=int, default=4)
@@ -80,6 +88,11 @@ def main(argv=None) -> None:
     model = build_vision_model(args.bench, density=args.density,
                                num_layers=layers, seed=args.seed,
                                pattern=args.pattern, device=device)
+    if args.autotune:
+        for i, r in autotune_model(model, size).items():
+            c = r.config
+            print(f"autotune layer {i}: bm={c.bm_rows} bn={c.bn} "
+                  f"sub_m={c.sub_m} im2col={c.im2col}")
     md = args.map_density if args.map_density is not None else \
         S.BENCHMARKS[args.bench].map_density
     rng = np.random.default_rng(args.seed)
@@ -99,7 +112,8 @@ def main(argv=None) -> None:
     fd, md_meas = measured_densities(stats)
     print(f"measured network densities: filters {fd:.3f}, maps {md_meas:.3f}")
 
-    eng = VisionEngine(model, num_slots=args.slots)
+    eng = VisionEngine(model, num_slots=args.slots,
+                       use_tuned=args.autotune)
     reqs = [ImageRequest(rid=i, image=imgs[i], arrival=i * args.stagger)
             for i in range(args.requests)]
     produced = eng.run(reqs)

@@ -24,7 +24,7 @@ conv-specific steps:
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -178,7 +178,11 @@ class PackedConv:
     §3.2 compaction, computed once per (layer, batch geometry).
 
     ``layout``/``pattern`` record how the filters were matrixized and
-    pruned (``"channel"``+``"unstructured"`` is the legacy path)."""
+    pruned (``"channel"``+``"unstructured"`` is the legacy path); ``tuned``
+    holds the autotuner's winning per-layer tile config
+    (:class:`repro_torch.kernels.autotune.TuneRecord`) once
+    :func:`repro_torch.kernels.autotune.autotune_conv` has run, and
+    ``compile_forward(use_tuned=True)`` runs the layer at it."""
 
     w_dense: np.ndarray           # [kh, kw, Cin, Cout] pruned, chain-folded
     packed: bm.BlockSparseMatrix
@@ -189,6 +193,8 @@ class PackedConv:
     pattern: str = "unstructured"
     prune_info: Optional[structured.ChunkPruneInfo] = \
         dataclasses.field(default=None, repr=False, compare=False)
+    tuned: Optional[Any] = dataclasses.field(default=None, repr=False,
+                                             compare=False)
     # cluster assignment of the packed n-blocks (mesh-aware balance step);
     # None on chains built without mesh_devices. ``packed.shard_of``
     # mirrors ``shard.assign`` so the work lists carry it.

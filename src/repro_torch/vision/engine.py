@@ -25,11 +25,16 @@ from repro_torch.vision import model as VM
 
 @dataclasses.dataclass
 class ImageRequest:
-    """One inference request; ``arrival`` is the engine step from which it
-    may be admitted (deterministic admission, no clock involved)."""
+    """One inference request. ``arrival`` is the engine step from which
+    :class:`VisionEngine` may admit it (deterministic admission, no clock);
+    ``arrival_s`` / ``deadline_s`` are seconds from the start of a run,
+    read by :class:`repro_torch.serve.vision.VisionServer` (``deadline_s``
+    None: best effort, never an SLA miss)."""
     rid: int
     image: np.ndarray            # [H, W, C] float32
     arrival: int = 0
+    arrival_s: float = 0.0
+    deadline_s: Optional[float] = None
 
 
 @dataclasses.dataclass

@@ -120,23 +120,65 @@ def build_vision_model(name: str = "VGGNet", *,
     return VisionModel(name, layers, stem_size, density, device)
 
 
+def route_bucket(buckets: Tuple[int, ...], h: int, w: int) -> int:
+    """Canonical shape for an [h, w] image: the smallest bucket that holds
+    it (zero-pad up, never past the next canonical shape), or the largest
+    bucket when the image exceeds every one (downscale)."""
+    if not buckets:
+        raise ValueError("need at least one shape bucket")
+    side = max(h, w)
+    for b in sorted(buckets):
+        if side <= b:
+            return b
+    return max(buckets)
+
+
+def fit_image(image: np.ndarray, size: int) -> np.ndarray:
+    """Canonicalize one [H, W, C] image to [size, size, C].
+
+    An image at or under the bucket is zero-padded bottom/right, its content
+    kept exactly (which keeps batched outputs bitwise comparable to solo
+    runs). A larger one is resampled down with an antialiased bilinear
+    filter (``F.interpolate(..., antialias=True)``, the triangle filter
+    widened by the scale that ``jax.image.resize(..., "linear")`` uses), on
+    the CPU in fp32."""
+    img = np.asarray(image, np.float32)
+    if img.ndim != 3:
+        raise ValueError(f"image must be [H, W, C], got {img.shape}")
+    h, w, c = img.shape
+    if h <= size and w <= size:
+        return np.pad(img, ((0, size - h), (0, size - w), (0, 0)))
+    t = torch.as_tensor(img).permute(2, 0, 1)[None]
+    out = F.interpolate(t, size=(size, size), mode="bilinear",
+                        align_corners=False, antialias=True)
+    return np.ascontiguousarray(out[0].permute(1, 2, 0).numpy(),
+                                dtype=np.float32)
+
+
+def _tuned_config(layer: VisionLayer, use_tuned: bool):
+    """The layer's autotuned tile config when asked for and tuned."""
+    c = layer.conv
+    return c.tuned.config if (use_tuned and c.tuned is not None) else None
+
+
 def layer_geometry(model: VisionModel, input_size: int, *,
                    bm_rows: int = DEFAULT_BM,
                    use_tuned: bool = False) -> List[Dict[str, int]]:
     """Static per-layer geometry walk for one input size (host arithmetic
     only): ``oh/ow/m_img/m_pad/bm_rows/mb_per_img`` per layer, with the pool
-    placement rule of :func:`max_pool`."""
-    if use_tuned:
-        raise NotImplementedError("autotuned tile configs are not ported yet")
+    placement rule of :func:`max_pool`; ``use_tuned`` takes each tuned
+    layer's ``bm_rows``."""
     out: List[Dict[str, int]] = []
     h = w = input_size
     for layer in model.layers:
         c = layer.conv
+        cfg = _tuned_config(layer, use_tuned)
+        bm = cfg.bm_rows if cfg else bm_rows
         oh, ow = conv_out_size(h, w, c.kh, c.kw, layer.stride, layer.padding)
         m_img = oh * ow
-        m_pad = m_img + (-m_img) % bm_rows
+        m_pad = m_img + (-m_img) % bm
         out.append({"oh": oh, "ow": ow, "m_img": m_img, "m_pad": m_pad,
-                    "bm_rows": bm_rows, "mb_per_img": m_pad // bm_rows})
+                    "bm_rows": bm, "mb_per_img": m_pad // bm})
         h, w = oh, ow
         if layer.pool_after is not None and min(h, w) >= layer.pool_after[0]:
             win, s = layer.pool_after
@@ -155,16 +197,21 @@ def max_pool(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
 
 
 def _forward_layers(model: VisionModel, x: torch.Tensor, *, sub_m: int,
-                    two_sided: bool, schedule: str,
-                    im2col: str) -> torch.Tensor:
-    """Every layer through the sparse conv, activations handed on-device."""
+                    two_sided: bool, schedule: str, im2col: str,
+                    use_tuned: bool = False) -> torch.Tensor:
+    """Every layer through the sparse conv, activations handed on-device;
+    ``use_tuned`` runs each tuned layer at its autotuned ``bm_rows`` /
+    ``sub_m`` / im2col strategy instead of the global knobs."""
     for layer in model.layers:
         c = layer.conv
+        cfg = _tuned_config(layer, use_tuned)
         x, _ = sparse_conv2d_nhwc(
             x, c.packed, c.kh, c.kw, c.cout, stride=layer.stride,
-            padding=layer.padding, sub_m=sub_m, bm_rows=DEFAULT_BM,
-            im2col=im2col, two_sided=two_sided, fuse_relu=True,
-            schedule=schedule, layout=c.layout, wl_cache=c.wl_cache)
+            padding=layer.padding, sub_m=cfg.sub_m if cfg else sub_m,
+            bm_rows=cfg.bm_rows if cfg else DEFAULT_BM,
+            im2col=cfg.im2col if cfg else im2col, two_sided=two_sided,
+            fuse_relu=True, schedule=schedule, layout=c.layout,
+            wl_cache=c.wl_cache)
         if layer.pool_after is not None:
             x = max_pool(x, *layer.pool_after)
     return x
@@ -179,20 +226,23 @@ def compile_forward(model: VisionModel, *, sub_m: int = 8,
     Each layer's static work list is built once per row-block count (cached
     on ``PackedConv.wl_cache``) and its schedule arrays are copied to the
     device once (cached on the work list), so a call launches kernels and
-    copies no schedule. ``use_tuned`` and ``mesh`` are not ported yet.
+    copies no schedule. ``use_tuned`` runs each layer at its cached autotune
+    config; the cache key holds those configs, so re-tuning a layer gets a
+    new closure. ``mesh`` is not ported yet.
     """
-    if use_tuned:
-        raise NotImplementedError("autotuned tile configs are not ported yet")
     if mesh is not None:
         raise NotImplementedError("the mesh-sharded forward is not ported yet")
-    key = (sub_m, two_sided, schedule, im2col)
+    tuned_key = tuple(
+        cfg.key() if (cfg := _tuned_config(layer, use_tuned)) else None
+        for layer in model.layers)
+    key = (sub_m, two_sided, schedule, im2col, use_tuned, tuned_key)
     fn = model._fwd_cache.get(key)
     if fn is None:
         @torch.no_grad()
         def fn(x: torch.Tensor) -> torch.Tensor:
             return _forward_layers(model, x, sub_m=sub_m,
                                    two_sided=two_sided, schedule=schedule,
-                                   im2col=im2col)
+                                   im2col=im2col, use_tuned=use_tuned)
         model._fwd_cache[key] = fn
     return fn
 
@@ -206,19 +256,19 @@ def forward(model: VisionModel, x: torch.Tensor, *, sub_m: int = 8,
     """Whole network through the sparse conv path. x: [B, H, W, 3] float32
     on the model's device.
 
-    By default the cached work-list forward runs (:func:`compile_forward`).
-    ``collect_stats`` runs the instrumented per-layer path instead — the
-    dense-grid kernel with its ``count_macs`` counters — and returns one
-    dict per layer with the measured densities, the executed vs skippable
-    tile MACs and the compacted schedule's step counts.
+    By default the cached work-list forward runs (:func:`compile_forward`,
+    with ``use_tuned``). ``collect_stats`` runs the instrumented per-layer
+    path instead — the dense-grid kernel with its ``count_macs`` counters,
+    at the global knobs — and returns one dict per layer with the measured
+    densities, the executed vs skippable tile MACs and the compacted
+    schedule's step counts.
     """
-    if use_tuned:
-        raise NotImplementedError("autotuned tile configs are not ported yet")
     if compiled is None:
         compiled = not collect_stats
     if compiled and not collect_stats:
         fn = compile_forward(model, sub_m=sub_m, two_sided=two_sided,
-                             schedule=schedule, im2col=im2col)
+                             schedule=schedule, im2col=im2col,
+                             use_tuned=use_tuned)
         return fn(x), []
     stats: List[Dict[str, float]] = []
     bench = S.BENCHMARKS[model.name]

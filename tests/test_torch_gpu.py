@@ -582,7 +582,8 @@ def test_walker_tile_mode_plain_copies(rng, cuda, dtype, bk):
     x, w, vals = _tile_operands(rng, cuda, dtype, 256, bk, 64, kb=3)
     wl = build_worklist(w.host_indices(), 2)
     mode = walk_mode(x, vals, None, wl, bk=bk, bn=64, bm_rows=128)
-    assert mode.tma == (walk_tma_problem(x, [("vals", vals)], 64) is None)
+    assert mode.tma == (walk_tma_problem(x, [("vals", vals)], 64, bk)
+                        is None)
     kw = dict(bk=bk, bn=64, bm_rows=128, sub_m=8, act="relu",
               emit_occupancy=True)
     out, occ = worklist_spmm(x, vals, wl, **kw)
@@ -590,3 +591,175 @@ def test_walker_tile_mode_plain_copies(rng, cuda, dtype, bk):
     torch.cuda.synchronize()
     _close(out, pout, dtype)
     assert torch.equal(occ, pocc)
+
+
+# ---------------------------------------------------------------------------
+# the walker's tap-slab operand (lazy im2col)
+# ---------------------------------------------------------------------------
+# (images, H, W, cin, cout, k, stride, padding, bk, bn, bm_rows): several
+# images whose m_img a tile passes (14 x 14 = 196 of 256 rows, 7 x 7 of
+# 64), stride 2 SAME and VALID, a 1x1 window, a whole-image row block, and
+# pixels of 40 bytes, which the im2col copies refuse (plain copies)
+TAP_CASES = {
+    "s1_same_pad_rows": (2, 14, 14, 64, 64, 3, 1, "SAME", 64, 64, 128),
+    "s2_valid": (2, 13, 9, 32, 64, 3, 2, "VALID", 32, 64, 64),
+    "s2_same": (3, 12, 12, 32, 128, 3, 2, "SAME", 32, 128, 64),
+    "k1_whole_image": (3, 7, 7, 128, 128, 1, 1, "VALID", 128, 128, 64),
+    "plain_copies": (2, 9, 11, 20, 64, 3, 1, "SAME", 10, 64, 128),
+}
+
+
+def _tap_layer(rng, dev, dtype, case):
+    from repro_torch.sparsity.conv import pack_conv_filters
+    B, H, W, cin, cout, k, stride, padding, bk, bn, bm_rows = TAP_CASES[case]
+    w = rng.normal(size=(k, k, cin, cout)).astype(np.float32)
+    keep = rng.random((k * k * cin // bk, cout // bn)) < 0.5
+    keep[0] = True                      # every n-block keeps a chunk
+    w = (w.reshape(-1, cout) * np.repeat(np.repeat(keep, bk, 0), bn, 1)) \
+        .reshape(k, k, cin, cout)
+    x = np.abs(rng.normal(size=(B, H, W, cin))).astype(np.float32)
+    x[rng.random(x.shape) < 0.4] = 0
+    x[0, : H // 2] = 0                           # dead rows of image 0
+    packed = pack_conv_filters(w, layout="tap", bk=bk, bn=bn, device=dev)
+    packed = dataclasses.replace(packed, vals=packed.vals.to(dtype))
+    return (torch.as_tensor(x, device=dev).to(dtype), packed, k, cout,
+            dict(stride=stride, padding=padding, bm_rows=bm_rows,
+                 layout="tap"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(TAP_CASES))
+@pytest.mark.parametrize("occupancy", [True, False])
+def test_walker_tap_slabs_match_plain_and_patch_matrix(rng, cuda, dtype,
+                                                       case, occupancy):
+    """K1 reading the tap slabs from the NHWC map: bitwise K1 on the taps
+    patch matrix (output and occupancy), and within the plain version's
+    tolerance, with exactly its occupancy; counted as one launch."""
+    from repro_torch.kernels.sparse_conv import sparse_conv2d_nhwc
+    x, packed, k, cout, kw = _tap_layer(rng, cuda, dtype, case)
+    kw.update(emit_occupancy=occupancy)
+    before = WALK.launches
+    lazy, la = sparse_conv2d_nhwc(x, packed, k, k, cout, im2col="lazy", **kw)
+    assert WALK.launches == before + 1
+    taps, ta = sparse_conv2d_nhwc(x, packed, k, k, cout, im2col="taps", **kw)
+    cpu = dataclasses.replace(packed, indices=packed.indices.cpu(),
+                              vals=packed.vals.cpu())
+    plain, pa = sparse_conv2d_nhwc(x.cpu(), cpu, k, k, cout, im2col="lazy",
+                                   **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(lazy, taps)
+    _close(lazy.cpu(), plain, dtype)
+    if occupancy:
+        assert torch.equal(la["occupancy"], ta["occupancy"])
+        if dtype == torch.float32:
+            assert torch.equal(la["occupancy"].cpu(), pa["occupancy"])
+
+
+def test_walker_tap_slabs_plain_copies_same_bits(rng, cuda, monkeypatch):
+    """The plain-copy body with the im2col copies' address map gives the
+    bits the tensor copies give, at a shape both take."""
+    from repro_torch.kernels import worklist_core as wc
+    from repro_torch.kernels.sparse_conv import sparse_conv2d_nhwc
+    x, packed, k, cout, kw = _tap_layer(rng, cuda, torch.float32,
+                                        "s1_same_pad_rows")
+    kw.update(emit_occupancy=True)
+    want, wa = sparse_conv2d_nhwc(x, packed, k, k, cout, im2col="lazy", **kw)
+    chosen = wc.walk_mode
+    monkeypatch.setattr(wc, "walk_mode", lambda *a, **k_: dataclasses.replace(
+        chosen(*a, **k_), tma=False))
+    got, ga = sparse_conv2d_nhwc(x, packed, k, k, cout, im2col="lazy", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(ga["occupancy"], wa["occupancy"])
+
+
+@pytest.mark.parametrize("tma", [True, False])
+def test_walker_tap_slabs_take_a_layer_output_view(rng, cuda, monkeypatch,
+                                                   tma):
+    """A layer's output cut from its padded rows (images m_pad pixels
+    apart) is read in place, with the bits of its contiguous copy."""
+    from repro_torch.kernels import worklist_core as wc
+    from repro_torch.kernels.sparse_conv import sparse_conv2d_nhwc
+    x, packed, k, cout, kw = _tap_layer(rng, cuda, torch.float32,
+                                        "s1_same_pad_rows")
+    B, H, W, C = x.shape
+    buf = torch.zeros((B, H * W + 60, C), device=cuda)
+    buf[:, :H * W] = x.reshape(B, H * W, C)
+    view = buf[:, :H * W].reshape(B, H, W, C)
+    assert not view.is_contiguous() and wc.map_pixels_contiguous(view)
+    if not tma:
+        chosen = wc.walk_mode
+        monkeypatch.setattr(wc, "walk_mode", lambda *a, **k_:
+                            dataclasses.replace(chosen(*a, **k_), tma=False))
+    got, ga = sparse_conv2d_nhwc(view, packed, k, k, cout, im2col="lazy",
+                                 emit_occupancy=True, **kw)
+    want, wa = sparse_conv2d_nhwc(x, packed, k, k, cout, im2col="taps",
+                                  emit_occupancy=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(ga["occupancy"], wa["occupancy"])
+
+
+def test_walker_tap_slabs_reject_what_the_kernel_does_not_take(rng, cuda):
+    from repro_torch.kernels.sparse_conv import worklist_spmm_slabs
+    x, packed, k, cout, kw = _tap_layer(rng, cuda, torch.float32, "s2_valid")
+    wl = build_worklist(packed.host_indices(), 2, mb_per_img=1)
+    args = dict(kh=3, kw=3, stride=2, padding="VALID", bk=32, bn=64,
+                bm_rows=64, sub_m=8, m_pad=64)
+    worklist_spmm_slabs(x, packed.vals, wl, **args)
+    with pytest.raises(ValueError):                 # pixels not contiguous
+        worklist_spmm_slabs(x.transpose(1, 2), packed.vals, wl, **args)
+    with pytest.raises(ValueError):                 # dtype mismatch
+        worklist_spmm_slabs(x.double(), packed.vals, wl, **args)
+    with pytest.raises(ValueError):                 # cin % bk
+        worklist_spmm_slabs(x, packed.vals, wl, **dict(args, bk=24))
+
+
+def test_tuned_and_lazy_forward_bitwise_default_on_card(cuda):
+    """The autotuned forward (whole-image row blocks, lazy tap slabs) and a
+    forward pinned to lazy at 128-row blocks equal the default forward."""
+    from repro_torch.kernels.autotune import (ConvTileConfig, autotune_conv,
+                                              autotune_model)
+    rng = np.random.default_rng(3)
+    model = build_vision_model("VGGNet", density=1 / 3, num_layers=4,
+                               pattern="chunk", seed=0, device=cuda)
+    x = np.abs(rng.normal(size=(2, 32, 32, 3))).astype(np.float32)
+    x[rng.random(x.shape) >= 0.4] = 0.0
+    xt = torch.as_tensor(x, device=cuda)
+    default = compile_forward(model)(xt)
+    autotune_model(model, 32, batch=2)
+    tuned = compile_forward(model, use_tuned=True)(xt)
+    for layer in model.layers:
+        c = layer.conv
+        if c.layout == "tap":
+            autotune_conv(c, c.tuned.m_img, candidates=[ConvTileConfig(
+                bm_rows=128, bn=c.packed.bn, sub_m=8, im2col="lazy")])
+    before = WALK.launches
+    lazy = compile_forward(model, use_tuned=True)(xt)
+    torch.cuda.synchronize()
+    assert WALK.launches == before + model.num_layers
+    assert torch.equal(tuned, default)
+    assert torch.equal(lazy, default)
+
+
+def test_vision_server_outputs_bitwise_solo_on_card(cuda):
+    from repro_torch.serve.vision import VirtualClock, VisionServer
+    from repro_torch.vision import fit_image, route_bucket
+    rng = np.random.default_rng(5)
+    model = build_vision_model("VGGNet", density=0.4, num_layers=2,
+                               pattern="chunk", seed=0, device=cuda)
+    sizes = (10, 16, 5, 20, 8, 16)
+    reqs = [ImageRequest(rid=i, image=np.abs(rng.normal(size=(s, s, 3)))
+                         .astype(np.float32), arrival_s=0.1 * i,
+                         deadline_s=0.1 * i + 1.0)
+            for i, s in enumerate(sizes)]
+    srv = VisionServer(model, num_slots=2, buckets=(8, 16),
+                       clock=VirtualClock(), step_cost_s=0.1)
+    out = srv.run(reqs)
+    assert srv.stats.sla_misses == 0
+    fwd = compile_forward(model)
+    for r in reqs:
+        canon = fit_image(r.image, route_bucket(srv.buckets,
+                                                *r.image.shape[:2]))
+        one = fwd(torch.as_tensor(canon[None], device=cuda))[0]
+        assert np.array_equal(out[r.rid], one.cpu().numpy())

@@ -179,7 +179,7 @@ def test_lazy_im2col_and_layout_mismatch_raise(rng):
     x, w = _operands(rng)
     _, tw = _packs(w)
     xt = torch.as_tensor(x)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs layout='tap'"):
         tsc.sparse_conv2d_nhwc(xt, tw, 3, 3, 20, im2col="lazy")
     with pytest.raises(ValueError):
         tsc.sparse_conv2d_nhwc(xt, tw, 3, 3, 20, im2col="taps")

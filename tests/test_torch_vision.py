@@ -208,15 +208,21 @@ def test_engine_round_robin_spreads_lanes(rng, models):
 
 
 def test_not_ported_options_raise(models):
+    """The artifact verifier and the mesh still raise; ``use_tuned`` is
+    ported (``tests/test_torch_autotune.py``): on layers without a tuning
+    record it keeps the global knobs."""
     _, t = models
     with pytest.raises(NotImplementedError):
         VisionEngine(t, verify_artifacts=True)
     with pytest.raises(NotImplementedError):
         VisionEngine(t, mesh=object())
     with pytest.raises(NotImplementedError):
-        compile_forward(t, use_tuned=True)
-    with pytest.raises(NotImplementedError):
-        layer_geometry(t, 24, use_tuned=True)
+        compile_forward(t, mesh=object())
+    assert all(layer.conv.tuned is None for layer in t.layers)
+    assert layer_geometry(t, 24, use_tuned=True) == layer_geometry(t, 24)
+    x = torch.zeros((1, 8, 8, 3))
+    assert torch.equal(compile_forward(t, use_tuned=True)(x),
+                       compile_forward(t)(x))
 
 
 def test_launcher_smoke_on_cpu(capsys):

@@ -252,11 +252,11 @@ def test_walk_tma_problem_names_the_shapes_for_plain_copies():
     from repro_torch.kernels.grid import walk_tma_problem
     x = torch.zeros(64, 3 * 64)
     w = torch.zeros(4, 3, 64, 64)
-    assert walk_tma_problem(x, [("vals", w)], 64) is None
-    assert walk_tma_problem(torch.zeros(64, 30), [], 64) is not None
-    assert walk_tma_problem(x.bfloat16(), [], 36) is not None
+    assert walk_tma_problem(x, [("vals", w)], 64, 64) is None
+    assert walk_tma_problem(torch.zeros(64, 30), [], 64, 10) is not None
+    assert walk_tma_problem(x.bfloat16(), [], 36, 64) is not None
     assert walk_tma_problem(torch.zeros(64 * 192 + 1)[1:].view(64, 192), [],
-                            64) is not None
+                            64, 64) is not None
 
 
 def test_worklist_live_items_count_both_streams():
@@ -271,3 +271,126 @@ def test_worklist_live_items_count_both_streams():
     assert one.live_items == int((one.k >= 0).sum()) == one.mac_steps
     assert two.live_items == int((two.k >= 0).sum() + (two.k2 >= 0).sum())
     assert two.live_items >= two.mac_steps
+
+
+def test_walk_tma_problem_needs_aligned_chunks():
+    """A box of x starts at a chunk's first column: chunks whose bytes are
+    not a multiple of 16 take the plain copies even where the rows are."""
+    from repro_torch.kernels.grid import walk_tma_problem
+    x = torch.zeros(64, 180)                      # 720-byte rows
+    assert walk_tma_problem(x, [], 64, bk=10) is not None   # 40 bytes
+    assert walk_tma_problem(x, [], 64, bk=12) is None       # 48 bytes
+    xb = x.bfloat16()[:, :176].contiguous()       # 352-byte rows
+    assert walk_tma_problem(xb, [], 64, bk=8) is None
+    assert walk_tma_problem(xb, [], 64, bk=4) is not None
+
+
+# ---------------------------------------------------------------------------
+# the tile mode's tap-slab operand (lazy im2col): its host model
+# ---------------------------------------------------------------------------
+TAP_GEOMS = [(1, "SAME", 3), (2, "SAME", 3), (2, "VALID", 3), (1, "VALID", 1),
+             ((1, 2), ((2, 0), (1, 1)), 3)]
+
+
+@pytest.mark.parametrize("stride,padding,k", TAP_GEOMS)
+def test_tap_geometry_matches_conv_out_size(stride, padding, k):
+    from repro_torch.kernels.grid import tap_geometry
+    from repro_torch.kernels.sparse_conv import conv_out_size
+    oh, ow = conv_out_size(13, 9, k, k, stride, padding)
+    m_pad = oh * ow + (-(oh * ow)) % 32
+    g = tap_geometry((3, 13, 9, 16), k, k, stride, padding, m_pad=m_pad)
+    assert (g.oh, g.ow, g.m_img) == (oh, ow, oh * ow)
+    assert g.rows == 3 * m_pad and g.k == k * k * 16
+    with pytest.raises(ValueError):
+        tap_geometry((3, 13, 9, 16), k, k, stride, padding,
+                     m_pad=oh * ow - 1)
+
+
+@pytest.mark.parametrize("stride,padding,k", TAP_GEOMS)
+def test_tap_row_pixel_map_names_the_patch_matrix(stride, padding, k):
+    """Row r, chunk (tap, sub) of the taps patch matrix is the map's pixel
+    (oy * sh + dy - ph0, ox * sw + dx - pw0) of image r // m_pad, zero
+    outside the map and on pad rows: the address map of the operand."""
+    from repro_torch.kernels.grid import tap_geometry, tap_row_pixels
+    from repro_torch.kernels.sparse_conv import extract_patches
+    B, H, W, cin, bk = 2, 13, 9, 16, 8
+    x = torch.arange(1, B * H * W * cin + 1, dtype=torch.float32) \
+        .reshape(B, H, W, cin)
+    patches, (oh, ow) = extract_patches(x, k, k, stride, padding,
+                                        strategy="taps")
+    m_pad = oh * ow + 5
+    g = tap_geometry(x.shape, k, k, stride, padding, m_pad=m_pad)
+    flat = torch.nn.functional.pad(patches, (0, 0, 0, 5)).reshape(
+        B * m_pad, -1)
+    img, oy, ox, valid = tap_row_pixels(g, torch.arange(g.rows))
+    assert int(valid.sum()) == B * oh * ow
+    for c in range(g.k // bk):
+        tap, sub = divmod(c, cin // bk)
+        dy, dx = divmod(tap, k)
+        iy, ix = oy * g.sh + dy - g.ph0, ox * g.sw + dx - g.pw0
+        inside = valid & (iy >= 0) & (iy < H) & (ix >= 0) & (ix < W)
+        want = torch.zeros(g.rows, bk)
+        want[inside] = x[img[inside], iy[inside], ix[inside],
+                         sub * bk:(sub + 1) * bk]
+        assert torch.equal(flat[:, c * bk:(c + 1) * bk], want), c
+
+
+def test_tap_rows_past_m_img_at_vgg16_sizes():
+    """VGG16's 56, 28 and 14 px maps against 128-row blocks: the tiles
+    whose rows pass m_img hold only the image's last pixels (the next
+    image's, which the im2col copy fetches there, are zeroed), and tiles of
+    pad rows only walk nothing."""
+    from repro_torch.kernels.grid import tap_geometry, tap_rows_real
+    for px, real_last in ((56, 64), (28, 16), (14, 68)):
+        m_img = px * px
+        m_pad = m_img + (-m_img) % 128
+        g = tap_geometry((4, px, px, 64), 3, 3, 1, "SAME", m_pad=m_pad)
+        assert g.m_img == m_img and m_pad % 128 == 0 and m_pad > m_img
+        last_block = m_pad - 128
+        assert tap_rows_real(g, last_block, 128) == real_last
+        for img in range(4):
+            base = img * m_pad
+            real = [tap_rows_real(g, base + r, 32)
+                    for r in range(0, m_pad, 32)]
+            assert sum(real) == m_img
+            assert real[:m_img // 32] == [32] * (m_img // 32)
+            assert all(r == 0 for r in real[-(-m_img // 32):])
+
+
+def test_walk_im2col_problem_names_what_the_copies_refuse():
+    from repro_torch.kernels.grid import tap_geometry, walk_im2col_problem
+    g = tap_geometry((4, 56, 56, 128), 3, 3, 1, "SAME", m_pad=3200)
+    x = torch.zeros(4, 56, 56, 128)
+    w = [("vals", torch.zeros(4, 9, 128, 128))]
+    assert walk_im2col_problem(x, g, w, 128, 128, 32) is None
+    assert walk_im2col_problem(x.bfloat16(), g, w, 128, 64, 64) is None
+    assert walk_im2col_problem(x, g, w, 10, 128, 32) is not None   # 40 B
+    assert walk_im2col_problem(x, g, w, 128, 128, 512) is not None  # pixels
+    assert walk_im2col_problem(x, g, w, 128, 6, 32) is not None    # w rows
+    odd_w = [("vals", torch.zeros(4 * 9 * 128 * 128 + 1)[1:])]
+    assert walk_im2col_problem(x, g, odd_w, 128, 128, 32) is not None
+    g20 = tap_geometry((4, 9, 9, 20), 3, 3, 1, "SAME", m_pad=128)
+    assert walk_im2col_problem(torch.zeros(4, 9, 9, 20).bfloat16(), g20, [],
+                               4, 64, 32) is not None          # 40-byte px
+    g9 = tap_geometry((1, 64, 64, 16), 3, 3, 9, "SAME", m_pad=64)
+    assert walk_im2col_problem(torch.zeros(1, 64, 64, 16), g9, [], 16, 64,
+                               32) is not None                 # stride 9
+    gp = tap_geometry((1, 8, 8, 16), 3, 3, 1, ((200, 0), (0, 0)),
+                      m_pad=1664)
+    assert walk_im2col_problem(torch.zeros(1, 8, 8, 16), gp, [], 16, 64,
+                               32) is not None                 # corner
+    odd = torch.zeros(4 * 56 * 56 * 128 + 1)[1:].view(4, 56, 56, 128)
+    assert walk_im2col_problem(odd, g, w, 128, 128, 32) is not None
+
+
+def test_map_pixels_contiguous_takes_a_layer_output_view():
+    """The tap-slab operand reads images of contiguous NHWC pixels any
+    distance apart: a layer's output cut from its padded rows qualifies, a
+    transposed or channel-sliced map does not."""
+    from repro_torch.kernels.worklist_core import map_pixels_contiguous
+    buf = torch.zeros(3, 14 * 14 + 60, 64)
+    view = buf[:, :196].reshape(3, 14, 14, 64)
+    assert not view.is_contiguous() and map_pixels_contiguous(view)
+    assert map_pixels_contiguous(torch.zeros(2, 5, 7, 16))
+    assert not map_pixels_contiguous(torch.zeros(2, 5, 7, 16).transpose(1, 2))
+    assert not map_pixels_contiguous(torch.zeros(2, 5, 7, 32)[..., :16])
