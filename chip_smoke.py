@@ -91,7 +91,21 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    clock, buckets 112 and 224, 4 slots, 12 requests of mixed sizes (the
    larger downscaled by ``fit_image``): 0 SLA misses, every output bitwise
    equal to the solo forward of its fitted image, the walker's launches of
-   the served run counted from zero, the cross-request combine factor.
+   the served run counted from zero, the cross-request combine factor;
+12. admission (the artifact verifier, ``repro_torch.analysis``), which
+   launches no kernel: right after each LM build (``sparsify_model(...,
+   strict=True)``), the leaves verified (0 diagnostics) and a default
+   ``Scheduler`` admitted, timed, then a copy of layer 0's bf16 leaf dict
+   with a non-zero tile at a -1 slot refused (``BS-PAD-VALS``); at the
+   end, on a fresh VGG16: ``SMEM_BUDGET_BYTES`` equal to the card's
+   per-block opt-in shared memory, ``build_sparse_chain(...,
+   strict=True)`` for both patterns (0 diagnostics), ``verify_model(deep=
+   True)`` of the served network (0 diagnostics), default ``VisionEngine``
+   and ``VisionServer`` admitted, each timed, then a layer's cached
+   ``DeviceSchedule`` with a chunk id of ``K // bk`` (``WL-STALE-CACHE``)
+   and a packed conv whose card indices hold ``K // bk`` (``BS-RANGE``)
+   refused by ``VisionEngine``; every refusal with ``AnalysisError`` and
+   no kernel launched, and the network's output unchanged afterwards.
 
 Kernel and library times are device times, CUDA-graph replays of 20
 calls (``graph_ms``); the plain versions, host loops, are timed by a loop
@@ -229,6 +243,7 @@ def layer_inputs(model, layer: int, imgs):
     return x, flat.contiguous(), m_img, m_pad
 
 
+# lint: ignore[EAGER-GUARD] builds its schedules eagerly, before any capture
 def kernel_phase(model, imgs, layer: int, card: str):
     """Both kernels vs their plain versions at one layer; returns the two
     per-kernel records."""
@@ -791,7 +806,7 @@ def build_lm(dev, arch=LM_ARCH):
     torch_sync()
     t1 = time.perf_counter()
     params = sparsify_model(params, cfg, density=LM_DENSITY,
-                            num_shards=LM_SHARDS)
+                            num_shards=LM_SHARDS, strict=True)
     torch_sync()
     bp = params["blocks"][0]["p0"]
     src, leaf = sparse_leaf(bp)
@@ -801,12 +816,182 @@ def build_lm(dev, arch=LM_ARCH):
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}, vocab "
           f"{cfg.vocab} (padded {cfg.padded_vocab}), {cfg.dtype}; depth cut "
           f"to {cfg.n_layers} of {full.n_layers} layers; init {t1 - t0:.1f}"
-          f" s, host packing {time.perf_counter() - t1:.1f} s (density "
+          f" s, host packing with strict=True "
+          f"{time.perf_counter() - t1:.1f} s (density "
           f"{LM_DENSITY}, {LM_SHARDS} shards); in"
           f"{'/gate' if 'gate_indices' in sp else ''} indices "
           f"{list(sp['in_indices'].shape)}, out indices "
           f"{list(sp['out_indices'].shape)}")
     return cfg, params
+
+
+def refused(make, rule: str) -> float:
+    """Seconds until ``make()`` is refused with ``AnalysisError`` naming
+    ``rule``; fails if it is admitted or refused for another reason."""
+    from repro_torch.analysis import AnalysisError
+    t0 = time.perf_counter()
+    try:
+        make()
+    except AnalysisError as e:
+        rules = {d.rule for d in e.diags}
+        require(rule in rules, f"refused with {sorted(rules)}, not {rule}")
+        return time.perf_counter() - t0
+    raise SmokeFailure(f"a corrupt artifact ({rule}) was admitted")
+
+
+def lm_admission_phase(cfg, params, card):
+    """Phase 12, LM half: the strict-packed leaves verify clean, a default
+    ``Scheduler`` admits them, and a copy of layer 0's leaf dict with a
+    non-zero tile at a -1 slot is refused before any launch."""
+    from repro_torch.analysis import render_text, verify_param_leaves
+    from repro_torch.kernels.bitmask_spmm import BITMASK_SPMM
+    from repro_torch.kernels.fused_ffn import FUSED_FFN
+    from repro_torch.serve import Scheduler
+    max_len = LM_PROMPT + LM_NEW
+    torch_sync()
+    t0 = time.perf_counter()
+    diags = verify_param_leaves(params, d_model=cfg.d_model)
+    torch_sync()
+    t_verify = time.perf_counter() - t0
+    require(not diags, f"{cfg.name} leaves: {render_text(diags)}")
+    BITMASK_SPMM.launches = FUSED_FFN.launches = 0
+    t0 = time.perf_counter()
+    Scheduler(cfg, params, num_slots=LM_SLOTS, max_len=max_len)
+    torch_sync()
+    t_admit = time.perf_counter() - t0
+    bp = params["blocks"][0]["p0"]
+    _, leaf = sparse_leaf(bp)
+    sp = dict(bp[leaf])
+    idx = sp["in_indices"].clone()
+    require(int(idx[0, -1]) >= 0 and bool(sp["in_vals"][0, -1].ne(0).any()),
+            "layer 0's last in slot of n-block 0 holds no live tile")
+    idx[0, -1] = -1                  # the slot's non-zero tile stays
+    sp["in_indices"] = idx
+    blocks = [dict(params["blocks"][0], p0=dict(bp, **{leaf: sp}))] + \
+        params["blocks"][1:]
+    t_bad = refused(lambda: Scheduler(cfg, dict(params, blocks=blocks),
+                                      num_slots=LM_SLOTS, max_len=max_len),
+                    "BS-PAD-VALS")
+    launched = BITMASK_SPMM.launches + FUSED_FFN.launches
+    require(launched == 0, f"admission launched {launched} kernels")
+    print(f"admission {cfg.name} ({cfg.n_layers} layers, {cfg.dtype}): "
+          f"verify_param_leaves {t_verify:.4f} s (0 diagnostics), default "
+          f"Scheduler constructed in {t_admit:.4f} s, a {cfg.dtype} leaf "
+          f"copy with a non-zero tile at a -1 slot refused (BS-PAD-VALS) "
+          f"in {t_bad:.4f} s, 0 kernel launches [{card}]")
+
+
+def vgg16_filters():
+    """The dense VGG16 filters ``build_vision_model`` draws for SEED."""
+    from repro_torch.core import simulator as S
+    rng = np.random.default_rng(SEED)
+    return [(rng.normal(size=(s.k, s.k, s.d, s.n))
+             * np.sqrt(2.0 / (s.k * s.k * s.d))).astype(np.float32)
+            for s in S.BENCHMARKS["VGGNet"].layers]
+
+
+def vision_admission_phase(card, dev):
+    """Phase 12, vision half, on a fresh VGG16 (chunk pattern, 224 px):
+    the card's budget, strict packing, the deep verify of the served
+    network, the default engine and server admitted, and two corrupt
+    artifacts refused before any launch."""
+    import dataclasses
+    import torch
+    from repro_torch.analysis import (SMEM_BUDGET_BYTES, render_text,
+                                      verify_model)
+    from repro_torch.core import simulator as S
+    from repro_torch.kernels.sparse_conv import CONV_GRID
+    from repro_torch.kernels.worklist_core import WALK
+    from repro_torch.launch.vision import blob_images
+    from repro_torch.serve.vision import VirtualClock, VisionServer
+    from repro_torch.sparsity.conv import build_sparse_chain
+    from repro_torch.vision import (VisionEngine, build_vision_model,
+                                    compile_forward)
+    optin = torch.cuda.get_device_properties(dev) \
+        .shared_memory_per_block_optin
+    require(SMEM_BUDGET_BYTES == optin,
+            f"SMEM_BUDGET_BYTES {SMEM_BUDGET_BYTES} != the card's "
+            f"{optin} bytes a block")
+    print(f"admission: SMEM_BUDGET_BYTES {SMEM_BUDGET_BYTES} == "
+          f"shared_memory_per_block_optin {optin} [{card}]")
+    density = S.BENCHMARKS["VGGNet"].filter_density
+    chains = {}
+    for pattern in ("chunk", "unstructured"):
+        t0 = time.perf_counter()
+        chains[pattern] = build_sparse_chain(vgg16_filters(), density=density,
+                                             pattern=pattern, strict=True,
+                                             device=dev)
+        torch_sync()
+        print(f"admission: build_sparse_chain(strict=True) VGG16 "
+              f"{pattern}: {len(chains[pattern])} layers, 0 diagnostics, "
+              f"{time.perf_counter() - t0:.3f} s packing and verifying "
+              f"[{card}]")
+    model = build_vision_model("VGGNet", pattern="chunk", seed=SEED,
+                               device=dev)
+    require(all(np.array_equal(a.packed.host_indices(),
+                               layer.conv.packed.host_indices())
+                for a, layer in zip(chains["chunk"], model.layers)),
+            "the strict chain differs from build_vision_model's")
+    imgs = blob_images(np.random.default_rng(SEED), 4, SIZE,
+                       S.BENCHMARKS["VGGNet"].map_density)
+    x = torch.as_tensor(imgs, device=dev)
+    out = compile_forward(model)(x)   # caches each layer's schedule on card
+    torch_sync()
+    t0 = time.perf_counter()
+    diags = verify_model(model, deep=True)
+    torch_sync()
+    t_deep = time.perf_counter() - t0
+    require(not diags, f"VGG16: {render_text(diags)}")
+    copies = sum(len(wl._device) for layer in model.layers
+                 for wl in layer.conv.wl_cache.values())
+    WALK.launches = CONV_GRID.launches = 0
+    t0 = time.perf_counter()
+    VisionEngine(model, num_slots=4)
+    t_engine = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    VisionServer(model, num_slots=4, buckets=(112, 224),
+                 clock=VirtualClock(), step_cost_s={112: 0.01, 224: 0.03})
+    t_server = time.perf_counter() - t0
+
+    # a device schedule the walker would read out of range
+    conv = model.layers[8].conv
+    kb = conv.packed.shape[0] // conv.packed.bk
+    wl = next(iter(conv.wl_cache.values()))
+    good = wl.on_device(x.device)     # the copy the forward's walker read
+    key = str(x.device)
+    bad_k = good.k.clone()
+    bad_k[int(np.nonzero(wl.k >= 0)[0][0])] = kb
+    # lint: ignore[CACHE-MUTATE] the seeded defect, restored below
+    wl._device[key] = dataclasses.replace(good, k=bad_k)
+    try:
+        t_stale = refused(lambda: VisionEngine(model, num_slots=4),
+                          "WL-STALE-CACHE")
+    finally:
+        # lint: ignore[CACHE-MUTATE] puts the schedule's true copy back
+        wl._device[key] = good
+    # a packed conv whose card indices name chunk K // bk
+    idx = conv.packed.indices.clone()
+    idx[0, 0] = kb
+    layers = list(model.layers)
+    layers[8] = dataclasses.replace(layers[8], conv=dataclasses.replace(
+        conv, packed=dataclasses.replace(conv.packed, indices=idx),
+        wl_cache={}))
+    corrupt = dataclasses.replace(model, layers=layers, _fwd_cache={})
+    t_range = refused(lambda: VisionEngine(corrupt, num_slots=4), "BS-RANGE")
+    launched = WALK.launches + CONV_GRID.launches
+    require(launched == 0, f"admission launched {launched} kernels")
+    again = compile_forward(model)(x)
+    torch_sync()
+    require(torch.equal(again, out), "the forward changed after the "
+                                     "refusals")
+    print(f"admission VGG16 {SIZE} px (chunk pattern, {model.num_layers} "
+          f"layers, {copies} cached device schedules): verify_model(deep="
+          f"True) {t_deep:.4f} s (0 diagnostics); default VisionEngine "
+          f"{t_engine:.4f} s, VisionServer {t_server:.4f} s; refused: layer "
+          f"8's DeviceSchedule with chunk {kb} (WL-STALE-CACHE) in "
+          f"{t_stale:.4f} s, its card indices with chunk {kb} (BS-RANGE) in "
+          f"{t_range:.4f} s; 0 kernel launches, the forward unchanged after "
+          f"[{card}]")
 
 
 def torch_sync():
@@ -1202,6 +1387,7 @@ def channel_mix_compact_phase(params, cfg, card):
 # ---------------------------------------------------------------------------
 # phase 11: lazy im2col (K1's tap-slab operand), autotuning, VisionServer
 # ---------------------------------------------------------------------------
+# lint: ignore[EAGER-GUARD] builds its schedules eagerly, before any capture
 def tap_slab_phase(model, imgs, layer: int, card: str):
     """K1 reading the tap slabs straight from the NHWC map at one VGG16
     layer: against its plain version and, bitwise, against K1 on the taps
@@ -1579,6 +1765,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     dev = torch.device("cuda")
     cfg, params = build_lm(dev)
+    lm_admission_phase(cfg, params, card)          # phase 12 (Qwen3-4B)
     recs = ffn_kernel_phase(params, cfg, card)     # phase 6
     launches = {"qwen3_4b_serving": lm_serving_phase(cfg, params, card)}
     lm_oracle_phase(cfg, params)                   # phase 8
@@ -1586,6 +1773,7 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     rcfg, rparams = build_lm(dev, RWKV_ARCH)       # phase 10
+    lm_admission_phase(rcfg, rparams, card)        # phase 12 (RWKV6-3B)
     for key, more in ffn_kernel_phase(rparams, rcfg, card).items():
         recs[key] += more
     launches["rwkv6_3b_serving"] = lm_serving_phase(rcfg, rparams, card)
@@ -1594,6 +1782,8 @@ def main() -> int:
     del rparams
     torch.cuda.empty_cache()
     slab_recs, slab_launches = lazy_phase(card)    # phase 11
+    torch.cuda.empty_cache()
+    vision_admission_phase(card, dev)              # phase 12 (VGG16)
 
     walker = kernels[0]
     walker["shapes"] += k1_recs + k1_rwkv_recs + slab_recs

@@ -187,19 +187,40 @@ def walk_lists(pair_ptr: torch.Tensor, ks: torch.Tensor, js: torch.Tensor,
             for key, ents in lists.items() if ents}
 
 
+# csrc/ffn_grid.cuh: extra x columns of a box (and weight rows), rows of
+# the one-tile layout, mbarriers a CTA keeps
+GRID_PAD, GRID_TILE, GRID_MAX_STAGES = 8, 8, 6
+
+
+def _grid_region(elem_bytes: int, col_group: int, bk: int):
+    """``(stage, front, region)``: elements of a ring stage of ``rows`` x
+    rows (a function), of the one-tile layout's fp32 operands, and of the
+    shared region (``csrc/ffn_grid.cuh``'s ``region_elems``)."""
+    def stage(rows):
+        return rows * (bk + GRID_PAD) + (bk + GRID_PAD) * col_group
+    wide_w = elem_bytes == 2 and col_group == 16
+    front = (bk + GRID_PAD) * (GRID_TILE + (col_group if wide_w else 0)) \
+        * 4 // elem_bytes
+    region = max(2 * stage(ROW_BLOCK), front + 3 * stage(GRID_TILE))
+    return stage, front, region
+
+
 def ring_stages(elem_bytes: int, col_group: int, bk: int) -> Tuple[int, int]:
     """Ring stages (whole chunks) of a CTA in the 32-row and in the one-tile
     thread layout, as ``csrc/ffn_grid.cuh`` sizes its shared region."""
-    pad, tile, max_stages = 8, 8, 6
+    stage, front, region = _grid_region(elem_bytes, col_group, bk)
+    return (min(GRID_MAX_STAGES, region // stage(ROW_BLOCK)),
+            min(GRID_MAX_STAGES, (region - front) // stage(GRID_TILE)))
 
-    def stage(rows):
-        return rows * (bk + pad) + (bk + pad) * col_group
-    wide_w = elem_bytes == 2 and col_group == 16
-    front = (bk + pad) * (tile + (col_group if wide_w else 0)) * 4 \
-        // elem_bytes
-    region = max(2 * stage(ROW_BLOCK), front + 3 * stage(tile))
-    return (min(max_stages, region // stage(ROW_BLOCK)),
-            min(max_stages, (region - front) // stage(tile)))
+
+def grid_smem_bytes(elem_bytes: int, col_group: int, bk: int,
+                    slots: int) -> int:
+    """Dynamic shared memory a grid launch asks for (``csrc/ffn_grid.cuh``'s
+    ``smem_bytes``): 128 bytes of alignment, the shared region, and an
+    ``int4`` and an ``int2`` for each of the ``slots`` (``max_nz``) slots
+    of the CTA's live list."""
+    return 128 + _grid_region(elem_bytes, col_group, bk)[2] * elem_bytes \
+        + slots * (16 + 8)
 
 
 @functools.lru_cache(maxsize=None)
@@ -335,6 +356,21 @@ def walk_tiles(M: int, nb: int, *, bm: int, bn: int, depth: float,
     band = tm * 256 // cols
     return WalkTiles(M=M, nb=nb, bm=bm, bn=bn, rows=max(rows, band),
                      cols=cols, thread_rows=tm)
+
+
+def tile_smem_bytes(tiles: WalkTiles, elem_bytes: int, max_nz: int) -> int:
+    """Dynamic shared memory a tile-mode launch asks for (``csrc/walk.cu``,
+    ``launch_tile_ct``): 1024 bytes of alignment, the ring (``WALK_STAGES``
+    stages with tensor copies, else one) of ``rows x WALK_KS`` x and
+    ``WALK_KS x cols`` weight elements, the CTA's live list (two ``int2`` a
+    slot) and each warp band's fp32 copy of x (``WALK_KS + 1`` k of
+    ``band + 4`` floats). The kernel's static shared memory (under 1 KB)
+    comes on top."""
+    stage = tiles.rows * WALK_KS + WALK_KS * tiles.cols
+    stages = WALK_STAGES if tiles.tma else 1
+    xt = (WALK_KS + 1) * (tiles.band + 4)
+    return 1024 + stages * stage * elem_bytes + 2 * max(max_nz, 1) * 8 \
+        + tiles.rows // tiles.band * xt * 4
 
 
 def walk_tma_problem(x: torch.Tensor, tensors, bn: int,

@@ -160,6 +160,12 @@ def _worklist_for(x2: torch.Tensor, indices: torch.Tensor,
     mb = x2.shape[0] // sub_m
     if not compact_activations and wl_cache is not None and mb in wl_cache:
         return wl_cache[mb]
+    if x2.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise ValueError(
+            "a work-list FFN schedule is built on the host: build it with "
+            "one eager call before CUDA-graph capture (static schedules, "
+            "compact_activations=False, are then cached), or capture the "
+            "dense schedule")
     parts = [indices.reshape(-1)]
     if gate_indices is not None:
         parts.append(gate_indices.reshape(-1))
@@ -174,7 +180,7 @@ def _worklist_for(x2: torch.Tensor, indices: torch.Tensor,
         if streams == 2 else None
     occ_blk = host[streams * n_idx:].reshape(mb, -1).astype(bool) \
         if compact_activations else None
-    # lint: ignore[EAGER-GUARD] torch has no jax Tracer: guarded above
+    # lint: ignore[EAGER-GUARD] no jax Tracer in torch; capture guarded above
     wl = build_worklist(idx, mb, occ_blk=occ_blk, gate_indices=gate)
     if not compact_activations and wl_cache is not None:
         wl_cache[mb] = wl

@@ -317,7 +317,11 @@ def _static_worklist(w: bm.BlockSparseMatrix, mb: int, mb_per_img: int,
     in ``wl_cache`` per row-block count."""
     wl = wl_cache.get(mb) if wl_cache is not None else None
     if wl is None:
-        wl = build_worklist(  # lint: ignore[EAGER-GUARD] torch is eager
+        if w.vals.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise ValueError("a layer's static work list is built on the "
+                             "host: run one eager call before CUDA-graph "
+                             "capture, so that capture finds it cached")
+        wl = build_worklist(  # lint: ignore[EAGER-GUARD] no jax Tracer here
             w.host_indices(), mb, mb_per_img=mb_per_img, shard_of=w.shard_of)
         if wl_cache is not None:
             wl_cache[mb] = wl
@@ -401,8 +405,12 @@ def sparse_conv2d_nhwc(x: torch.Tensor, w: bm.BlockSparseMatrix, kh: int,
     if schedule == "compact" or report_schedule:
         mpi = m_pad // bm_rows
         if compact_activations:
+            if x.is_cuda and torch.cuda.is_current_stream_capturing():
+                raise ValueError("an activation-compacted work list is "
+                                 "built on the host from each batch: it "
+                                 "cannot be captured in a CUDA graph")
             occ_blk = bm.chunk_occupancy(flat, bm_rows, w.bk).cpu().numpy()
-            wl = build_worklist(  # lint: ignore[EAGER-GUARD] torch is eager
+            wl = build_worklist(  # lint: ignore[EAGER-GUARD] no jax Tracer
                 w.host_indices(), mb, occ_blk=occ_blk, mb_per_img=mpi,
                 shard_of=w.shard_of)
         else:

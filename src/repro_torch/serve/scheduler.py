@@ -64,18 +64,23 @@ class Scheduler:
 
     ``num_slots`` is the fixed batch width; requests beyond it queue.
     ``max_len`` bounds prompt_len + max_new per request (one cache row per
-    position). ``verify_artifacts`` (the packed-leaf verifier at admission)
-    is not ported yet.
+    position). ``verify_artifacts`` (on by default) verifies the packed
+    sparse-FFN leaves at construction, before any launch.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, num_slots: int = 4,
                  max_len: int = 256, greedy: bool = True,
-                 verify_artifacts: bool = False):
+                 verify_artifacts: bool = True):
         if cfg.encoder_layers:
             raise ValueError("the scheduler serves decoder-only models")
-        if verify_artifacts:
-            raise NotImplementedError(
-                "the artifact verifier is not ported yet")
+        # admission gate: when the checkpoint carries packed sparse-FFN
+        # leaves, prove them well-formed before the first kernel indexes
+        # them (value checks run on the leaves' device); False opts out.
+        if verify_artifacts and getattr(cfg, "sparse_ffn", False):
+            from repro_torch.analysis import (raise_on_errors,
+                                              verify_param_leaves)
+            raise_on_errors(verify_param_leaves(params, d_model=cfg.d_model),
+                            "Scheduler admission")
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device
@@ -92,7 +97,7 @@ class Scheduler:
         self._rr = 0                     # round-robin admission rotation
         self.clock = 0                   # scheduler step counter
         self.queue: Deque[Request] = deque()
-        self._live: Dict[int, Request] = {}
+        self._running: Dict[int, Request] = {}
         self.produced: Dict[int, List[int]] = {}
         self.done_at: Dict[int, int] = {}   # rid -> completion clock tick
         self.stats = ServeStats()
@@ -114,7 +119,7 @@ class Scheduler:
 
     @property
     def idle(self) -> bool:
-        return not self.queue and not self._live
+        return not self.queue and not self._running
 
     # -- slot lifecycle ----------------------------------------------------
     def _next_arrived(self) -> Optional[Request]:
@@ -151,12 +156,12 @@ class Scheduler:
             self.slot_req[s] = req.rid
             self.slot_pos[s] = len(req.prompt)
             self.slot_tok[s] = first
-            self._live[req.rid] = req
+            self._running[req.rid] = req
 
     def _retire(self, s: int) -> None:
         rid = int(self.slot_req[s])
         self.done_at[rid] = self.clock
-        del self._live[rid]
+        del self._running[rid]
         self.slot_req[s] = -1
         self.slot_pos[s] = 0
         self.slot_tok[s] = 0
@@ -223,7 +228,7 @@ class Scheduler:
             self.stats.tokens += 1
             self.slot_pos[s] += 1
             self.slot_tok[s] = tok
-            if len(self.produced[rid]) >= self._live[rid].max_new:
+            if len(self.produced[rid]) >= self._running[rid].max_new:
                 self._retire(s)
                 freed[s] = True
         if freed.any():

@@ -25,8 +25,9 @@ The open-loop counterpart of :class:`repro_torch.vision.engine.VisionEngine`:
 
 :class:`WallClock` serves real open-loop load (latency percentiles);
 :class:`VirtualClock` with fixed step costs gives exact, replayable SLA
-accounting. ``verify_artifacts`` (the artifact verifier) and ``mesh`` are
-not ported yet and raise ``NotImplementedError`` when asked for.
+accounting. ``verify_artifacts`` (on by default) verifies the packed
+chain at construction, as :class:`~repro_torch.vision.engine.VisionEngine`
+does; ``mesh`` is not ported yet and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -173,11 +174,14 @@ class VisionServer:
                  step_cost_s: Union[None, float, Dict[int, float]] = None,
                  sub_m: int = 8, two_sided: bool = True,
                  schedule: str = "compact", im2col: str = "auto",
-                 use_tuned: bool = False, verify_artifacts: bool = False,
+                 use_tuned: bool = False, verify_artifacts: bool = True,
                  ewma: float = 0.3, mesh=None):
         if verify_artifacts:
-            raise NotImplementedError(
-                "the artifact verifier is not ported yet")
+            from repro_torch.analysis import raise_on_errors, verify_model
+            raise_on_errors(
+                verify_model(model, f"serve/{model.name}",
+                             check_values=False),
+                "VisionServer admission")
         if mesh is not None:
             raise NotImplementedError("mesh serving is not ported yet")
         if not buckets:

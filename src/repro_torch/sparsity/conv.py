@@ -244,9 +244,10 @@ def build_sparse_chain(weights: Sequence[np.ndarray], *, density: float = 1.0,
 
     ``weights[i]`` is [kh, kw, Cin_i, Cout_i] with Cout_i == Cin_{i+1}.
 
-    ``strict=True`` (the reference's pack-time artifact verifier) is not
-    ported yet and raises :class:`NotImplementedError`. The packed tiles
-    land on ``device``.
+    ``strict=True`` runs the artifact verifier over the packed chain
+    (:func:`repro_torch.analysis.verify_chain`) and raises
+    :class:`~repro_torch.analysis.AnalysisError` on any error. The packed
+    tiles land on ``device``.
 
     ``pattern="unstructured"`` (default) is the legacy path: per-filter
     magnitude pruning, per-channel greedy balance, channel-major packing.
@@ -273,9 +274,6 @@ def build_sparse_chain(weights: Sequence[np.ndarray], *, density: float = 1.0,
     """
     if pattern not in ("unstructured", "chunk"):
         raise ValueError(f"unknown pattern {pattern!r}")
-    if strict:
-        raise NotImplementedError(
-            "strict=True needs the artifact verifier, which is not ported")
     ws = [np.asarray(w, np.float32) for w in weights]
     for a, b_ in zip(ws, ws[1:]):
         assert a.shape[3] == b_.shape[2], (a.shape, b_.shape)
@@ -350,4 +348,8 @@ def build_sparse_chain(weights: Sequence[np.ndarray], *, density: float = 1.0,
                               else ("unstructured" if pattern == "chunk"
                                     else pattern),
                               prune_info=info, shard=shard))
+    if strict:
+        # local import: repro_torch.analysis imports this module
+        from repro_torch.analysis import raise_on_errors, verify_chain
+        raise_on_errors(verify_chain(out), "build_sparse_chain")
     return out

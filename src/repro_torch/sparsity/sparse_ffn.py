@@ -22,8 +22,8 @@ dense grid's output on the card.
 beside the dense weights; the model runs them when ``cfg.sparse_ffn`` is
 set. Host packing is numpy, array-equal to the reference for the same
 dense weights; the packed leaves live on the params' device in the config
-dtype. ``strict=True`` (the artifact verifier) is not ported yet and
-raises.
+dtype. ``strict=True`` verifies the packed leaves
+(:func:`repro_torch.analysis.verify_param_leaves`).
 """
 from __future__ import annotations
 
@@ -250,11 +250,9 @@ def sparsify_model(params: Dict[str, Any], cfg, *, density: float = 0.35,
     a no-op (pack and balance fold only). On the card the FFN kernels take
     a ``chunk`` that is a multiple of 8, at most 128; another chunk packs
     here but raises ``ValueError`` at the first CUDA launch (the CPU path
-    takes any).
+    takes any); ``strict=True`` refuses it at pack time instead, with every
+    other leaf invariant (:class:`~repro_torch.analysis.AnalysisError`).
     """
-    if strict:
-        raise NotImplementedError(
-            "strict=True needs the artifact verifier, not ported yet")
     blocks = params["blocks"]
     new_blocks = [dict(period) for period in blocks]
     for pk in blocks[0]:
@@ -269,7 +267,13 @@ def sparsify_model(params: Dict[str, Any], cfg, *, density: float = 0.35,
                 density=density, num_shards=num_shards, chunk=chunk)
             for period, sp in zip(new_blocks, leaves):
                 period[pk] = dict(period[pk], **{leaf: sp})
-    return dict(params, blocks=new_blocks)
+    new = dict(params, blocks=new_blocks)
+    if strict:
+        # local import: repro_torch.analysis imports this module
+        from repro_torch.analysis import raise_on_errors, verify_param_leaves
+        raise_on_errors(verify_param_leaves(new, d_model=cfg.d_model),
+                        "sparsify_model")
+    return new
 
 
 def sparse_ffn_apply(sp: Dict[str, torch.Tensor], x: torch.Tensor, act: str,

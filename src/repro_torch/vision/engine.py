@@ -60,16 +60,24 @@ class VisionEngine:
     """Image queue + slot table driving the sparse CNN forward on the
     model's device. ``num_slots`` is the fixed batch width; outputs are
     the network's final feature maps (host numpy), keyed by request id.
-    ``verify_artifacts`` and ``mesh`` are not ported yet."""
+    ``verify_artifacts`` (on by default) verifies the packed chain at
+    construction, before anything launches; ``mesh`` is not ported yet."""
 
     def __init__(self, model: VM.VisionModel, *, num_slots: int = 4,
                  sub_m: int = 8, two_sided: bool = True,
                  schedule: str = "compact", im2col: str = "auto",
-                 use_tuned: bool = False, verify_artifacts: bool = False,
+                 use_tuned: bool = False, verify_artifacts: bool = True,
                  mesh=None):
+        # admission gate: an engine admits arbitrary checkpoints, so the
+        # packed chain (and its cached schedules' device copies, which the
+        # walker reads as raw offsets) is verified before any launch;
+        # verify_artifacts=False opts hot construction paths out.
         if verify_artifacts:
-            raise NotImplementedError(
-                "the artifact verifier is not ported yet")
+            from repro_torch.analysis import raise_on_errors, verify_model
+            raise_on_errors(
+                verify_model(model, f"engine/{model.name}",
+                             check_values=False),
+                "VisionEngine admission")
         if mesh is not None:
             raise NotImplementedError("mesh serving is not ported yet")
         self.model = model

@@ -763,3 +763,218 @@ def test_vision_server_outputs_bitwise_solo_on_card(cuda):
                                                 *r.image.shape[:2]))
         one = fwd(torch.as_tensor(canon[None], device=cuda))[0]
         assert np.array_equal(out[r.rid], one.cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# admission: the artifact verifier on card tensors (repro_torch.analysis)
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def qwen_layer():
+    """Sparse Qwen3-4B at full width, one layer, bf16, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import load_config
+    cfg = dataclasses.replace(load_config("qwen3_4b"), n_layers=1,
+                              sparse_ffn=True)
+    params = M.init_params(cfg, seed=0, device=torch.device("cuda"))
+    return cfg, sparsify_model(params, cfg, density=0.35, num_shards=4,
+                               strict=True)
+
+
+def _pad_tile_copy(sp):
+    """A copy of a leaf dict whose n-block 0 has its last (live) slot marked
+    -1: a non-zero tile at a padding slot. The values are shared."""
+    bad = dict(sp)
+    idx = sp["in_indices"].clone()
+    assert int(idx[0, -1]) >= 0
+    idx[0, -1] = -1
+    bad["in_indices"] = idx
+    return bad
+
+
+def test_admission_copies_no_values_to_host(cuda, qwen_layer):
+    """The Scheduler's admission gate over a bf16 Qwen3-4B layer moves
+    index tables and flags to the host, never a value tensor."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class HostCopies(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.moved = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if any(isinstance(a, torch.Tensor) and a.is_cuda
+                   for a in tree_leaves((args, kwargs))):
+                self.moved += [o.numel() for o in tree_leaves(out)
+                               if isinstance(o, torch.Tensor)
+                               and o.device.type == "cpu"]
+            return out
+
+    cfg, params = qwen_layer
+    sp = params["blocks"][0]["p0"]["ffn_sparse"]
+    assert sp["in_vals"].dtype == torch.bfloat16
+    biggest_index = max(v.numel() for k, v in sp.items()
+                        if k.endswith("_indices"))
+    with HostCopies() as mode:
+        Scheduler(cfg, params, num_slots=1, max_len=8)
+    assert mode.moved and max(mode.moved) <= biggest_index
+    tile = sp["in_vals"][0, 0].numel()
+    assert biggest_index < tile
+
+
+def test_device_value_checks_agree_with_cpu(cuda, qwen_layer):
+    """The value checks reduce on the card what they reduce on the CPU:
+    the same findings for the same leaves, clean and corrupt, and for a
+    block-sparse matrix with a dead live tile and a live padding tile."""
+    from repro_torch.analysis import verify_block_sparse, verify_ffn_leaves
+    cfg, params = qwen_layer
+    sp = params["blocks"][0]["p0"]["ffn_sparse"]
+
+    def found(diags):
+        return {(d.rule, int(d.severity)) for d in diags}
+    for leaves, want in ((sp, set()),
+                         (_pad_tile_copy(sp), {("BS-PAD-VALS", 2)})):
+        host = {k: v.cpu() for k, v in leaves.items()}
+        assert found(verify_ffn_leaves(leaves, d_model=cfg.d_model)) == \
+            found(verify_ffn_leaves(host, d_model=cfg.d_model)) == want
+    dense = np.random.default_rng(3).normal(size=(256, 256)).astype(
+        np.float32)
+    dense[:128, :128] = 0                 # n-block 0 keeps one chunk of two
+    w = block_sparsify(dense, 128, 128, device=cuda)
+    idx = w.host_indices()
+    assert (idx < 0).any()
+    vals = w.vals.clone()
+    vals[0, 0] = 0
+    n, j = np.argwhere(idx < 0)[0]
+    vals[n, j, 1, 1] = 1.0
+    bad = dataclasses.replace(w, vals=vals)
+    cpu = dataclasses.replace(w, indices=w.indices.cpu(), vals=vals.cpu())
+    assert found(verify_block_sparse(bad)) == found(verify_block_sparse(cpu)) \
+        == {("BS-MASK-VALS", 2), ("BS-PAD-VALS", 2)}
+
+
+def test_corrupt_device_schedule_refused_before_launch(cuda):
+    """A cached DeviceSchedule naming chunk K // bk (the walker would read
+    past the weights) is refused by the engine before any launch; with
+    the true copy back the forward is unchanged."""
+    from repro_torch.analysis import AnalysisError
+    model = build_vision_model("VGGNet", density=0.4, num_layers=2,
+                               pattern="chunk", seed=0, device=cuda)
+    x = torch.as_tensor(np.abs(np.random.default_rng(4).normal(
+        size=(2, 16, 16, 3))).astype(np.float32), device=cuda)
+    fwd = compile_forward(model)
+    out = fwd(x)
+    conv = model.layers[1].conv
+    wl = next(iter(conv.wl_cache.values()))
+    good = wl.on_device(x.device)
+    bad = good.k.clone()
+    bad[int(np.nonzero(wl.k >= 0)[0][0])] = \
+        conv.packed.shape[0] // conv.packed.bk
+    wl._device[str(x.device)] = dataclasses.replace(good, k=bad)
+    before = WALK.launches
+    with pytest.raises(AnalysisError, match="WL-STALE-CACHE"):
+        VisionEngine(model, num_slots=2)
+    assert WALK.launches == before
+    wl._device[str(x.device)] = good
+    VisionEngine(model, num_slots=2)
+    assert torch.equal(fwd(x), out)
+
+
+def test_smem_budget_matches_device(cuda):
+    from repro_torch.analysis import SMEM_BUDGET_BYTES
+    props = torch.cuda.get_device_properties(cuda)
+    assert SMEM_BUDGET_BYTES == props.shared_memory_per_block_optin
+
+
+def _limit_operands(dev, max_nz):
+    """x [128, 144] and weights [144, 32] at bk = 16, bn = 32 whose one
+    n-block lists ``max_nz`` slots (9 live): the CTA's live list sets the
+    shared memory a launch asks for."""
+    rng = np.random.default_rng(6)
+    x = torch.as_tensor(np.abs(rng.normal(size=(128, 144))).astype(
+        np.float32), device=dev)
+    w = block_sparsify(rng.normal(size=(144, 32)).astype(np.float32), 16,
+                       32, pad_to=max_nz, device=dev)
+    return x, w
+
+
+def _limits():
+    """(walker tile mode, dense-grid conv): the longest chunk list the host
+    models fit under SMEM_BUDGET_BYTES with 1 KB to spare for static shared
+    memory, and the shortest they put over it."""
+    from repro_torch.analysis import SMEM_BUDGET_BYTES
+    from repro_torch.kernels.grid import (grid_smem_bytes, tile_smem_bytes,
+                                          walk_tiles)
+    from repro_torch.kernels.sparse_conv import CONV_COL_GROUP
+    tiles = walk_tiles(128, 1, bm=128, bn=32, depth=9.0)
+    models = {"walker": lambda n: tile_smem_bytes(tiles, 4, n),
+              "grid": lambda n: grid_smem_bytes(4, CONV_COL_GROUP, 16, n)}
+    out = {}
+    for name, need in models.items():
+        n = 1
+        while need(n + 1) <= SMEM_BUDGET_BYTES - 1024:
+            n += 1
+        over = n + 1
+        while need(over) <= SMEM_BUDGET_BYTES:
+            over += 1
+        out[name] = (n, over)
+    return out
+
+
+OVER_LIMIT = r"""
+import sys
+import torch
+sys.path.insert(0, {src!r})
+sys.path.insert(0, {tests!r})
+from test_torch_gpu import _limit_operands, _limits
+from repro_torch.kernels.sparse_conv import sparse_conv_spmm
+from repro_torch.kernels.worklist_core import build_worklist, worklist_spmm
+dev = torch.device("cuda")
+lim = _limits()
+x, w = _limit_operands(dev, lim["walker"][1])
+try:
+    worklist_spmm(x, w.vals, build_worklist(w.host_indices(), 1), bk=16,
+                  bn=32)
+    print("walker launched")
+except RuntimeError:
+    print("walker refused")
+x, w = _limit_operands(dev, lim["grid"][1])
+try:
+    sparse_conv_spmm(x, w.indices, w.vals, bk=16, bn=32)
+    print("grid launched")
+except RuntimeError:
+    print("grid refused")
+"""
+
+
+def test_smem_models_hold_at_the_limit(cuda):
+    """PC-VMEM's host models of a launch's shared memory: at the longest
+    chunk list they fit under the budget the walker's tile mode and the
+    dense-grid conv launch and match their plain versions; one they put
+    over it is refused by the launch (in a subprocess, whose failed
+    attribute call cannot leave an error for a later launch here)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    lim = _limits()
+    x, w = _limit_operands(cuda, lim["walker"][0])
+    wl = build_worklist(w.host_indices(), 1)
+    out = worklist_spmm(x, w.vals, wl, bk=16, bn=32)[0]
+    ref = worklist_spmm(x.cpu(), w.vals.cpu(), wl, bk=16, bn=32)[0]
+    assert float((out.cpu() - ref).abs().max() / ref.abs().max()) <= 1e-5
+    x, w = _limit_operands(cuda, lim["grid"][0])
+    out = sparse_conv_spmm(x, w.indices, w.vals, bk=16, bn=32)[0]
+    ref = sparse_conv_spmm(x.cpu(), w.indices.cpu(), w.vals.cpu(), bk=16,
+                           bn=32)[0]
+    assert float((out.cpu() - ref).abs().max() / ref.abs().max()) <= 1e-5
+    tests = Path(__file__).resolve().parent
+    src = str(tests.parent / "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    run = subprocess.run(
+        [sys.executable, "-c", OVER_LIMIT.format(src=src, tests=str(tests))],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr
+    assert run.stdout.split("\n")[:2] == ["walker refused", "grid refused"]

@@ -35,6 +35,29 @@ def test_port_imports_no_jax_and_no_reference():
     assert bad == "[]", bad
 
 
+ANALYSIS_PROBE = r"""
+import sys
+import repro_torch.analysis
+from repro_torch.analysis import lint, verify
+from repro_torch.analysis.rules import torch_rules
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "repro."))
+             or m == "repro")
+print(bad)
+"""
+
+
+def test_analysis_imports_no_jax_and_no_reference():
+    """The verifier and the lint keep their own copy of the reference's
+    diagnostics vocabulary: importing them loads neither JAX nor
+    ``repro``."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", ANALYSIS_PROBE], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 def test_default_device_is_the_card():
     """Without a card the default device raises; nothing falls back."""
     if torch.cuda.is_available():

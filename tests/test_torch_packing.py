@@ -223,7 +223,15 @@ def test_build_sparse_chain_equal(rng, pattern, mesh):
                 (r.shard.mode, r.shard.imbalance)
 
 
-def test_strict_chain_is_not_ported(rng):
-    with pytest.raises(NotImplementedError):
-        tconv.build_sparse_chain(_chain_weights(rng), strict=True,
-                                 device=CPU)
+@pytest.mark.parametrize("pattern", ["unstructured", "chunk"])
+def test_strict_chain_verifies_as_reference(rng, pattern):
+    """strict=True runs the artifact verifier at pack time in both
+    packages: the same weights pass both and pack the same chain."""
+    ws = _chain_weights(rng)
+    ref = rconv.build_sparse_chain(ws, density=0.334, pattern=pattern,
+                                   strict=True)
+    got = tconv.build_sparse_chain(ws, density=0.334, pattern=pattern,
+                                   strict=True, device=CPU)
+    for t, r in zip(got, ref, strict=True):
+        np.testing.assert_array_equal(t.packed.host_indices(),
+                                      r.packed.host_indices())

@@ -138,9 +138,11 @@ def test_virtual_clock_requires_step_cost(models):
 
 
 def test_unported_options_raise(models):
-    with pytest.raises(NotImplementedError):
-        VisionServer(models[1], buckets=(8,), step_cost_s=1.0,
-                     clock=VirtualClock(), verify_artifacts=True)
+    """The mesh still raises; the artifact verifier is ported and on by
+    default (``tests/test_torch_analysis.py``): a clean model is
+    admitted."""
+    VisionServer(models[1], buckets=(8,), step_cost_s=1.0,
+                 clock=VirtualClock(), verify_artifacts=True)
     with pytest.raises(NotImplementedError):
         VisionServer(models[1], buckets=(8,), step_cost_s=1.0,
                      clock=VirtualClock(), mesh=object())

@@ -208,12 +208,12 @@ def test_engine_round_robin_spreads_lanes(rng, models):
 
 
 def test_not_ported_options_raise(models):
-    """The artifact verifier and the mesh still raise; ``use_tuned`` is
-    ported (``tests/test_torch_autotune.py``): on layers without a tuning
-    record it keeps the global knobs."""
+    """The mesh still raises; the artifact verifier is ported and on by
+    default (``tests/test_torch_analysis.py``): a clean model is admitted;
+    ``use_tuned`` is ported (``tests/test_torch_autotune.py``): on layers
+    without a tuning record it keeps the global knobs."""
     _, t = models
-    with pytest.raises(NotImplementedError):
-        VisionEngine(t, verify_artifacts=True)
+    VisionEngine(t, verify_artifacts=True)
     with pytest.raises(NotImplementedError):
         VisionEngine(t, mesh=object())
     with pytest.raises(NotImplementedError):
