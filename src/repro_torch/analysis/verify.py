@@ -1216,22 +1216,24 @@ def verify_ffn_leaves(sp: Dict[str, Any], path: str = "ffn_sparse", *,
     return out
 
 
-def verify_param_leaves(params: Dict[str, Any], path: str = "blocks", *,
+def verify_param_leaves(params: Dict[str, Any], *,
                         d_model: Optional[int] = None,
                         device=None) -> List[Diagnostic]:
     """:func:`verify_ffn_leaves` over every packed FFN of a model's params
     (``params["blocks"][p]["p<i>"]["ffn_sparse"]`` and
-    ``["channel_mix_sparse"]``), anchored at ``{path}/{p}/p<i>/{leaf}``:
+    ``["channel_mix_sparse"]``, and an encoder-decoder's
+    ``params["enc_blocks"]``), anchored at ``{stack}/{p}/p<i>/{leaf}``:
     the check ``sparsify_model(strict=True)`` and the ``Scheduler``'s
     admission gate run."""
     out: List[Diagnostic] = []
-    for p, period in enumerate(params.get("blocks", ())):
-        for pk, bp in period.items():
-            for leaf in ("ffn_sparse", "channel_mix_sparse"):
-                if leaf in bp:
-                    out.extend(verify_ffn_leaves(
-                        bp[leaf], f"{path}/{p}/{pk}/{leaf}",
-                        d_model=d_model, device=device))
+    for stack in ("blocks", "enc_blocks"):
+        for p, period in enumerate(params.get(stack, ())):
+            for pk, bp in period.items():
+                for leaf in ("ffn_sparse", "channel_mix_sparse"):
+                    if leaf in bp:
+                        out.extend(verify_ffn_leaves(
+                            bp[leaf], f"{stack}/{p}/{pk}/{leaf}",
+                            d_model=d_model, device=device))
     return out
 
 

@@ -1,4 +1,4 @@
-"""Model configurations of the archs the port runs."""
+"""Model configurations of the reference's ten archs."""
 from repro_torch.configs.base import (ARCHS, MambaConfig, ModelConfig,
                                       MoEConfig, load_config, load_smoke)
 

@@ -2,10 +2,13 @@
 
 Every architecture is a :class:`ModelConfig` in its own module
 (``repro_torch/configs/<id>.py``) exposing ``CONFIG`` plus a ``smoke()``
-reduced variant of the same family. Only the archs the port can run are
-here: ``qwen3_4b`` (gated SwiGLU FFN), ``nemotron_4_340b`` (squared-ReLU
-FFN; its smoke config is the port's non-gated test model) and ``rwkv6_3b``
-(attention-free RWKV6 blocks, squared-ReLU channel-mix).
+reduced variant of the same family, field for field the reference's. All
+ten of the reference's archs, in its order: dense GQA decoders (Qwen3-4B,
+Yi-34B, H2O-Danube3-4B with a sliding window, Nemotron-4 with a squared-ReLU
+FFN), MoE decoders (Moonlight-16B-A3B, Arctic-480B with a shared dense
+FFN), the Mamba/attention/MoE hybrid Jamba-1.5-large, attention-free
+RWKV6-3B, the vision-prefix PaliGemma-3B and the encoder-decoder
+SeamlessM4T-medium.
 """
 from __future__ import annotations
 
@@ -15,7 +18,11 @@ from typing import Optional, Tuple
 
 import torch
 
-ARCHS = ["nemotron_4_340b", "qwen3_4b", "rwkv6_3b"]
+ARCHS = [
+    "seamless_m4t_medium", "jamba_1_5_large_398b", "nemotron_4_340b",
+    "qwen3_4b", "h2o_danube_3_4b", "yi_34b", "moonshot_v1_16b_a3b",
+    "arctic_480b", "rwkv6_3b", "paligemma_3b",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +100,5 @@ def load_smoke(arch: str) -> ModelConfig:
 def _module(arch: str):
     name = arch.replace("-", "_")
     if name not in ARCHS:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ported: {', '.join(ARCHS)})")
+        raise ValueError(f"unknown arch {arch!r} (known: {', '.join(ARCHS)})")
     return importlib.import_module(f"repro_torch.configs.{name}")

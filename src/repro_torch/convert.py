@@ -20,6 +20,9 @@ from repro_torch.core.simulator import BENCHMARKS
 from repro_torch.sparsity.conv import PackedConv
 from repro_torch.vision.model import ARCH_STEM, VisionLayer, VisionModel
 
+# the period-stacked block trees of an LM's params: the decoder's and, in an
+# encoder-decoder, the encoder's
+STACKS = ("blocks", "enc_blocks")
 LAYER_KEYS = ("w_dense", "perm", "indices", "vals", "bk", "bn", "layout",
               "stride", "padding", "pool_after")
 
@@ -91,14 +94,16 @@ def _leaf(a, device: torch.device) -> torch.Tensor:
 
 def params_from_reference(params: Mapping, *, device="cuda") -> dict:
     """The port's LM params from the reference's params pytree, given as
-    numpy arrays (``jax.tree.map(np.asarray, params)``): dense leaves in
-    their own dtypes (an RWKV block's fp32 ``w_decay_base`` and ``u_bonus``
-    beside its model-dtype weights), and the ``ffn_sparse`` /
-    ``channel_mix_sparse`` packed leaves of ``sparsify_model`` when present.
+    numpy arrays (``jax.tree.map(np.asarray, params)``): every leaf in its
+    own dtype (an RWKV block's fp32 ``w_decay_base`` and ``u_bonus``, a MoE
+    router in fp32, the int32 ``expert_perm`` beside model-dtype weights),
+    and the ``ffn_sparse`` / ``channel_mix_sparse`` packed leaves of
+    ``sparsify_model`` when present.
 
-    The reference stacks every block leaf over periods ([P, ...]) under
-    ``params["blocks"]["p<i>"]``; the port holds one dict per period,
-    ``params["blocks"][p]["p<i>"]``.
+    The reference stacks every block leaf over periods ([P, ...], a MoE
+    bank [P, E, d, f]) under ``params["blocks"]["p<i>"]`` and, in an
+    encoder-decoder, ``params["enc_blocks"]["p0"]``; the port holds one
+    dict per period, ``params["blocks"][p]["p<i>"]``.
     """
     device = torch.device(device)
 
@@ -112,8 +117,11 @@ def params_from_reference(params: Mapping, *, device="cuda") -> dict:
             return {k: period(v, p) for k, v in tree.items()}
         return _leaf(np.asarray(tree)[p], device)
 
-    out = {k: conv(v) for k, v in params.items() if k != "blocks"}
-    blocks = params["blocks"]
-    periods = np.asarray(blocks["p0"]["ln1"]).shape[0]
-    out["blocks"] = [period(blocks, p) for p in range(periods)]
+    out = {}
+    for key, tree in params.items():
+        if key in STACKS:
+            periods = np.asarray(tree["p0"]["ln1"]).shape[0]
+            out[key] = [period(tree, p) for p in range(periods)]
+        else:
+            out[key] = conv(tree)
     return out

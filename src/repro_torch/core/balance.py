@@ -6,6 +6,8 @@
   the next layer's input axis (offline, amortized over all inferences).
 * :func:`round_robin_permutation` — rotated lane scan order (§3.3.2), used
   for serving slot admission.
+* :func:`balance_cost` — max/mean per-shard density of a placement (the
+  MoE expert balancer's measure, ``sparsity.expert_balance``).
 """
 from __future__ import annotations
 
@@ -37,6 +39,16 @@ def greedy_balance(density: np.ndarray, num_shards: int,
             seg = seg[::-1]
         perm[lo : lo + seg.shape[0]] = seg
     return perm[perm >= 0]
+
+
+def balance_cost(density: np.ndarray, perm: np.ndarray,
+                 num_shards: int) -> float:
+    """Max/mean per-shard density of slots ``perm`` dealt shard by shard
+    (slot ``i`` on shard ``i % num_shards``): 1.0 is perfect balance."""
+    d = density[perm]
+    d = np.concatenate([d, np.zeros((-d.shape[0]) % num_shards)])
+    per_shard = d.reshape(-1, num_shards).sum(axis=0)
+    return float(per_shard.max() / max(per_shard.mean(), 1e-12))
 
 
 def invert_permutation(perm: np.ndarray) -> np.ndarray:

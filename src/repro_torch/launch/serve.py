@@ -6,10 +6,15 @@
         --sparse --continuous
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_4b \\
         --smoke --sparse --continuous --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch seamless_m4t_medium --sparse
 
 The default mode prefills a synthetic prompt batch in one pass and
 decodes; ``--continuous`` drives the barrier-free scheduler instead
-(staggered arrivals, per-slot positions, slot reuse). ``--sparse`` is the
+(staggered arrivals, per-slot positions, slot reuse; decoder-only
+models). An encoder-decoder (``seamless_m4t_medium``) encodes stub source
+frames, ``0.02 * N(0, 1)`` from ``--seed`` on the device, one per prompt
+token, before it generates. ``--sparse`` is the
 BARISTA inference mode: ``sparsify_model`` prunes, balances and packs
 every FFN (an RWKV model's channel-mix) offline (``num_shards=4``) and
 every FFN then runs through the fused FFN kernel and the predicated sparse
@@ -91,8 +96,12 @@ def main(argv=None) -> None:
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     prompt = torch.randint(1, cfg.vocab, (args.batch, args.prompt_len),
                            generator=gen, device=dev)
+    src = None
+    if cfg.encoder_layers:
+        src = 0.02 * torch.randn((args.batch, args.prompt_len, cfg.d_model),
+                                 generator=gen, device=dev)
     t0 = time.perf_counter()
-    out = generate(params, cfg, prompt, args.new_tokens)
+    out = generate(params, cfg, prompt, args.new_tokens, src_embeds=src)
     out = out.cpu()
     dt = time.perf_counter() - t0
     toks = args.batch * args.new_tokens

@@ -1,7 +1,8 @@
 """Layer library of the LM path (port of ``repro.models.layers``): attention
-(GQA, RoPE, qk-norm, sliding window), the FFN, dense or through the
-BARISTA sparse kernels, and the RWKV6 time-mix and channel-mix (the
-channel-mix's squared-ReLU FFN dense or sparse).
+(GQA, RoPE, qk-norm, sliding window; dense masked or online-softmax
+chunked), the FFN, dense or through the BARISTA sparse kernels, top-k MoE
+with capacity, the Mamba selective SSM, and the RWKV6 time-mix and
+channel-mix (the channel-mix's squared-ReLU FFN dense or sparse).
 
 Conventions, as in the reference:
 * params are plain dicts of tensors; every layer is ``fn(params, x, ...)``;
@@ -9,11 +10,11 @@ Conventions, as in the reference:
 * decode paths take and return explicit state (the KV cache), and leave
   the state they were given unchanged.
 
-Attention has no kernel of its own in the reference either: it is plain
+Attention, MoE and the SSM scans have no kernel of their own in the
+reference either (``jnp`` outside any Pallas kernel): they are plain
 PyTorch here, with the reference's grouped einsums (no
-``scaled_dot_product_attention``); so is the chunked WKV recurrence, a
-Python loop over chunks where the reference scans. The online-softmax
-``_flash_sdpa``, MoE and Mamba are not ported yet.
+``scaled_dot_product_attention``, whose numbers differ), and Python loops
+over chunks where the reference scans.
 """
 from __future__ import annotations
 
@@ -128,9 +129,55 @@ def _sdpa(q, k, v, mask, n_rep: int) -> torch.Tensor:
     return out.reshape(B, Sq, H * dh)
 
 
-def _flash_sdpa(*args, **kwargs):
-    """Online-softmax chunked attention: not ported yet."""
-    raise NotImplementedError("_flash_sdpa is not ported yet")
+def _flash_sdpa(q, k, v, n_rep: int, *, window: Optional[int] = None,
+                kv_chunk: int = 1024, q_offset: int = 0) -> torch.Tensor:
+    """Online-softmax (flash-style) causal attention: only [B, Hkv, n_rep,
+    Sq, kv_chunk] score tiles live at a time, with running (max, sum, out)
+    accumulators; the S_q x S_k score matrix is never formed.
+
+    q [B,Sq,H,dh]; k/v [B,Sk,Hkv,dh]; causal with an optional sliding
+    window; ``q_offset`` is the absolute position of q[0] (prefill: Sq ==
+    Sk, offset 0). Grouped q, no K/V repeat. The reference's numerics: q
+    scaled once in its own dtype, scores from fp32 operands, p and the V
+    tile in fp32, the finite ``NEG_INF`` mask (a fully masked early chunk
+    of a windowed row adds terms that the first live chunk scales by
+    exp(NEG_INF - m) = 0), the sum floored at 1e-30.
+    """
+    B, Sq, H, dh = q.shape
+    Sk, G = k.shape[1], k.shape[2]
+    R = H // G
+    pad = (-Sk) % kv_chunk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    nch = (Sk + pad) // kv_chunk
+    scale = torch.tensor(1.0 / (dh ** 0.5), dtype=q.dtype, device=q.device)
+    qg = (q * scale).reshape(B, Sq, G, R, dh).float()
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    out = torch.zeros((B, G, R, Sq, dh), dtype=torch.float32,
+                      device=q.device)
+    m = torch.full((B, G, R, Sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    den = torch.zeros((B, G, R, Sq), dtype=torch.float32, device=q.device)
+    for ci in range(nch):
+        sl = slice(ci * kv_chunk, (ci + 1) * kv_chunk)
+        kc, vc = k[:, sl].float(), v[:, sl].float()
+        kpos = ci * kv_chunk + torch.arange(kv_chunk, device=q.device)
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kc)
+        valid = (kpos[None, :] <= q_pos[:, None]) & (kpos[None, :] < Sk)
+        if window is not None:
+            valid &= kpos[None, :] > q_pos[:, None] - window
+        s = torch.where(valid, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        den = den * alpha + p.sum(-1)
+        out = out * alpha[..., None] + torch.einsum("bgrqk,bkgd->bgrqd", p,
+                                                    vc)
+        m = m_new
+    out = out / torch.clamp_min(den[..., None], 1e-30)
+    # [B,G,R,Sq,dh] -> [B,Sq,G*R*dh], head order (g, r) as in q
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H * dh).to(q.dtype)
 
 
 def causal_mask(Sq: int, Sk: int, window: Optional[int] = None,
@@ -145,19 +192,29 @@ def causal_mask(Sq: int, Sk: int, window: Optional[int] = None,
 
 
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-              positions: torch.Tensor, mask: Optional[torch.Tensor],
+              positions: Optional[torch.Tensor],
+              mask: Optional[torch.Tensor],
               kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               use_rope: bool = True, flash_chunk: Optional[int] = None,
               return_kv: bool = False):
-    """Full-sequence attention (prefill). ``kv`` overrides keys/values;
-    ``return_kv`` also returns the (RoPE'd) K/V, so a cache-writing prefill
-    fills the decode cache in the same pass."""
-    if flash_chunk is not None:
-        return _flash_sdpa()
+    """Full-sequence attention (prefill, encoder, cross-attention).
+
+    ``kv`` overrides keys/values (cross-attention reads the encoder's;
+    ``positions=None`` with ``use_rope=False``). ``flash_chunk`` switches
+    causal self-attention to the online-softmax path in ``flash_chunk``-key
+    tiles (``mask`` is then not read). ``return_kv`` also returns the
+    (RoPE'd) K/V, so a cache-writing prefill fills the decode cache in the
+    same pass."""
     q, k, v = _qkv(p, x, cfg, positions, use_rope=use_rope)
     if kv is not None:
         k, v = kv
-    out = _sdpa(q, k, v, mask, cfg.n_heads // cfg.n_kv_heads) @ p["wo"]
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    if flash_chunk is not None and kv is None:
+        out = _flash_sdpa(q, k, v, n_rep, window=cfg.window,
+                          kv_chunk=flash_chunk)
+    else:
+        out = _sdpa(q, k, v, mask, n_rep)
+    out = out @ p["wo"]
     if return_kv:
         return out, k, v
     return out
@@ -219,6 +276,231 @@ def ffn(p: Params, x: torch.Tensor, cfg: ModelConfig,
     h = x @ p["w_in"]
     g = x @ p["w_gate"] if "w_gate" in p else None
     return activate(h, g, a) @ p["w_out"]
+
+
+# ---------------------------------------------------------------------------
+# MoE (sort-based dispatch into per-expert capacity buffers)
+# ---------------------------------------------------------------------------
+def init_moe(gen: torch.Generator, cfg: ModelConfig,
+             dtype: torch.dtype) -> Params:
+    """Router (fp32 [D, E]), expert banks ``w_in``/``w_gate`` [E, D, Fe] and
+    ``w_out`` [E, Fe, D], and the ``shared`` dense FFN when the config has
+    one (Arctic)."""
+    mc = cfg.moe
+    d, fe, E = cfg.d_model, mc.d_ff_expert, mc.num_experts
+    std_in, std_out = 1 / d ** 0.5, 1 / fe ** 0.5 / (2 * cfg.n_layers) ** 0.5
+
+    def e_init(shape, std):
+        return (torch.randn(shape, generator=gen, device=gen.device,
+                            dtype=torch.float32) * std).to(dtype)
+
+    p = {"router": dense_init(gen, d, E, torch.float32),
+         "w_in": e_init((E, d, fe), std_in),
+         "w_out": e_init((E, fe, d), std_out)}
+    if cfg.act in ("swiglu", "geglu"):
+        p["w_gate"] = e_init((E, d, fe), std_in)
+    if mc.shared_dense_ff:
+        p["shared"] = init_ffn(gen, cfg, dtype, d_ff=mc.shared_dense_ff)
+    return p
+
+
+def moe_route(p: Params, xt: torch.Tensor, cfg: ModelConfig,
+              expert_perm: Optional[torch.Tensor] = None):
+    """Router of :func:`moe_ffn` on tokens ``xt [T, D]``: fp32 logits
+    (columns read through ``expert_perm`` when given), softmax, top-k with
+    the gates renormalised. Returns (probs [T, E], gates [T, K], expert ids
+    [T, K])."""
+    logits = xt.float() @ p["router"]
+    if expert_perm is not None:
+        logits = logits.index_select(1, expert_perm.long())
+    probs = torch.softmax(logits, dim=-1)
+    gates, ids = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    return probs, gates / gates.sum(-1, keepdim=True), ids
+
+
+def moe_capacity(tokens: int, cfg: ModelConfig) -> int:
+    """Slots per expert: ``int(T * K / E * capacity_factor) + 1``."""
+    mc = cfg.moe
+    return int(tokens * mc.top_k / mc.num_experts * mc.capacity_factor) + 1
+
+
+def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig,
+            expert_perm: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k MoE with capacity -> (out [B, S, D], Switch aux loss).
+
+    Assignments are taken token-major ((t, k) order); each expert keeps its
+    first ``moe_capacity`` (a stable sort gives each assignment its rank
+    within its expert) and drops the rest. ``expert_perm`` (int [E]) is the
+    BARISTA greedy-balance slot permutation (``sparsity.expert_balance``).
+
+    Deterministic on any device: the dispatch writes each kept (expert,
+    rank) slot once (dropped ones go to a spare slot that is cut off), and
+    the combine sums each token's K gated expert outputs in the order
+    k = 0 .. K-1, the reference's sequential scatter order, instead of an
+    atomic scatter-add.
+    """
+    mc = cfg.moe
+    B, S, D = x.shape
+    T, E, K = B * S, mc.num_experts, mc.top_k
+    xt = x.reshape(T, D)
+    probs, gates, ids = moe_route(p, xt, cfg, expert_perm)
+
+    # aux load-balance loss (Switch)
+    ce = torch.bincount(ids.reshape(-1), minlength=E).float() / (T * K)
+    aux = E * torch.sum(probs.mean(0) * ce)
+
+    cap = moe_capacity(T, cfg)
+    flat_e = ids.reshape(-1)                                   # [T*K]
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    seg_start = torch.searchsorted(sorted_e,
+                                   torch.arange(E, device=x.device))
+    rank = torch.empty_like(flat_e)
+    rank[order] = torch.arange(T * K, device=x.device) - seg_start[sorted_e]
+    keep = rank < cap
+    slot = torch.where(keep, rank, cap)                  # cap: the spare
+
+    # dispatch: [E, cap + 1, D], the spare slot cut off
+    buf = torch.zeros((E, cap + 1, D), dtype=x.dtype, device=x.device)
+    buf[flat_e, slot] = xt.repeat_interleave(K, dim=0)
+    buf = buf[:, :cap]
+    h = torch.bmm(buf, p["w_in"])
+    g = torch.bmm(buf, p["w_gate"]) if "w_gate" in p else None
+    eout = torch.bmm(activate(h, g, cfg.act), p["w_out"])     # [E, cap, D]
+
+    # combine: gather back, scale by the gates, sum k = 0 .. K-1 per token
+    gathered = eout[flat_e, torch.where(keep, rank, cap - 1)]
+    contrib = torch.where(keep[:, None],
+                          gathered * gates.reshape(-1, 1).to(x.dtype), 0.0)
+    contrib = contrib.to(x.dtype).view(T, K, D)
+    out = torch.zeros((T, D), dtype=x.dtype, device=x.device)
+    for k in range(K):
+        out = out + contrib[:, k]
+    if "shared" in p:
+        out = out + ffn(p["shared"], xt, cfg)
+    return out.reshape(B, S, D), aux
+
+
+# ---------------------------------------------------------------------------
+# Mamba (selective SSM; chunked scan, exact for diagonal A)
+# ---------------------------------------------------------------------------
+def init_mamba(gen: torch.Generator, cfg: ModelConfig,
+               dtype: torch.dtype) -> Params:
+    m = cfg.mamba
+    d = cfg.d_model
+    din = m.expand * d
+    dt_rank = max(d // 16, 1)
+    dev = gen.device
+    return {
+        "in_proj": dense_init(gen, d, 2 * din, dtype),
+        "conv_w": (torch.randn((m.d_conv, din), generator=gen, device=dev,
+                               dtype=torch.float32) * 0.1).to(dtype),
+        "x_proj": dense_init(gen, din, dt_rank + 2 * m.d_state, dtype),
+        "dt_proj": dense_init(gen, dt_rank, din, dtype),
+        "dt_bias": torch.zeros((din,), dtype=torch.float32, device=dev),
+        "A_log": torch.log(torch.arange(1, m.d_state + 1, dtype=torch.float32,
+                                        device=dev).repeat(din, 1)),
+        "D": torch.ones((din,), dtype=torch.float32, device=dev),
+        "out_proj": dense_init(gen, din, d, dtype,
+                               scale=1.0 / (2 * cfg.n_layers) ** 0.5),
+    }
+
+
+def _linear_scan(a: torch.Tensor, b: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan along dim 1 of the pairs (a, b) under
+    ``(a_l, b_l) o (a_r, b_r) = (a_l a_r, b_l a_r + b_r)``: log-depth
+    (Hillis-Steele), as the reference's ``associative_scan``."""
+    off = 1
+    while off < a.shape[1]:
+        a, b = (torch.cat([a[:, :off], a[:, :-off] * a[:, off:]], 1),
+                torch.cat([b[:, :off], b[:, :-off] * a[:, off:] + b[:, off:]],
+                          1))
+        off *= 2
+    return a, b
+
+
+def _ssm_scan_chunked(u, delta, Bm, Cm, A, chunk: int,
+                      return_state: bool = False):
+    """h_t = exp(delta_t A) h_{t-1} + delta_t B_t u_t ; y_t = C_t . h_t.
+
+    u/delta [B, L, din]; Bm/Cm [B, L, ds]; A [din, ds] (negative), fp32.
+    Chunked over L (the chunks in a loop, a log-depth scan inside each), so
+    memory stays at B*chunk*din*ds. ``return_state`` also returns h at the
+    last real token [B, din, ds]: padding has delta 0, so dA = 1 and
+    dBu = 0, and the padded steps leave the state as it was.
+    """
+    Bsz, L, din = u.shape
+    ds = Bm.shape[-1]
+    pad = (-L) % chunk
+    if pad:
+        u, delta, Bm, Cm = (F.pad(a, (0, 0, 0, pad))
+                            for a in (u, delta, Bm, Cm))
+    h0 = torch.zeros((Bsz, din, ds), dtype=torch.float32, device=u.device)
+    ys = []
+    for c0 in range(0, u.shape[1], chunk):
+        uc, dc, bc, cc = (a[:, c0:c0 + chunk] for a in (u, delta, Bm, Cm))
+        dA = torch.exp(dc[..., None] * A)                     # [B,c,din,ds]
+        dBu = dc[..., None] * bc[:, :, None, :] * uc[..., None]
+        decays, incs = _linear_scan(dA, dBu)
+        h = decays * h0[:, None] + incs
+        ys.append(torch.einsum("bcds,bcs->bcd", h, cc))
+        h0 = h[:, -1]
+    y = torch.cat(ys, dim=1)[:, :L]
+    return (y, h0) if return_state else y
+
+
+def _ssm_inputs(p: Params, u: torch.Tensor, cfg: ModelConfig, dtype):
+    """The selective SSM's inputs from the conv output ``u`` (model dtype):
+    (u fp32 after SiLU, delta, B, C, A)."""
+    m = cfg.mamba
+    dt_rank = max(cfg.d_model // 16, 1)
+    u = F.silu(u).float()
+    xp = (u.to(dtype) @ p["x_proj"]).float()
+    dt, Bm, Cm = torch.split(xp, [dt_rank, m.d_state, m.d_state], dim=-1)
+    delta = F.softplus(dt @ p["dt_proj"].float() + p["dt_bias"])
+    return u, delta, Bm, Cm, -torch.exp(p["A_log"])
+
+
+def mamba_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                chunk: int = 64, return_state: bool = False):
+    """Full-sequence Mamba. With ``return_state`` also returns the decode
+    handoff ``(conv_state [B, d_conv-1, din], h [B, din, ds])``: the last
+    d_conv-1 pre-conv inputs of the zero-padded stream (zeros ahead of them
+    when L < d_conv-1) and the SSM state after the last token."""
+    m = cfg.mamba
+    L = x.shape[1]
+    u, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    # causal depthwise conv, in the model dtype
+    upad = F.pad(u, (0, 0, m.d_conv - 1, 0))
+    u = sum(upad[:, i:i + L] * p["conv_w"][i] for i in range(m.d_conv))
+    u, delta, Bm, Cm, A = _ssm_inputs(p, u, cfg, x.dtype)
+    y, h_last = _ssm_scan_chunked(u, delta, Bm, Cm, A, chunk,
+                                  return_state=True)
+    y = y + u * p["D"]
+    y = (y * F.silu(z.float())).to(x.dtype)
+    out = y @ p["out_proj"]
+    if return_state:
+        return out, upad[:, L:], h_last
+    return out
+
+
+def mamba_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                 conv_state: torch.Tensor, h: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Single-token step. x [B,1,D]; conv_state [B,d_conv-1,din]; h
+    [B,din,ds] fp32 -> (out [B,1,D], new conv_state, new h); the given
+    state is not modified."""
+    u, z = (x[:, 0] @ p["in_proj"]).chunk(2, dim=-1)
+    full = torch.cat([conv_state, u[:, None]], dim=1)        # [B,d_conv,din]
+    u = torch.einsum("bcd,cd->bd", full, p["conv_w"])
+    u, delta, Bm, Cm, A = _ssm_inputs(p, u, cfg, x.dtype)
+    dA = torch.exp(delta[..., None] * A)                      # [B,din,ds]
+    h = dA * h + delta[..., None] * Bm[:, None, :] * u[..., None]
+    y = torch.einsum("bds,bs->bd", h, Cm) + u * p["D"]
+    y = (y * F.silu(z.float())).to(x.dtype)
+    return (y @ p["out_proj"])[:, None], full[:, 1:], h
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,19 @@
-"""Decoder LM of the dense-attention and RWKV6 families (port of
-``repro.models.model``): params, the full-sequence forward, the decode
-cache, single-pass prefill and the per-slot decode step.
+"""Whole-model builders (port of ``repro.models.model``): decoder LMs
+(dense, MoE, Mamba/attention hybrid, RWKV6), the encoder-decoder and the
+modality-prefix model, on one block library: params, the full-sequence
+forward, the encoder, the decode cache, single-pass prefill and the
+per-slot decode step.
 
 Where the reference stacks block params over periods and scans them
 (``lax.scan``), the port holds one entry per period in a list:
-``params["blocks"][p]["p<i>"]`` is block i of period p's pattern, and the
-decode cache is laid out the same way (``cache[p]["p<i>"]["k"]`` is
-[B, S_max, Hkv, dh] for an attention block; an RWKV block keeps ``wkv``
-[B, H, N, N] fp32 and the two token-shift rows ``shift_t``/``shift_c``
-[B, D]). Encoder-decoder and prefix models, MoE and Mamba blocks are not
-ported yet and raise ``NotImplementedError``.
+``params["blocks"][p]["p<i>"]`` is block i of period p's pattern (an
+encoder-decoder's encoder likewise under ``params["enc_blocks"][p]["p0"]``),
+and the decode cache is laid out the same way: ``cache[p]["p<i>"]["k"]``
+is [B, S_max, Hkv, dh] for an attention block (with ``cross_k`` /
+``cross_v`` [B, S_enc, Hkv, dh] in an encoder-decoder), a Mamba block keeps
+``conv`` [B, d_conv-1, din] and ``h`` [B, din, ds] fp32, an RWKV block
+``wkv`` [B, H, N, N] fp32 and the two token-shift rows ``shift_t`` /
+``shift_c`` [B, D].
 """
 from __future__ import annotations
 
@@ -24,17 +28,15 @@ Params = Dict[str, Any]
 Cache = List[Dict[str, Dict[str, torch.Tensor]]]
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE blocks are not ported yet")
-    if cfg.encoder_layers:
-        raise NotImplementedError("encoder-decoder models are not ported yet")
-    if cfg.frontend is not None:
-        raise NotImplementedError("modality-prefix models are not ported yet")
-    for kind in cfg.block_pattern:
-        if kind not in ("attn", "rwkv"):
-            raise NotImplementedError(f"{kind!r} blocks are not ported yet "
-                                      "(attention and RWKV only)")
+def _uses_moe(cfg: ModelConfig, pos: int) -> bool:
+    """MoE replaces the FFN at pattern positions every-1, 2*every-1, ..."""
+    if cfg.moe is None:
+        return False
+    every = cfg.moe.every
+    if every != 1 and len(cfg.block_pattern) % every:
+        raise ValueError(f"{cfg.name}: MoE every {every} does not divide "
+                         f"the pattern {cfg.block_pattern}")
+    return pos % every == every - 1
 
 
 def map_tree(fn: Callable, *trees):
@@ -51,16 +53,39 @@ def map_tree(fn: Callable, *trees):
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
-                dtype: torch.dtype) -> Params:
+def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, pos: int,
+                dtype: torch.dtype, cross: bool = False) -> Params:
+    """One block: the mixer (attention, Mamba or RWKV time-mix), then the
+    FFN, MoE or RWKV channel-mix; with ``cross`` a cross-attention and its
+    norm (decoder blocks of an encoder-decoder)."""
     ones = lambda: torch.ones((cfg.d_model,), dtype=dtype,  # noqa: E731
                               device=gen.device)
     if kind == "rwkv":
         return {"ln1": ones(), "time_mix": L.init_rwkv(gen, cfg, dtype),
                 "ln2": ones(),
                 "channel_mix": L.init_rwkv_channel(gen, cfg, dtype)}
-    return {"ln1": ones(), "attn": L.init_attention(gen, cfg, dtype),
-            "ln2": ones(), "ffn": L.init_ffn(gen, cfg, dtype)}
+    p: Params = {"ln1": ones()}
+    if kind == "attn":
+        p["attn"] = L.init_attention(gen, cfg, dtype)
+    elif kind == "mamba":
+        p["mamba"] = L.init_mamba(gen, cfg, dtype)
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
+    p["ln2"] = ones()
+    if _uses_moe(cfg, pos):
+        p["moe"] = L.init_moe(gen, cfg, dtype)
+    else:
+        p["ffn"] = L.init_ffn(gen, cfg, dtype)
+    if cross:
+        p["cross"] = L.init_attention(gen, cfg, dtype)
+        p["ln_cross"] = ones()
+    return p
+
+
+def _init_stack(gen: torch.Generator, cfg: ModelConfig, periods: int,
+                pattern, dtype: torch.dtype, cross: bool = False) -> list:
+    return [{f"p{i}": _init_block(gen, cfg, kind, i, dtype, cross)
+             for i, kind in enumerate(pattern)} for _ in range(periods)]
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
@@ -68,22 +93,31 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     """Random params of ``cfg`` on ``device``, drawn from a generator
     seeded with ``seed`` on that device (the numbers differ from the
     reference's ``jax.random`` ones; ``convert.params_from_reference``
-    carries those across)."""
-    _check_supported(cfg)
+    carries those across). An encoder-decoder also gets ``enc_blocks`` and
+    ``enc_norm``, a MoE model the identity ``expert_perm`` (int32 [E])."""
     dtype = cfg.torch_dtype
     gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
+    dev = gen.device
     V = cfg.padded_vocab
     params: Params = {
         "embed": (torch.randn((V, cfg.d_model), generator=gen,
-                              device=gen.device) * 0.02).to(dtype),
-        "final_norm": torch.ones((cfg.d_model,), dtype=dtype,
-                                 device=gen.device),
-        "blocks": [{f"p{i}": _init_block(gen, cfg, kind, dtype)
-                    for i, kind in enumerate(cfg.block_pattern)}
-                   for _ in range(cfg.periods)],
+                              device=dev) * 0.02).to(dtype),
+        "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
+        "blocks": _init_stack(gen, cfg, cfg.periods, cfg.block_pattern,
+                              dtype, cross=cfg.encoder_layers > 0),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, cfg.d_model, V, dtype)
+    if cfg.encoder_layers:
+        params["enc_blocks"] = _init_stack(gen, cfg, cfg.encoder_layers,
+                                           ("attn",), dtype)
+        params["enc_norm"] = torch.ones((cfg.d_model,), dtype=dtype,
+                                        device=dev)
+    if cfg.moe is not None:
+        # the greedy-balance slot permutation, identity until
+        # sparsity.expert_balance.rebalance rewrites it from observed load
+        params["expert_perm"] = torch.arange(cfg.moe.num_experts,
+                                             dtype=torch.int32, device=dev)
     return params
 
 
@@ -100,6 +134,33 @@ def _sparse_of(bp: Params, cfg: ModelConfig,
 def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     head = params["lm_head"] if not cfg.tie_embeddings else params["embed"].t()
     return (x @ head.to(cfg.torch_dtype)).float()
+
+
+def _cross_kv(p: Params, enc_out: torch.Tensor, cfg: ModelConfig):
+    """Cross-attention K/V [B, S_enc, Hkv, dh] of the encoder output (no
+    RoPE)."""
+    B, S, _ = enc_out.shape
+    k = (enc_out @ p["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.d_head)
+    v = (enc_out @ p["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.d_head)
+    return k, v
+
+
+def _cross(bp: Params, x, cfg: ModelConfig, kv):
+    """The decoder block's cross-attention residual over encoder K/V."""
+    hc = L.rmsnorm(x, bp["ln_cross"], cfg.norm_eps)
+    return x + L.attention(bp["cross"], hc, cfg, positions=None, mask=None,
+                           kv=kv, use_rope=False)
+
+
+def _ffn_part(bp: Params, x, cfg: ModelConfig, expert_perm, stats=None):
+    """The block's second half: the FFN (its sparse leaves when the BARISTA
+    path is on) or the MoE -> (x, MoE aux loss or None)."""
+    h2 = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
+    if "moe" in bp:
+        y, aux = L.moe_ffn(bp["moe"], h2, cfg, expert_perm)
+        return x + y, aux
+    return x + L.ffn(bp["ffn"], h2, cfg, sparse=_sparse_of(bp, cfg),
+                     stats=stats), None
 
 
 # ---------------------------------------------------------------------------
@@ -127,52 +188,101 @@ def _rwkv_block(bp: Params, entry: Optional[Dict[str, torch.Tensor]], x,
 
 
 def _block_fwd(bp: Params, x, cfg: ModelConfig, kind: str, *, positions,
-               mask, ssm_chunk: Optional[int] = None):
+               mask, expert_perm=None, enc_out=None,
+               ssm_chunk: Optional[int] = None,
+               flash_chunk: Optional[int] = None):
+    """One block of the full-sequence forward -> (x, MoE aux or None)."""
     if kind == "rwkv":
-        return _rwkv_block(bp, None, x, cfg, ssm_chunk or 64)[0]
+        return _rwkv_block(bp, None, x, cfg, ssm_chunk or 64)[0], None
     h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
-    x = x + L.attention(bp["attn"], h, cfg, positions=positions, mask=mask)
-    h2 = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
-    return x + L.ffn(bp["ffn"], h2, cfg, sparse=_sparse_of(bp, cfg))
+    if kind == "attn":
+        x = x + L.attention(bp["attn"], h, cfg, positions=positions,
+                            mask=mask, flash_chunk=flash_chunk)
+    else:
+        x = x + L.mamba_block(bp["mamba"], h, cfg, chunk=ssm_chunk or 64)
+    if enc_out is not None:
+        x = _cross(bp, x, cfg, _cross_kv(bp["cross"], enc_out, cfg))
+    return _ffn_part(bp, x, cfg, expert_perm)
+
+
+def encode(params: Params, src_embeds: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    """Encoder pass of an encoder-decoder: bidirectional self-attention
+    (with RoPE) over ``src_embeds`` [B, S_enc, D] (the modality frontend's
+    stub embeddings), then ``enc_norm``."""
+    B, S, _ = src_embeds.shape
+    positions = torch.arange(S, device=src_embeds.device)[None].expand(B, S)
+    x = src_embeds.to(cfg.torch_dtype)
+    for period in params["enc_blocks"]:
+        x, _ = _block_fwd(period["p0"], x, cfg, "attn", positions=positions,
+                          mask=None)
+    return L.rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
-            prefix_embeds=None, src_embeds=None,
+            prefix_embeds: Optional[torch.Tensor] = None,
+            src_embeds: Optional[torch.Tensor] = None,
             ssm_chunk: Optional[int] = None,
             flash_chunk: Optional[int] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward -> (logits [B, S, V] fp32, moe_aux).
-    ``ssm_chunk`` is the WKV chunk of RWKV blocks (default 64)."""
-    _check_supported(cfg)
-    if prefix_embeds is not None or src_embeds is not None:
-        raise NotImplementedError("prefix and encoder inputs are not ported")
-    if flash_chunk is not None:
-        L._flash_sdpa()
-    B, S = tokens.shape
+    """Full-sequence forward -> (logits [B, S_text, V] fp32, MoE aux loss
+    summed over the blocks).
+
+    ``prefix_embeds`` [B, P, D]: a modality prefix ahead of the tokens that
+    attends bidirectionally (PaliGemma); its rows are stripped before the
+    head. ``src_embeds`` [B, S_enc, D]: the encoder input of an
+    encoder-decoder. ``ssm_chunk``: the Mamba / WKV chunk (default 64).
+    ``flash_chunk``: online-softmax self-attention in key tiles of that
+    size (not with a prefix, which keeps the dense masked path).
+    """
+    dtype = cfg.torch_dtype
+    B, S_text = tokens.shape
     dev = tokens.device
-    x = params["embed"][tokens].to(cfg.torch_dtype)
+    x = params["embed"][tokens].to(dtype)
+    prefix = 0
+    if prefix_embeds is not None:
+        prefix = prefix_embeds.shape[1]
+        x = torch.cat([prefix_embeds.to(dtype), x], dim=1)
+    S = S_text + prefix
     positions = torch.arange(S, device=dev)[None].expand(B, S)
-    mask = L.causal_mask(S, S, cfg.window, device=dev)
+    use_flash = flash_chunk is not None and cfg.n_heads and prefix == 0
+    mask = None
+    if cfg.n_heads and not use_flash:
+        mask = L.causal_mask(S, S, cfg.window, device=dev)
+        if prefix:
+            mask = mask | (torch.arange(S, device=dev) < prefix)
+    enc_out = None
+    if cfg.encoder_layers:
+        if src_embeds is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: forward "
+                             "needs src_embeds")
+        enc_out = encode(params, src_embeds, cfg)
+    expert_perm = params.get("expert_perm")
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     for period in params["blocks"]:
         for i, kind in enumerate(cfg.block_pattern):
-            x = _block_fwd(period[f"p{i}"], x, cfg, kind,
-                           positions=positions, mask=mask,
-                           ssm_chunk=ssm_chunk)
-    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return _head(params, cfg, x), torch.zeros((), device=dev)
+            x, a = _block_fwd(period[f"p{i}"], x, cfg, kind,
+                              positions=positions, mask=mask,
+                              expert_perm=expert_perm, enc_out=enc_out,
+                              ssm_chunk=ssm_chunk,
+                              flash_chunk=flash_chunk if use_flash else None)
+            if a is not None:
+                aux = aux + a
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)[:, prefix:]
+    return _head(params, cfg, x), aux
 
 
 # ---------------------------------------------------------------------------
 # decode (single-token step with explicit state)
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device="cuda") -> Cache:
-    """Zeroed decode state: per period, per pattern position, the K and V
-    caches [batch, max_len, Hkv, dh] of an attention block, or an RWKV
-    block's WKV state [batch, H, N, N] (fp32) and token-shift rows
-    ``shift_t`` (time-mix) and ``shift_c`` (channel-mix) [batch, D]."""
-    _check_supported(cfg)
-
+               enc_len: int = 0, device="cuda") -> Cache:
+    """Zeroed decode state, per period and pattern position: an attention
+    block's K and V caches [batch, max_len, Hkv, dh] (an encoder-decoder's
+    also ``cross_k``/``cross_v`` [batch, enc_len, Hkv, dh], filled by
+    :func:`prefill_cache`), a Mamba block's ``conv`` [batch, d_conv-1, din]
+    and ``h`` [batch, din, ds] (fp32), an RWKV block's WKV state [batch, H,
+    N, N] (fp32) and token-shift rows ``shift_t``/``shift_c`` [batch, D]."""
     def zeros(*shape, dtype=cfg.torch_dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
 
@@ -182,25 +292,62 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                                  dtype=torch.float32),
                     "shift_t": zeros(batch, cfg.d_model),
                     "shift_c": zeros(batch, cfg.d_model)}
-        shape = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
-        return {"k": zeros(*shape), "v": zeros(*shape)}
+        if kind == "mamba":
+            m = cfg.mamba
+            din = m.expand * cfg.d_model
+            return {"conv": zeros(batch, m.d_conv - 1, din),
+                    "h": zeros(batch, din, m.d_state, dtype=torch.float32)}
+        e = {"k": zeros(batch, max_len, cfg.n_kv_heads, cfg.d_head),
+             "v": zeros(batch, max_len, cfg.n_kv_heads, cfg.d_head)}
+        if cfg.encoder_layers:
+            e["cross_k"] = zeros(batch, enc_len, cfg.n_kv_heads, cfg.d_head)
+            e["cross_v"] = zeros(batch, enc_len, cfg.n_kv_heads, cfg.d_head)
+        return e
 
     return [{f"p{i}": entry(kind) for i, kind in enumerate(cfg.block_pattern)}
             for _ in range(cfg.periods)]
 
 
+def prefill_cache(params: Params, cfg: ModelConfig, cache: Cache,
+                  enc_out: torch.Tensor) -> Cache:
+    """Encoder-decoder: each decoder attention block's cross K/V of the
+    encoder output ``enc_out`` [B, S_enc, D] written into a new cache (the
+    given one is not modified)."""
+    new = []
+    for period, entries in zip(params["blocks"], cache):
+        entries = dict(entries)
+        for i, kind in enumerate(cfg.block_pattern):
+            key = f"p{i}"
+            if kind != "attn" or not cfg.encoder_layers:
+                continue
+            e = dict(entries[key])
+            k, v = _cross_kv(period[key]["cross"], enc_out, cfg)
+            e["cross_k"] = k.to(e["cross_k"].dtype)
+            e["cross_v"] = v.to(e["cross_v"].dtype)
+            entries[key] = e
+        new.append(entries)
+    return new
+
+
 def _block_decode(bp: Params, entry, x, cfg: ModelConfig, kind: str, pos,
-                  stats=None):
+                  expert_perm=None, stats=None):
     if kind == "rwkv":
         return _rwkv_block(bp, entry, x, cfg, 1, stats=stats)
+    new = dict(entry)
     h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
-    y, k, v = L.attention_decode(bp["attn"], h, cfg, cache_k=entry["k"],
-                                 cache_v=entry["v"], pos=pos)
-    x = x + y
-    h2 = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
-    x = x + L.ffn(bp["ffn"], h2, cfg, sparse=_sparse_of(bp, cfg),
-                  stats=stats)
-    return x, {"k": k, "v": v}
+    if kind == "attn":
+        y, new["k"], new["v"] = L.attention_decode(
+            bp["attn"], h, cfg, cache_k=entry["k"], cache_v=entry["v"],
+            pos=pos)
+        x = x + y
+        if "cross_k" in entry:
+            x = _cross(bp, x, cfg, (entry["cross_k"], entry["cross_v"]))
+    else:
+        y, new["conv"], new["h"] = L.mamba_decode(bp["mamba"], h, cfg,
+                                                  entry["conv"], entry["h"])
+        x = x + y
+    x, _ = _ffn_part(bp, x, cfg, expert_perm, stats=stats)
+    return x, new
 
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
@@ -222,6 +369,7 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     dev = token.device
     pos = torch.as_tensor(pos, device=dev).long().expand(B)
     x = params["embed"][token].to(cfg.torch_dtype)
+    expert_perm = params.get("expert_perm")
     stats: Optional[list] = [] if return_ffn_stats else None
     new_cache = []
     for period, entries in zip(params["blocks"], cache):
@@ -229,7 +377,7 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
         for i, kind in enumerate(cfg.block_pattern):
             key = f"p{i}"
             x, new[key] = _block_decode(period[key], entries[key], x, cfg,
-                                        kind, pos, stats=stats)
+                                        kind, pos, expert_perm, stats=stats)
         new_cache.append(new)
     if active is not None:
         keep = active.to(dev).bool()
@@ -253,20 +401,30 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
 # prefill (single-pass prompt -> cache)
 # ---------------------------------------------------------------------------
 def _block_prefill(bp: Params, entry, x, cfg: ModelConfig, kind: str, *,
-                   positions, mask, ssm_chunk: Optional[int] = None):
+                   positions, mask, expert_perm=None,
+                   ssm_chunk: Optional[int] = None,
+                   flash_chunk: Optional[int] = None):
     if kind == "rwkv":
         return _rwkv_block(bp, entry, x, cfg, ssm_chunk or 64)
+    new = dict(entry)
     h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
-    y, k, v = L.attention(bp["attn"], h, cfg, positions=positions,
-                          mask=mask, return_kv=True)
-    S = k.shape[1]
-    new_k, new_v = entry["k"].clone(), entry["v"].clone()
-    new_k[:, :S] = k.to(new_k.dtype)
-    new_v[:, :S] = v.to(new_v.dtype)
-    x = x + y
-    h2 = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
-    x = x + L.ffn(bp["ffn"], h2, cfg, sparse=_sparse_of(bp, cfg))
-    return x, {"k": new_k, "v": new_v}
+    if kind == "attn":
+        y, k, v = L.attention(bp["attn"], h, cfg, positions=positions,
+                              mask=mask, flash_chunk=flash_chunk,
+                              return_kv=True)
+        S = k.shape[1]
+        new["k"], new["v"] = entry["k"].clone(), entry["v"].clone()
+        new["k"][:, :S] = k.to(new["k"].dtype)
+        new["v"][:, :S] = v.to(new["v"].dtype)
+        x = x + y
+        if "cross_k" in entry:
+            x = _cross(bp, x, cfg, (entry["cross_k"], entry["cross_v"]))
+    else:
+        y, new["conv"], new["h"] = L.mamba_block(
+            bp["mamba"], h, cfg, chunk=ssm_chunk or 64, return_state=True)
+        x = x + y
+    x, _ = _ffn_part(bp, x, cfg, expert_perm)
+    return x, new
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -276,25 +434,30 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """One forward pass over the prompt that fills the decode cache.
 
     tokens [B, S] -> (last_logits [B, V], cache with rows [0, S) written
-    and RWKV states advanced past position S-1, in WKV chunks of
-    ``ssm_chunk``, default 64). Lanes are expected to start from a zeroed
-    cache (:func:`init_cache`).
+    and Mamba / RWKV states advanced past position S-1, in chunks of
+    ``ssm_chunk``, default 64). ``flash_chunk`` switches self-attention to
+    the online-softmax path. Lanes are expected to start from a zeroed
+    cache (:func:`init_cache`; an encoder-decoder's cross K/V from
+    :func:`prefill_cache`).
     """
-    if flash_chunk is not None:
-        L._flash_sdpa()
     B, S = tokens.shape
     dev = tokens.device
     x = params["embed"][tokens].to(cfg.torch_dtype)
     positions = torch.arange(S, device=dev)[None].expand(B, S)
-    mask = L.causal_mask(S, S, cfg.window, device=dev)
+    use_flash = flash_chunk is not None and cfg.n_heads
+    mask = L.causal_mask(S, S, cfg.window, device=dev) \
+        if cfg.n_heads and not use_flash else None
+    expert_perm = params.get("expert_perm")
     new_cache = []
     for period, entries in zip(params["blocks"], cache):
         new = {}
         for i, kind in enumerate(cfg.block_pattern):
             key = f"p{i}"
-            x, new[key] = _block_prefill(period[key], entries[key], x, cfg,
-                                         kind, positions=positions,
-                                         mask=mask, ssm_chunk=ssm_chunk)
+            x, new[key] = _block_prefill(
+                period[key], entries[key], x, cfg, kind,
+                positions=positions, mask=mask, expert_perm=expert_perm,
+                ssm_chunk=ssm_chunk,
+                flash_chunk=flash_chunk if use_flash else None)
         new_cache.append(new)
     # project only the last position (the next-token logits serving needs)
     x = L.rmsnorm(x[:, -1], params["final_norm"], cfg.norm_eps)

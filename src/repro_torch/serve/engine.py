@@ -24,15 +24,20 @@ def _device(params) -> torch.device:
     return params["embed"].device
 
 
-def make_prefill_fn(cfg: ModelConfig):
+def make_prefill_fn(cfg: ModelConfig, ssm_chunk: Optional[int] = None,
+                    flash_chunk: Optional[int] = None):
     """Prompt prefill: without ``cache`` the full-sequence forward's
-    last-position logits; with ``cache`` one pass that also writes K/V rows
-    [0, S) into the decode cache -> ``(last_logits [B, V], cache)``."""
-    def prefill(params, tokens, cache=None):
+    last-position logits (``extras``: ``prefix_embeds`` / ``src_embeds``);
+    with ``cache`` one pass that also writes K/V rows [0, S) and the Mamba /
+    RWKV handoff states into the decode cache -> ``(last_logits [B, V],
+    cache)``. ``ssm_chunk`` and ``flash_chunk`` go to the model."""
+    def prefill(params, tokens, cache=None, **extras):
         if cache is None:
-            logits, _ = M.forward(params, tokens, cfg)
+            logits, _ = M.forward(params, tokens, cfg, ssm_chunk=ssm_chunk,
+                                  flash_chunk=flash_chunk, **extras)
             return logits[:, -1]
-        return M.prefill(params, cfg, tokens, cache)
+        return M.prefill(params, cfg, tokens, cache, ssm_chunk=ssm_chunk,
+                         flash_chunk=flash_chunk)
     return prefill
 
 
@@ -102,13 +107,30 @@ def reset_slots(cache, free_mask: torch.Tensor):
 
 
 def generate(params, cfg: ModelConfig, prompt: torch.Tensor, max_new: int,
-             *, greedy: bool = True,
-             rng: Optional[torch.Generator] = None) -> torch.Tensor:
+             *, greedy: bool = True, rng: Optional[torch.Generator] = None,
+             src_embeds: Optional[torch.Tensor] = None,
+             prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Batched generation: single-pass prefill of the whole prompt into the
     cache, then ``max_new - 1`` decode steps at per-slot positions; returns
-    [B, S0 + max_new] tokens."""
+    [B, S0 + max_new] tokens. An encoder-decoder first encodes
+    ``src_embeds`` [B, S_enc, D] and writes each decoder block's cross K/V
+    into the cache. ``prefix_embeds`` is refused: the cache-writing
+    prefill takes no prefix (the reference's ``generate`` takes one and
+    drops it); a prefix model's prefix runs through
+    :func:`repro_torch.models.model.forward`."""
+    if prefix_embeds is not None:
+        raise ValueError("generate's prefill takes no prefix_embeds; run a "
+                         "prefix through forward(prefix_embeds=...)")
     B, S0 = prompt.shape
-    cache = M.init_cache(cfg, B, S0 + max_new, device=prompt.device)
+    enc_len = src_embeds.shape[1] if src_embeds is not None else 0
+    cache = M.init_cache(cfg, B, S0 + max_new, enc_len=enc_len,
+                         device=prompt.device)
+    if cfg.encoder_layers:
+        if src_embeds is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: generate "
+                             "needs src_embeds")
+        cache = M.prefill_cache(params, cfg, cache,
+                                M.encode(params, src_embeds, cfg))
     step = make_serve_step(cfg, greedy)
     last, cache = M.prefill(params, cfg, prompt, cache)
     tok = _pick(last, greedy, rng)[:, None].to(prompt.dtype)

@@ -239,8 +239,14 @@ def sparsify_model(params: Dict[str, Any], cfg, *, density: float = 0.35,
                    num_shards: int = 16, chunk: int = bm.CHUNK,
                    strict: bool = False) -> Dict[str, Any]:
     """Offline whole-model pass: prune -> balance -> fold -> pack every
-    block FFN, and every RWKV channel-mix (squared ReLU), into two-sided
-    block-sparse form.
+    eligible FFN into two-sided block-sparse form.
+
+    Eligible: the FFNs of the decoder's blocks (``params["blocks"]``) and of
+    an encoder-decoder's encoder (``params["enc_blocks"]``), gated or not,
+    and every RWKV channel-mix (squared ReLU, the naturally two-sided FFN).
+    MoE expert banks keep their own balancing
+    (``sparsity.expert_balance``) and stay dense, as do the attention and
+    SSM projections, as in the reference.
 
     Returns new params carrying packed ``ffn_sparse`` /
     ``channel_mix_sparse`` leaves beside the dense weights
@@ -253,21 +259,25 @@ def sparsify_model(params: Dict[str, Any], cfg, *, density: float = 0.35,
     takes any); ``strict=True`` refuses it at pack time instead, with every
     other leaf invariant (:class:`~repro_torch.analysis.AnalysisError`).
     """
-    blocks = params["blocks"]
-    new_blocks = [dict(period) for period in blocks]
-    for pk in blocks[0]:
-        # the RWKV channel-mix is squared ReLU: the naturally two-sided FFN
-        for src, leaf in (("ffn", "ffn_sparse"),
-                          ("channel_mix", "channel_mix_sparse")):
-            if src not in blocks[0][pk]:
-                continue
-            leaves = _pack_stacked_ffn(
-                [{k: period[pk][src][k] for k in ("w_in", "w_out", "w_gate")
-                  if k in period[pk][src]} for period in blocks],
-                density=density, num_shards=num_shards, chunk=chunk)
-            for period, sp in zip(new_blocks, leaves):
-                period[pk] = dict(period[pk], **{leaf: sp})
-    new = dict(params, blocks=new_blocks)
+    new = dict(params)
+    for stack_key in ("blocks", "enc_blocks"):
+        if stack_key not in params:
+            continue
+        blocks = params[stack_key]
+        new_blocks = [dict(period) for period in blocks]
+        for pk in blocks[0]:
+            for src, leaf in (("ffn", "ffn_sparse"),
+                              ("channel_mix", "channel_mix_sparse")):
+                if src not in blocks[0][pk]:
+                    continue
+                leaves = _pack_stacked_ffn(
+                    [{k: period[pk][src][k]
+                      for k in ("w_in", "w_out", "w_gate")
+                      if k in period[pk][src]} for period in blocks],
+                    density=density, num_shards=num_shards, chunk=chunk)
+                for period, sp in zip(new_blocks, leaves):
+                    period[pk] = dict(period[pk], **{leaf: sp})
+        new[stack_key] = new_blocks
     if strict:
         # local import: repro_torch.analysis imports this module
         from repro_torch.analysis import raise_on_errors, verify_param_leaves

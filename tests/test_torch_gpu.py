@@ -19,7 +19,7 @@ from repro_torch.kernels.bitmask_spmm import (BITMASK_SPMM, bitmask_spmm,
 from repro_torch.kernels.fused_ffn import (FUSED_FFN, fused_ffn_spmm,
                                            fused_ffn_spmm_plain)
 from repro_torch.models import model as M
-from repro_torch.serve import Request, Scheduler
+from repro_torch.serve import Request, Scheduler, generate
 from repro_torch.sparsity.sparse_ffn import sparse_ffn_apply, sparsify_model
 from repro_torch.kernels.sparse_conv import (CONV_GRID, sparse_conv_spmm,
                                              sparse_conv_spmm_plain)
@@ -978,3 +978,69 @@ def test_smem_models_hold_at_the_limit(cuda):
         env=env, capture_output=True, text=True, timeout=300)
     assert run.returncode == 0, run.stderr
     assert run.stdout.split("\n")[:2] == ["walker refused", "grid refused"]
+
+
+# ---------------------------------------------------------------------------
+# the remaining LM families on the card
+# ---------------------------------------------------------------------------
+def test_moe_ffn_on_card_equals_cpu_and_is_stable(cuda):
+    """fp32 MoE with drops (capacity 0.5) on the card against the CPU on
+    the same weights, and bitwise equal across two runs: the dispatch
+    writes each kept slot once and the combine sums k = 0 .. K-1 in order,
+    no atomic scatter-add."""
+    from repro_torch.models import layers as L
+    cfg = load_smoke("moonshot_v1_16b_a3b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=0.5))
+    gen = torch.Generator().manual_seed(0)
+    p = L.init_moe(gen, cfg, torch.float32)
+    x = torch.randn((4, 64, cfg.d_model), generator=gen)
+    perm = torch.randperm(cfg.moe.num_experts, generator=gen).int()
+    ref, raux = L.moe_ffn(p, x, cfg, perm)
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    a, aux = L.moe_ffn(pc, x.to(cuda), cfg, perm.to(cuda))
+    b, _ = L.moe_ffn(pc, x.to(cuda), cfg, perm.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert float((a.cpu() - ref).abs().max() / ref.abs().max()) <= 1e-5
+    assert abs(float(aux) - float(raux)) <= 1e-5 * float(raux)
+
+
+@pytest.mark.parametrize("window", [None, 24])
+def test_flash_sdpa_on_card_equals_dense(cuda, window):
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((2, 100, 8, 64), generator=gen, device=cuda)
+    k, v = (torch.randn((2, 100, 2, 64), generator=gen, device=cuda)
+            for _ in range(2))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flash = L._flash_sdpa(q, k, v, 4, window=window, kv_chunk=32)
+    dense = L._sdpa(q, k, v, L.causal_mask(100, 100, window, device=cuda), 4)
+    torch.cuda.synchronize()
+    assert float((flash - dense).abs().max() / dense.abs().max()) <= 1e-5
+
+
+def test_sparse_seamless_generate_on_card_equals_cpu(cuda):
+    """The sparse encoder-decoder (smoke, widened so its FFNs have several
+    chunks) on the card: its encoder leaves pass ``strict=True``, and
+    ``generate``'s greedy tokens equal the CPU's on the same weights (K3 and
+    K4 at the encoder's and the decoder's FFNs)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(load_smoke("seamless_m4t_medium"), d_model=256,
+                              d_ff=512)
+    params = sparsify_model(M.init_params(cfg, seed=0, device="cpu"), cfg,
+                            num_shards=4)
+    card = sparsify_model(M.init_params(cfg, seed=0, device="cpu"), cfg,
+                          num_shards=4, strict=True)
+    card = M.map_tree(lambda t: t.to(cuda), card)
+    gen = torch.Generator().manual_seed(1)
+    src = 0.02 * torch.randn((2, 8, cfg.d_model), generator=gen)
+    prompt = torch.randint(1, cfg.vocab, (2, 6), generator=gen)
+    want = generate(params, cfg, prompt, 6, src_embeds=src)
+    k3, k4 = BITMASK_SPMM.launches, FUSED_FFN.launches
+    got = generate(card, cfg, prompt.to(cuda), 6, src_embeds=src.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    layers = cfg.n_layers + cfg.encoder_layers
+    assert BITMASK_SPMM.launches - k3 >= layers
+    assert FUSED_FFN.launches - k4 >= layers
