@@ -52,15 +52,20 @@ CHUNK, SUB_M = 128, 8
 def cuda_ms(fn, reps: int = REPS, replays: int = 4) -> float:
     """Device ms per call: ``reps`` calls captured in one CUDA graph (after
     two calls of warm-up), replayed between CUDA events, so that the host's
-    Python and launch cost, as long as a decode kernel, stays out."""
+    Python and launch cost, as long as a decode kernel, stays out. The
+    captured launches go to a dropped tally where the tree has one (a
+    capture with no tally open raises there)."""
+    import contextlib
     import torch
+    from repro_torch.kernels import _cuda
+    tally = getattr(_cuda, "capture_tally", lambda t: contextlib.nullcontext())
     s = torch.cuda.Stream()
     s.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(s):
         for _ in range(2):
             fn()
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g, stream=s):
+        with tally({}), torch.cuda.graph(g, stream=s):
             for _ in range(reps):
                 fn()
     torch.cuda.current_stream().wait_stream(s)

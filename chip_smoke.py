@@ -143,8 +143,33 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    rows only; in fp32 within 1e-5 of the densified-FFN forward; K4 (geglu)
    and K3 at decode and at 1088 rows against their plain versions.
 
-Phases 13-17 run between phases 10 and 11; K3's and K4's
-``launches_by_path`` gain the paths of 13, 14 and 17.
+18. sparse Yi-34B at full width (d_model 7168, d_ff 20480 swiglu, 56/8
+   heads of 128, bf16, density 0.35, 4 of 60 layers; host packing seconds
+   a layer printed): phase 6's K3/K4 checks at its decode and prefill
+   shapes, then phase 7's traffic and checks through ``Scheduler``;
+19. one full-width Arctic-480B layer (128 experts top-2 of d_ff 4864 and
+   the shared dense FFN, bf16, ~27 GB of experts) through ``generate``: 4
+   requests of prompt 128, 32 new tokens; the prompts' layer-0 expert load
+   and its placement imbalance over 4 shards before and after
+   ``rebalance``; the phase's peak memory.
+
+Phases 13-19 run between phases 10 and 11; K3's and K4's
+``launches_by_path`` gain the paths of 13, 14, 17 and 18.
+
+The serving paths run compiled, as the reference's ``jax.jit`` does: the
+LM decode step under ``Scheduler`` and ``generate`` replays a CUDA graph
+per batch width, and ``VisionEngine`` and ``VisionServer`` replay the
+VGG16 forward captured per input shape (``repro_torch.graphs``). Phases 4,
+7, 10, 11(d), 13, 15, 18 and 19 run the graphed default and, once, the
+eager path (``compiled=False``), and require their tokens or outputs
+bitwise equal, and the launch counts exact: the eager launches plus the
+replays times each graph's tally. Each LM phase also runs the decode step
+in lockstep against ``decode_step`` (logits and tokens bitwise equal over
+16 steps) and times 16 steps of each on the host clock and by CUDA events;
+phase 4 times the replayed VGG16 forward against the eager one and
+``dense_forward`` (in turns), phase 11 the lazy and taps forwards graph
+against eager, each split by one ``torch.profiler`` trace with the card's
+idle share.
 
 Kernel and library times are device times, CUDA-graph replays of 20
 calls (``graph_ms``); the plain versions, host loops, are timed by a loop
@@ -157,6 +182,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -185,7 +211,7 @@ LM_SLOTS, LM_REQUESTS, LM_PROMPT, LM_NEW, LM_STAGGER = 4, 8, 128, 32, 2
 MODEL_NAMES = {"qwen3-4b": "Qwen3-4B", "rwkv6-3b": "RWKV6-3B",
                "seamless-m4t-medium": "SeamlessM4T-medium",
                "h2o-danube-3-4b": "H2O-Danube3-4B",
-               "paligemma-3b": "PaliGemma-3B"}
+               "paligemma-3b": "PaliGemma-3B", "yi-34b": "Yi-34B"}
 # phases 13-17, the remaining LM families (random weights from SEED)
 SEAMLESS_ARCH = "seamless_m4t_medium"   # full width and depth
 SEAMLESS_REQUESTS, SEAMLESS_FRAMES, SEAMLESS_PROMPT, SEAMLESS_NEW = \
@@ -199,6 +225,12 @@ MAMBA_ARCH = "jamba_1_5_large_398b"     # one Mamba block at full width
 MAMBA_BATCH, MAMBA_TOKENS, MAMBA_STEPS = 2, 512, 8
 PALI_ARCH, PALI_LAYERS = "paligemma_3b", 4               # of 18
 PALI_BATCH, PALI_TEXT = 4, 16
+# phases 18-19, the owed full-width runs, through the replayed decode step
+YI_ARCH, YI_LAYERS = "yi_34b", 4                          # of 60
+ARCTIC_ARCH, ARCTIC_LAYERS = "arctic_480b", 1             # of 35
+ARCTIC_REQUESTS, ARCTIC_PROMPT, ARCTIC_NEW = 4, 128, 32
+# decode steps timed per model, graph against eager
+DECODE_STEPS = 16
 
 
 class SmokeFailure(RuntimeError):
@@ -238,15 +270,18 @@ def graph_ms(fn, reps: int, replays: int = 5) -> float:
     also times the host's Python and launches, which at decode take as long
     as the kernel (0.05-0.09 ms a call) and made decode times jump between
     runs; the kernels and the library calls are timed so, the plain
-    versions (host loops with syncs) by ``cuda_ms``."""
+    versions (host loops with syncs) by ``cuda_ms``. The captured launches
+    go to a tally that is dropped: timing a kernel adds nothing to its
+    launch count."""
     import torch
+    from repro_torch.kernels._cuda import capture_tally
     s = torch.cuda.Stream()
     s.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(s):
         for _ in range(2):
             fn()
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g, stream=s):
+        with capture_tally({}), torch.cuda.graph(g, stream=s):
             for _ in range(reps):
                 fn()
     torch.cuda.current_stream().wait_stream(s)
@@ -447,84 +482,128 @@ def kernel_phase(model, imgs, layer: int, card: str):
         rec(abs2, rel2, k2_ms, p2_ms, b2, by2, grid2, "grid")
 
 
-def forward_split(model, imgs, card: str, windows: int = 7,
-                  calls: int = 5):
-    """Phase 4's timing of one compiled VGG16 forward of ``imgs`` (the
-    engine's path) against ``dense_forward`` (cuDNN, TF32 off): CUDA events
-    around ``windows`` windows of ``calls`` calls each, their median and
-    range. Then the split of one forward's own run: a ``torch.profiler``
-    trace of the card's activity (CUPTI) whose kernels are grouped by name,
-    the walker's launches (one a layer, in order), pooling, and every other
-    kernel (im2col's unfold and pad, the output copies) by its name; the
-    card is idle for the rest of the forward's time (the host's gaps).
-    Checks only that the times are finite; returns the record."""
+def trace_kernels(fn):
+    """[(name, device ms)] of the card's activity during one call of
+    ``fn``, traced by ``torch.profiler`` (CUPTI; the second of two traces,
+    the first pays the profiler's set-up)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.vision import compile_forward, dense_forward
-    torch.backends.cudnn.allow_tf32 = False
-    x0 = torch.as_tensor(imgs, device=model.device)
-    B = x0.shape[0]
-    fn = compile_forward(model)
-
-    def windows_ms(f):
-        f()
-        out = []
-        for _ in range(windows):
-            out.append(cuda_ms(f, reps=calls, warmup=0))
-        return float(np.median(out)), min(out), max(out)
-    total, t_lo, t_hi = windows_ms(lambda: fn(x0))
-    dense, d_lo, d_hi = windows_ms(lambda: dense_forward(model, x0))
-
-    def trace():
+    for _ in range(2):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            fn(x0)
+            fn()
             torch.cuda.synchronize()
-        return [(e.name, e.time_range.elapsed_us() / 1e3)
-                for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-    trace()                      # the profiler's own first-call set-up
-    kernels = trace()
-    walker = [t for name, t in kernels if "tile_kernel" in name]
-    pool = sum(t for name, t in kernels if "max_pool" in name)
-    other = {}
-    for name, t in kernels:
-        if "tile_kernel" not in name and "max_pool" not in name:
-            n, ms = other.get(name, (0, 0.0))
-            other[name] = (n + 1, ms + t)
-    busy = sum(t for _, t in kernels)
-    times = [total, t_lo, t_hi, dense, d_lo, d_hi, busy, pool, *walker] + \
-        [ms for _, ms in other.values()]
-    require(all(np.isfinite(times)), "forward split: a time is not finite")
-    print(f"VGG16 forward, {B} images at {x0.shape[1]} px, compiled (the "
-          f"engine's path), {windows} windows of {calls} calls: median "
-          f"{total:.4f} ms (range {t_lo:.4f}-{t_hi:.4f}; "
-          f"{B / total * 1e3:.2f} img/s); dense_forward (cuDNN, TF32 off) "
-          f"median {dense:.4f} ms (range {d_lo:.4f}-{d_hi:.4f}) [{card}]")
-    if not kernels:
-        print("  split: the profiler saw no kernel on the card (not "
-              "measured)")
-        return {"images": B, "forward_ms": total, "forward_ms_range":
-                [t_lo, t_hi], "dense_forward_ms": dense,
-                "dense_forward_ms_range": [d_lo, d_hi], "card": card}
-    rest = sum(ms for _, ms in other.values())
-    print(f"  split of one traced forward (torch.profiler, kernel device "
-          f"times): walker {sum(walker):.4f} ms ({len(walker)} launches), "
-          f"pooling {pool:.4f} ms, other kernels {rest:.4f} ms; the card "
-          f"busy {busy:.4f} ms of the median forward, idle "
-          f"{total - busy:.4f} ms (the host's gaps)")
-    print("  walker by layer (ms): " + ", ".join(
-        f"L{i} {t:.4f}" for i, t in enumerate(walker)))
-    print("  other kernels (launches, ms): " + "; ".join(
-        f"{name[:60]} ({n}, {ms:.4f})" for name, (n, ms) in
-        sorted(other.items(), key=lambda kv: -kv[1][1])))
-    return {"images": B, "forward_ms": total, "forward_ms_range":
-            [t_lo, t_hi], "dense_forward_ms": dense,
-            "dense_forward_ms_range": [d_lo, d_hi],
-            "walker_ms_by_layer": walker, "pool_ms": pool,
-            "other_kernels_ms": {name: ms for name, (_, ms) in
-                                 other.items()},
-            "card": card}
+    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in
+            prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def by_name(kernels):
+    """{name: (launches, ms)} of a trace."""
+    out = {}
+    for n, t in kernels:
+        k, ms = out.get(n, (0, 0.0))
+        out[n] = (k + 1, ms + t)
+    return out
+
+
+def forward_trace(fn):
+    """One traced call of ``fn`` (:func:`trace_kernels`): the walker's
+    launches in order, pooling, every other kernel by name (launches, ms)
+    and the card's busy ms."""
+    kernels = trace_kernels(fn)
+    other = by_name((n, t) for n, t in kernels
+                    if "tile_kernel" not in n and "max_pool" not in n)
+    return {"walker": [t for n, t in kernels if "tile_kernel" in n],
+            "pool": sum(t for n, t in kernels if "max_pool" in n),
+            "other": other, "busy": sum(t for _, t in kernels),
+            "kernels": len(kernels)}
+
+
+def forwards_compared(fns, x0, card: str, windows: int = 7, calls: int = 5,
+                      traced=None):
+    """Phases 4 and 11: the VGG16 forwards ``fns`` ({name: fn(x)}) timed in
+    turns, ``windows`` CUDA-event windows of ``calls`` calls each (median
+    and range), and those named in ``traced`` split by one
+    ``torch.profiler`` trace: the walker by layer, pooling, the other
+    kernels by name, and the card's idle ms and share of the median (the
+    host's gaps). Returns {name: record}."""
+    import torch
+    for f in fns.values():
+        f(x0)
+    wins = {name: [] for name in fns}
+    for _ in range(windows):
+        for name, f in fns.items():
+            wins[name].append(cuda_ms(lambda: f(x0), reps=calls, warmup=0))
+    B = x0.shape[0]
+    out = {}
+    for name, w in wins.items():
+        med = float(np.median(w))
+        require(all(np.isfinite(w)), f"forward {name}: a time is not finite")
+        torch_sync()
+        torch.cuda.reset_peak_memory_stats()
+        fns[name](x0)
+        torch_sync()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        pools = [g.pool_bytes for g in
+                 getattr(fns[name], "graphs", {}).values()]
+        rec = {"forward_ms": med, "forward_ms_range": [min(w), max(w)],
+               "img_per_s": B / med * 1e3, "peak_gib": peak, "card": card}
+        pool = f" (its graph's pool {pools[0] / 2**30:.3f} GiB reserved " \
+            f"beside)" if pools else ""
+        if pools:
+            rec["pool_gib"] = pools[0] / 2**30
+        print(f"VGG16 forward, {B} images at {x0.shape[1]} px, {name}: "
+              f"median {med:.4f} ms (range {min(w):.4f}-{max(w):.4f}; "
+              f"{B / med * 1e3:.2f} img/s) of {windows} windows of {calls} "
+              f"calls in turns; peak memory allocated during a call "
+              f"{peak:.3f} GiB{pool} [{card}]")
+        if name in (traced or ()):
+            t = forward_trace(lambda: fns[name](x0))
+            if not t["kernels"]:
+                print(f"  {name} split: the profiler saw no kernel on the "
+                      f"card (not measured)")
+            else:
+                idle = med - t["busy"]
+                rest = sum(ms for _, ms in t["other"].values())
+                rec.update({"walker_ms_by_layer": t["walker"],
+                            "pool_ms": t["pool"], "busy_ms": t["busy"],
+                            "idle_ms": idle, "idle_share": idle / med,
+                            "other_kernels_ms": {n: ms for n, (_, ms) in
+                                                 t["other"].items()}})
+                print(f"  {name} split of one traced forward "
+                      f"(torch.profiler, kernel device times): walker "
+                      f"{sum(t['walker']):.4f} ms ({len(t['walker'])} "
+                      f"launches), pooling {t['pool']:.4f} ms, other "
+                      f"kernels {rest:.4f} ms; the card busy "
+                      f"{t['busy']:.4f} ms, idle {idle:.4f} ms "
+                      f"({idle / med:.1%}) of the median")
+                print("  walker by layer (ms): " + ", ".join(
+                    f"L{i} {ms:.4f}" for i, ms in enumerate(t["walker"])))
+                print("  other kernels (launches, ms): " + "; ".join(
+                    f"{n[:60]} ({k}, {ms:.4f})" for n, (k, ms) in
+                    sorted(t["other"].items(), key=lambda kv: -kv[1][1])))
+        out[name] = rec
+    return out
+
+
+def forward_split(model, imgs, card: str):
+    """Phase 4's timing of one VGG16 forward of ``imgs`` (the engine's
+    path): the replayed graph (the default) against the eager forward and
+    ``dense_forward`` (cuDNN, TF32 off), the first two traced. Returns the
+    record."""
+    import torch
+    from repro_torch.vision import (compile_forward, dense_forward,
+                                    graphed_forward)
+    torch.backends.cudnn.allow_tf32 = False
+    x0 = torch.as_tensor(imgs, device=model.device)
+    recs = forwards_compared(
+        {"graph (taps)": graphed_forward(model),
+         "eager (taps)": compile_forward(model),
+         "dense_forward (cuDNN, TF32 off)":
+             lambda x: dense_forward(model, x)},
+        x0, card, traced=("graph (taps)", "eager (taps)"))
+    return {"images": x0.shape[0], **recs}
 
 
 def drive(card: str):
@@ -581,22 +660,34 @@ def drive(card: str):
         tot = schedule_summary(stats)
         print("  schedule: " + ", ".join(f"{k} {v:.4g}"
                                          for k, v in tot.items()))
-    eng = VisionEngine(chunk, num_slots=4)
     reqs = [ImageRequest(rid=i, image=imgs[i], arrival=i // 3)
             for i in range(8)]
-    produced = eng.run(reqs)
-    torch.cuda.synchronize()
-    launches = {"walker": WALK.launches, "grid": CONV_GRID.launches}
+    grid_launches = CONV_GRID.launches
+    engines = {}
+    for compiled in (True, False):
+        WALK.launches = 0
+        eng = VisionEngine(chunk, num_slots=4, compiled=compiled)
+        engines[compiled] = (eng, eng.run(reqs))
+        torch.cuda.synchronize()
+        engines[compiled] += (WALK.launches,)
+    eng, produced, walker = engines[True]
+    eager_eng, eager_out, eager_walker = engines[False]
+    launches = {"walker": walker, "grid": grid_launches}
     st = eng.stats
     forwards = st.engine_steps + 1                     # + the warm-up
     print(f"engine: {st.images} images on 4 slots in {st.engine_steps} "
-          f"steps, {st.wall_s:.4f} s, {st.img_per_s:.2f} img/s steady "
-          f"(first call {st.compile_s:.2f} s, util "
-          f"{st.slot_utilization:.2f}) [{card}]")
-    print(f"main-path launches: walker {launches['walker']} "
-          f"({launches['walker'] / forwards:.0f} per engine forward), dense "
-          f"grid {launches['grid']}")
-    require(launches["walker"] > 0, "the engine never launched the walker")
+          f"steps, {st.wall_s:.4f} s, {st.img_per_s:.2f} img/s steady on "
+          f"the replayed forward (first call and capture "
+          f"{st.compile_s:.2f} s, util {st.slot_utilization:.2f}); eager "
+          f"{eager_eng.stats.wall_s:.4f} s, "
+          f"{eager_eng.stats.img_per_s:.2f} img/s [{card}]")
+    print(f"main-path launches: walker {walker} ({walker / forwards:.0f} "
+          f"per engine forward: {chunk.num_layers} eager at the warm-up + "
+          f"{st.engine_steps} replays x {chunk.num_layers}; the eager "
+          f"engine {eager_walker}), dense grid {launches['grid']}")
+    require(walker == forwards * chunk.num_layers == eager_walker,
+            f"the engine launched the walker {walker} times (eager "
+            f"{eager_walker}), expected {forwards * chunk.num_layers}")
     require(launches["grid"] > 0, "oracle_check never launched the grid")
     solo = compile_forward(chunk)
     for r in reqs:
@@ -604,10 +695,11 @@ def drive(card: str):
         got = produced[r.rid]
         require(got.shape == out_shape and np.isfinite(got).all(),
                 f"request {r.rid}: bad output")
-        require(np.array_equal(got, one.cpu().numpy()),
-                f"request {r.rid}: engine output != solo forward")
-    print(f"engine outputs bitwise equal to the solo forward "
-          f"({len(reqs)} requests)")
+        require(np.array_equal(got, one.cpu().numpy()) and
+                np.array_equal(got, eager_out[r.rid]),
+                f"request {r.rid}: engine output != solo eager forward")
+    print(f"engine outputs (graph and eager) bitwise equal to the solo "
+          f"eager forward ({len(reqs)} requests)")
     split = forward_split(chunk, imgs[:4], card)
 
     meta = {
@@ -902,15 +994,17 @@ def build_family(dev, arch, *, layers=None, dtype=None, sparse=True):
         torch_sync()
     n, nbytes = dense_size(params)
     enc = f" + {cfg.encoder_layers} encoder" if cfg.encoder_layers else ""
+    pack_s = time.perf_counter() - t1
+    n_ffn = cfg.n_layers + cfg.encoder_layers
     print(f"built {full.name} ({cfg.family}): d_model {cfg.d_model}, d_ff "
           f"{cfg.d_ff} {cfg.act}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
           f"{cfg.d_head}, vocab {cfg.vocab} (padded {cfg.padded_vocab}), "
           f"{cfg.dtype}; {cfg.n_layers}{enc} of {full.n_layers}{enc} layers;"
           f" {n / 1e9:.3f} B parameters, {nbytes / 1e9:.3f} GB; init "
           f"{t1 - t0:.1f} s" + (f", host packing with strict=True "
-                                f"{time.perf_counter() - t1:.1f} s "
-                                f"(density {LM_DENSITY}, {LM_SHARDS} shards)"
-                                if sparse else ""))
+                                f"{pack_s:.1f} s = {pack_s / n_ffn:.2f} s a "
+                                f"layer (density {LM_DENSITY}, {LM_SHARDS} "
+                                f"shards)" if sparse else ""))
     return cfg, params
 
 
@@ -1109,17 +1203,32 @@ def lm_requests(cfg):
 
 
 def lm_serving_phase(cfg, params, card):
-    """Phase 7, the LM main path: returns {kernel: launches}."""
+    """Phases 7, 10 and 18, the LM main path: ``Scheduler`` on its replayed
+    decode step (the default), then once on the eager step
+    (``compiled=False``): tokens and K3/K4 launches equal, each tok/s;
+    the graphed tokens bitwise equal to each request served alone.
+    Returns {kernel: launches} of the graphed run."""
     from repro_torch.kernels.bitmask_spmm import BITMASK_SPMM
     from repro_torch.kernels.fused_ffn import FUSED_FFN
     from repro_torch.serve import Request, Scheduler
     max_len = LM_PROMPT + LM_NEW
     reqs = lm_requests(cfg)
-    BITMASK_SPMM.launches = FUSED_FFN.launches = 0
-    sch = Scheduler(cfg, params, num_slots=LM_SLOTS, max_len=max_len)
-    produced = sch.run(reqs, probe_ffn=True)
-    torch_sync()
-    launches = {"k3": BITMASK_SPMM.launches, "k4": FUSED_FFN.launches}
+    runs = {}
+    for compiled in (True, False):
+        BITMASK_SPMM.launches = FUSED_FFN.launches = 0
+        sch = Scheduler(cfg, params, num_slots=LM_SLOTS, max_len=max_len,
+                        compiled=compiled)
+        produced = sch.run(reqs, probe_ffn=True)
+        torch_sync()
+        runs[compiled] = (sch, produced, {"k3": BITMASK_SPMM.launches,
+                                          "k4": FUSED_FFN.launches})
+    sch, produced, launches = runs[True]
+    eager_sch, eager_out, eager_launches = runs[False]
+    require(eager_out == produced, f"{cfg.name}: the graphed Scheduler's "
+                                   f"tokens != the eager one's")
+    require(eager_launches == launches, f"{cfg.name}: graphed launches "
+            f"{launches} != eager {eager_launches}")
+    g, = sch._step_fn.graphs.values()
     st, probe = sch.stats, sch.ffn_probe
     require(probe is not None, "the FFN probe found no sparse leaves")
     forwards = st.prefills + st.engine_steps + 1          # + the probe
@@ -1127,21 +1236,32 @@ def lm_serving_phase(cfg, params, card):
           f" {len(reqs)} requests on {LM_SLOTS} slots, prompt {LM_PROMPT}, "
           f"{LM_NEW} new tokens each, arrivals every {LM_STAGGER} steps: "
           f"{st.tokens} tokens in {st.wall_s:.3f} s = {st.tok_per_s:.2f} "
-          f"tok/s (first calls included), {st.prefills} prefills + "
-          f"{st.engine_steps} decode steps, slot utilization "
+          f"tok/s on the replayed decode step (first calls and the capture "
+          f"included; eager step {eager_sch.stats.wall_s:.3f} s = "
+          f"{eager_sch.stats.tok_per_s:.2f} tok/s, tokens bitwise equal), "
+          f"{st.prefills} prefills + {st.engine_steps} decode steps "
+          f"({g.replays} replays of one graph, capture "
+          f"{g.capture_s:.3f} s), slot utilization "
           f"{st.slot_utilization:.3f} [{card}]")
     print(f"  FFN probe (first live batch): executed_frac "
           f"{probe['executed_frac']:.4f}, skipped_frac "
           f"{probe['skipped_frac']:.4f}, weight-tile density "
           f"{probe['weight_tile_macs'] / probe['dense_tile_macs']:.4f}, "
           f"decode compaction {probe['decode_compaction']:.2f}x")
+    eager_part = st.prefills + 2        # the prefills, the probe, warm-up
     print(f"  main-path launches: fused FFN {launches['k4']}, sparse matmul "
           f"{launches['k3']} ({cfg.n_layers} layers x {forwards} forwards "
-          f"= {cfg.n_layers * forwards})")
-    for key, name in (("k4", "fused FFN"), ("k3", "sparse matmul")):
+          f"= {cfg.n_layers * forwards}: {cfg.n_layers} x {eager_part} eager"
+          f" + {g.replays} replays x a tally of {g.tally.get(BITMASK_SPMM)}"
+          f" / {g.tally.get(FUSED_FFN)}), equal to the eager step's")
+    for key, name, kernel in (("k4", "fused FFN", FUSED_FFN),
+                              ("k3", "sparse matmul", BITMASK_SPMM)):
         require(launches[key] == cfg.n_layers * forwards,
                 f"{name} launched {launches[key]} times, expected one per "
                 f"layer and forward ({cfg.n_layers * forwards})")
+        require(g.tally.get(kernel) == cfg.n_layers and launches[key] ==
+                cfg.n_layers * eager_part + g.replays * g.tally[kernel],
+                f"{name}: launches != eager + replays x tally")
     for r in reqs:
         got = produced[r.rid]
         require(len(got) == LM_NEW and all(0 <= t < cfg.padded_vocab
@@ -1154,7 +1274,96 @@ def lm_serving_phase(cfg, params, card):
     print(f"  greedy tokens bitwise equal to each request served alone on "
           f"{LM_SLOTS} slots ({len(reqs)} requests); request 0: "
           f"{produced[0][:12]}")
+    decode_phase(cfg, params, card, LM_SLOTS, LM_PROMPT)
     return launches
+
+
+def decode_phase(cfg, params, card, B, S, steps=DECODE_STEPS, src=None):
+    """The captured decode step against the eager one from one prefilled
+    cache (B lanes, prompt S; ``src`` the encoder frames of an
+    encoder-decoder): in lockstep, every step's logits and tokens bitwise
+    equal; then each timed over ``steps`` steps after a warm-up step (the
+    graph's capture), on the host clock (ending in a synchronize) and by
+    CUDA events around the same steps. Returns the record."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serve import GraphedServeStep, make_serve_step
+    dev = params["embed"].device
+    toks = torch.as_tensor(np.random.default_rng(SEED + 5).integers(
+        1, cfg.vocab, (B, S)), device=dev)
+    enc = 0 if src is None else src.shape[1]
+    cache0 = M.init_cache(cfg, B, S + 2 * steps + 4, enc_len=enc,
+                          device=dev)
+    if src is not None:
+        cache0 = M.prefill_cache(params, cfg, cache0,
+                                 M.encode(params, src, cfg))
+    last, cache0 = M.prefill(params, cfg, toks, cache0)
+    tok0 = torch.argmax(last, -1)[:, None]
+    graphed = GraphedServeStep(cfg)
+    # lockstep: the graph's logits against decode_step's, every step
+    gc, ec, tok = M.map_tree(torch.clone, cache0), cache0, tok0
+    for i in range(steps):
+        pos = torch.full((B,), S + i, dtype=torch.long, device=dev)
+        el, ec = M.decode_step(params, cfg, tok, ec, pos)
+        nxt, gc = graphed(params, gc, tok, pos)
+        require(torch.equal(graphed.last_logits, el[:, 0]) and torch.equal(
+            nxt, torch.argmax(el[:, 0], -1)[:, None]),
+            f"{cfg.name}: graphed decode step {i} != eager (logits or "
+            f"token)")
+        tok = nxt
+    del gc, ec
+    rec = {"lanes": B, "position": S, "steps": steps, "card": card}
+    for name, step in (("graph", graphed), ("eager", make_serve_step(cfg))):
+        cache, tok = M.map_tree(torch.clone, cache0), tok0
+        pos = torch.full((B,), S, dtype=torch.long, device=dev)
+        tok, cache = step(params, cache, tok, pos)        # warm-up
+        torch_sync()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for i in range(steps):
+            tok, cache = step(params, cache, tok, pos + 1 + i)
+        end.record()
+        torch_sync()
+        rec[name] = {"host_ms": (time.perf_counter() - t0) * 1e3 / steps,
+                     "cuda_ms": start.elapsed_time(end) / steps,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        require(np.isfinite(list(rec[name].values())).all(),
+                f"{cfg.name}: decode step time not finite")
+        kernels = trace_kernels(lambda: step(params, cache, tok,
+                                             pos + 1 + steps))
+        rec[name]["kernels"] = len(kernels)
+        rec[name]["busy_ms"] = sum(t for _, t in kernels)
+        rec[name]["top"] = sorted(by_name(kernels).items(),
+                                  key=lambda kv: -kv[1][1])[:4]
+    g, = graphed.graphs.values()
+    gr, ea = rec["graph"], rec["eager"]
+    print(f"  decode step ({B} lanes from position {S}, {steps} steps): "
+          f"graph {gr['host_ms']:.4f} ms host / {gr['cuda_ms']:.4f} ms CUDA "
+          f"events, eager {ea['host_ms']:.4f} / {ea['cuda_ms']:.4f} ms "
+          f"({ea['cuda_ms'] / gr['cuda_ms']:.2f}x), "
+          f"{B / gr['cuda_ms'] * 1e3:.1f} / {B / ea['cuda_ms'] * 1e3:.1f} "
+          f"tok/s of decode; logits and tokens bitwise equal over {steps} "
+          f"steps in lockstep; capture {g.capture_s:.3f} s; peak memory "
+          f"over the timed steps {gr['peak_gib']:.3f} GiB allocated graph "
+          f"(its pool {g.pool_bytes / 2**30:.3f} GiB reserved beside), "
+          f"{ea['peak_gib']:.3f} GiB eager [{card}]")
+    rec["pool_gib"] = g.pool_bytes / 2**30
+    for name in ("graph", "eager"):
+        r = rec[name]
+        if not r["kernels"]:
+            print(f"  {name} step trace: the profiler saw no kernel on the "
+                  f"card (not measured)")
+            continue
+        idle = r["cuda_ms"] - r["busy_ms"]
+        print(f"  {name} step, one traced (torch.profiler): {r['kernels']} "
+              f"kernels, the card busy {r['busy_ms']:.4f} ms, idle "
+              f"{idle:.4f} ms ({idle / r['cuda_ms']:.1%}) of the timed step;"
+              f" top: " + "; ".join(f"{n[:48]} ({k}, {ms:.4f})" for n, (
+                  k, ms) in r["top"]))
+    return rec
 
 
 def densified_fp32(cfg, params):
@@ -1508,7 +1717,7 @@ def seamless_phase(dev, card):
     import torch
     from repro_torch.analysis import verify_param_leaves
     from repro_torch.models import model as M
-    from repro_torch.serve import generate
+    from repro_torch.serve import GraphedServeStep, generate
     t_phase = time.perf_counter()
     cfg, params = build_family(dev, SEAMLESS_ARCH)
     n_enc = sum("ffn_sparse" in period["p0"]
@@ -1526,27 +1735,41 @@ def seamless_phase(dev, card):
         1, cfg.vocab, (R, S0)), device=dev)
 
     ffn_counts(reset=True)
+    step = GraphedServeStep(cfg)        # held: the second run replays
     torch_sync()
     t0 = time.perf_counter()
-    out = generate(params, cfg, prompt, new, src_embeds=src)
+    out = generate(params, cfg, prompt, new, src_embeds=src, step=step)
     torch_sync()
     dt = time.perf_counter() - t0
     launches = ffn_counts()
-    # the encoder once, the decoder at the prefill and new - 1 steps
+    # the encoder once, the decoder at the prefill and new - 1 steps: the
+    # first step eager (the warm-up before the capture), new - 2 replays
     want = cfg.encoder_layers + cfg.n_layers * new
+    g, = step.graphs.values()
     for key, name in (("k4", "fused FFN"), ("k3", "sparse matmul")):
         require(launches[key] == want,
                 f"seamless: {name} launched {launches[key]} times, "
                 f"expected {want}")
+    replays = g.replays
+    require(replays == new - 2 and sorted(g.tally.values()) ==
+            [cfg.n_layers] * 2, f"seamless: {replays} replays, tally "
+                                f"{list(g.tally.values())}")
     require(tuple(out.shape) == (R, S0 + new)
             and torch.equal(out[:, :S0], prompt)
             and bool(((out >= 0) & (out < cfg.padded_vocab)).all()),
             "seamless: bad generated tokens")
     t0 = time.perf_counter()
-    again = generate(params, cfg, prompt, new, src_embeds=src)
+    again = generate(params, cfg, prompt, new, src_embeds=src, step=step)
     torch_sync()
     dt2 = time.perf_counter() - t0
     require(torch.equal(again, out), "seamless: a second run differs")
+    t0 = time.perf_counter()
+    eager = generate(params, cfg, prompt, new, src_embeds=src,
+                     compiled=False)
+    torch_sync()
+    dt_e = time.perf_counter() - t0
+    require(torch.equal(eager, out), "seamless: the graphed generate's "
+                                     "tokens != the eager one's")
     for i in range(R):
         one = generate(params, cfg, prompt[i:i + 1], new,
                        src_embeds=src[i:i + 1])
@@ -1555,14 +1778,21 @@ def seamless_phase(dev, card):
     print(f"serving sparse {cfg.name} ({cfg.encoder_layers} encoder + "
           f"{cfg.n_layers} decoder layers, {cfg.dtype}) through generate: "
           f"{R} requests of {S_src} source frames and a {S0}-token prompt,"
-          f" {new} new tokens each: {R * new} tokens in {dt:.3f} s = "
-          f"{R * new / dt:.2f} tok/s (first calls in), again {dt2:.3f} s = "
-          f"{R * new / dt2:.2f} tok/s, bitwise the same [{card}]")
+          f" {new} new tokens each, on the replayed decode step: "
+          f"{R * new} tokens in {dt:.3f} s = {R * new / dt:.2f} tok/s "
+          f"(first calls and the capture in), again {dt2:.3f} s = "
+          f"{R * new / dt2:.2f} tok/s; the eager step {dt_e:.3f} s = "
+          f"{R * new / dt_e:.2f} tok/s; tokens bitwise the same [{card}]")
     print(f"  main-path launches: fused FFN (relu) {launches['k4']}, sparse "
           f"matmul {launches['k3']} ({cfg.encoder_layers} encoder layers + "
-          f"{cfg.n_layers} decoder layers x {new} forwards = {want}); "
+          f"{cfg.n_layers} decoder layers x {new} forwards = {want}: "
+          f"{cfg.encoder_layers} + {cfg.n_layers} x 2 eager + {replays} "
+          f"replays x a tally of {cfg.n_layers}, capture "
+          f"{g.capture_s:.3f} s); "
           f"tokens bitwise equal to each request generated alone "
           f"({R} requests); request 0: {out[0, S0:S0 + 12].tolist()}")
+    decode_phase(cfg, params, card, R, S0, src=src)
+    del step                            # its graphs and their pools
 
     # (a) the fp32 oracle, (c) prefill + decode_step against forward
     cfg32, p32, oracle, cfg_dense = densified_fp32(cfg, params)
@@ -1696,7 +1926,7 @@ def moe_phase(dev, card):
     import torch
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
-    from repro_torch.serve import generate
+    from repro_torch.serve import GraphedServeStep, generate
     from repro_torch.sparsity import expert_balance as eb
     t_phase = time.perf_counter()
     cfg, params = build_family(dev, MOE_ARCH, layers=MOE_LAYERS,
@@ -1705,14 +1935,18 @@ def moe_phase(dev, card):
     prompt = torch.as_tensor(np.random.default_rng(SEED).integers(
         1, cfg.vocab, (MOE_REQUESTS, MOE_PROMPT)), device=dev)
     times, outs = [], []
-    for _ in range(2):
+    step = GraphedServeStep(cfg)        # held: the second run replays
+    for run in (step, step, None):
         torch_sync()
         t0 = time.perf_counter()
-        outs.append(generate(params, cfg, prompt, MOE_NEW))
+        outs.append(generate(params, cfg, prompt, MOE_NEW,
+                             compiled=run is not None, step=run))
         torch_sync()
         times.append(time.perf_counter() - t0)
     out = outs[0]
     require(torch.equal(outs[0], outs[1]), "moe: two runs differ")
+    require(torch.equal(outs[0], outs[2]), "moe: the graphed generate's "
+                                           "tokens != the eager one's")
     require(tuple(out.shape) == (MOE_REQUESTS, MOE_PROMPT + MOE_NEW)
             and bool(((out >= 0) & (out < cfg.padded_vocab)).all()),
             "moe: bad generated tokens")
@@ -1721,10 +1955,13 @@ def moe_phase(dev, card):
           f"{mc.d_ff_expert}, top-{mc.top_k}, capacity "
           f"{mc.capacity_factor}; {cfg.n_layers} layers, {cfg.dtype}) "
           f"through generate: {MOE_REQUESTS} requests, prompt {MOE_PROMPT}, "
-          f"{MOE_NEW} new tokens: {toks / times[0]:.2f} tok/s (first calls "
-          f"in), {toks / times[1]:.2f} tok/s the second run, bitwise the "
-          f"same; request 0: {out[0, MOE_PROMPT:MOE_PROMPT + 12].tolist()} "
-          f"[{card}]")
+          f"{MOE_NEW} new tokens, on the replayed decode step: "
+          f"{toks / times[0]:.2f} tok/s (first calls and the capture in), "
+          f"{toks / times[1]:.2f} tok/s the second run; the eager step "
+          f"{toks / times[2]:.2f} tok/s; tokens bitwise the same; request "
+          f"0: {out[0, MOE_PROMPT:MOE_PROMPT + 12].tolist()} [{card}]")
+    decode_phase(cfg, params, card, MOE_REQUESTS, MOE_PROMPT)
+    del step                            # its graphs and their pools
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     p0 = M.map_tree(lambda t: t.float(), params["blocks"][0]["p0"]["moe"])
@@ -1833,6 +2070,100 @@ def mamba_phase(dev, card):
     require(sch.idle and all(len(got[r.rid]) == 5 for r in reqs),
             "jamba smoke: the scheduler did not complete")
     print(f"phase 16 (Mamba) {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phases 18-19: the owed full-width runs, on the replayed decode step
+# ---------------------------------------------------------------------------
+def yi_phase(dev, card):
+    """Phase 18: sparse Yi-34B at full width (d_model 7168, d_ff 20480
+    swiglu, 56/8 heads of 128, bf16, density 0.35, 4 shards), 4 of 60
+    layers: K3/K4 against their plain versions at its decode and prefill
+    shapes (as phase 6), then phase 7's traffic through ``Scheduler`` on
+    the replayed step (phase 7's checks). Returns (K3/K4 launches of the
+    served run, kernel records)."""
+    t_phase = time.perf_counter()
+    cfg, params = build_family(dev, YI_ARCH, layers=YI_LAYERS)
+    recs = ffn_kernel_phase(params, cfg, card)
+    launches = lm_serving_phase(cfg, params, card)
+    print(f"phase 18 (Yi-34B) {time.perf_counter() - t_phase:.1f} s")
+    return launches, recs
+
+
+def arctic_phase(dev, card):
+    """Phase 19: one full-width Arctic-480B layer (128 experts top-2 of
+    d_ff 4864 beside the shared dense FFN, bf16; ~27 GB of experts)
+    through ``generate`` on the replayed step: 4 requests of prompt 128 +
+    32 new tokens, tokens bitwise equal to the eager step's; the decode
+    step graph against eager; the prompts' expert load at layer 0 and its
+    placement imbalance over 4 shards before and after ``rebalance``; the
+    phase's peak memory."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.serve import GraphedServeStep, generate
+    from repro_torch.sparsity import expert_balance as eb
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = build_family(dev, ARCTIC_ARCH, layers=ARCTIC_LAYERS,
+                               sparse=False)
+    peak_build = torch.cuda.max_memory_allocated()
+    mc = cfg.moe
+    R, S0, new = ARCTIC_REQUESTS, ARCTIC_PROMPT, ARCTIC_NEW
+    prompt = torch.as_tensor(np.random.default_rng(SEED).integers(
+        1, cfg.vocab, (R, S0)), device=dev)
+    times, outs = [], []
+    step = GraphedServeStep(cfg)        # held: the second run replays
+    for run in (step, step, None):
+        torch_sync()
+        t0 = time.perf_counter()
+        outs.append(generate(params, cfg, prompt, new,
+                             compiled=run is not None, step=run))
+        torch_sync()
+        times.append(time.perf_counter() - t0)
+    out = outs[0]
+    require(torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2]),
+            "arctic: graphed runs and the eager run differ")
+    require(tuple(out.shape) == (R, S0 + new) and bool(
+        ((out >= 0) & (out < cfg.padded_vocab)).all()),
+        "arctic: bad generated tokens")
+    toks = R * new
+    print(f"serving {cfg.name} ({mc.num_experts} experts of d_ff "
+          f"{mc.d_ff_expert}, top-{mc.top_k}, shared dense FFN "
+          f"{mc.shared_dense_ff}; {cfg.n_layers} of 35 layers, {cfg.dtype}) "
+          f"through generate: {R} requests, prompt {S0}, {new} new tokens, "
+          f"on the replayed decode step: {toks / times[0]:.2f} tok/s (first "
+          f"calls and the capture in), {toks / times[1]:.2f} the second run;"
+          f" the eager step {toks / times[2]:.2f} tok/s; tokens bitwise the "
+          f"same; request 0: {out[0, S0:S0 + 12].tolist()} [{card}]")
+    decode_phase(cfg, params, card, R, S0)
+    del step                            # its graphs and their pools
+    # the prompts' routing at layer 0: its MoE input after the attention
+    bp = params["blocks"][0]["p0"]
+    x = params["embed"][prompt].to(cfg.torch_dtype)
+    pos = torch.arange(S0, device=dev)[None].expand(R, S0)
+    x = x + L.attention(bp["attn"], L.rmsnorm(x, bp["ln1"], cfg.norm_eps),
+                        cfg, positions=pos,
+                        mask=L.causal_mask(S0, S0, cfg.window, device=dev))
+    h2 = L.rmsnorm(x, bp["ln2"], cfg.norm_eps).reshape(R * S0, -1)
+    _, _, ids = L.moe_route(bp["moe"], h2, cfg, params["expert_perm"])
+    counts = eb.expert_counts(ids, mc.num_experts).cpu().numpy()
+    tracker = eb.ExpertLoadTracker(mc.num_experts)
+    tracker.update(counts)
+    new_perm = eb.rebalance(tracker, MOE_SHARDS)
+    before = tracker.imbalance(MOE_SHARDS)
+    after = eb.placement_imbalance(tracker.load, new_perm, MOE_SHARDS)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  layer 0 expert load of the {R} x {S0} prompt tokens (top-"
+          f"{mc.top_k}): max {counts.max()} / mean {counts.mean():.2f} / "
+          f"min {counts.min()} tokens per expert, {int((counts == 0).sum())}"
+          f" experts idle; placement imbalance over {MOE_SHARDS} shards "
+          f"{before:.4f} before rebalance, {after:.4f} after; peak memory "
+          f"{peak_build / 2**30:.2f} GiB at the build, {peak / 2**30:.2f} "
+          f"GiB over the phase")
+    require(counts.sum() == R * S0 * mc.top_k, "arctic: routed counts")
+    require(after <= before + 1e-9, "arctic: rebalance did not help")
+    print(f"phase 19 (Arctic-480B) {time.perf_counter() - t_phase:.1f} s")
 
 
 def pali_phase(dev, card):
@@ -1989,69 +2320,19 @@ def pin_lazy(model):
                 bm_rows=128, bn=c.packed.bn, sub_m=8, im2col="lazy")])
 
 
-def lazy_forward_split(model, x0, card: str, windows: int = 7,
-                       calls: int = 5):
-    """The lazy forward against the taps (default) forward: windows of each
-    in turns, median and range; one ``torch.profiler`` trace of the lazy
-    forward split by kernel name. Returns the record."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.vision import compile_forward
-    taps = compile_forward(model)
-    lazy = compile_forward(model, use_tuned=True)
-    taps(x0), lazy(x0)
-    t_win, l_win = [], []
-    for _ in range(windows):
-        t_win.append(cuda_ms(lambda: taps(x0), reps=calls, warmup=0))
-        l_win.append(cuda_ms(lambda: lazy(x0), reps=calls, warmup=0))
-    t_med, l_med = float(np.median(t_win)), float(np.median(l_win))
-    for _ in range(2):           # the first trace pays the profiler's set-up
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            lazy(x0)
-            torch.cuda.synchronize()
-    kernels = [(e.name, e.time_range.elapsed_us() / 1e3) for e in
-               prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    walker = sum(t for n, t in kernels if "tile_kernel" in n)
-    n_walker = sum(1 for n, _ in kernels if "tile_kernel" in n)
-    pool = sum(t for n, t in kernels if "max_pool" in n)
-    other = {}
-    for n, t in kernels:
-        if "tile_kernel" not in n and "max_pool" not in n:
-            k, ms = other.get(n, (0, 0.0))
-            other[n] = (k + 1, ms + t)
-    busy = sum(t for _, t in kernels)
-    times = t_win + l_win + [walker, pool, busy]
-    require(all(np.isfinite(times)), "lazy forward: a time is not finite")
-    B = x0.shape[0]
+def lazy_forward_split(model, x0, card: str):
+    """The lazy forward against the taps (default) one, each replayed from
+    its graph and eager, in turns, each traced once. Returns the record."""
+    from repro_torch.vision import compile_forward, graphed_forward
     n_lazy = sum(1 for layer in model.layers if layer.conv.tuned is not None
                  and layer.conv.tuned.config.im2col == "lazy")
-    print(f"VGG16 forward, {B} images at {x0.shape[1]} px, {windows} windows "
-          f"of {calls} calls in turns: lazy (tap slabs at {n_lazy} layers) "
-          f"median "
-          f"{l_med:.4f} ms (range {min(l_win):.4f}-{max(l_win):.4f}; "
-          f"{B / l_med * 1e3:.2f} img/s), taps median {t_med:.4f} ms "
-          f"(range {min(t_win):.4f}-{max(t_win):.4f}) [{card}]")
-    rest = sum(ms for _, ms in other.values())
-    if kernels:
-        print(f"  split of one traced lazy forward (torch.profiler): walker "
-              f"{walker:.4f} ms ({n_walker} launches), pooling {pool:.4f} "
-              f"ms, other kernels {rest:.4f} ms; the card busy {busy:.4f} "
-              f"ms, idle {l_med - busy:.4f} ms of the median")
-        print("  other kernels (launches, ms): " + "; ".join(
-            f"{n[:60]} ({k}, {ms:.4f})" for n, (k, ms) in
-            sorted(other.items(), key=lambda kv: -kv[1][1])))
-    else:
-        print("  split: the profiler saw no kernel on the card (not "
-              "measured)")
-    return {"images": B, "lazy_forward_ms": l_med,
-            "lazy_forward_ms_range": [min(l_win), max(l_win)],
-            "taps_forward_ms": t_med,
-            "taps_forward_ms_range": [min(t_win), max(t_win)],
-            "walker_ms": walker, "pool_ms": pool,
-            "other_kernels_ms": {n: ms for n, (_, ms) in other.items()},
-            "busy_ms": busy, "card": card}
+    print(f"lazy forward: tap slabs at {n_lazy} layers")
+    fns = {"graph (lazy)": graphed_forward(model, use_tuned=True),
+           "eager (lazy)": compile_forward(model, use_tuned=True),
+           "graph (taps)": graphed_forward(model),
+           "eager (taps)": compile_forward(model)}
+    return {"images": x0.shape[0], "lazy_layers": n_lazy,
+            **forwards_compared(fns, x0, card, traced=tuple(fns))}
 
 
 def tuned_oracle(model, x, card: str):
@@ -2156,18 +2437,25 @@ def server_phase(model, card: str):
     reqs = [ImageRequest(rid=i, image=big[i, :h, :w], arrival_s=0.004 * i,
                          deadline_s=0.004 * i + 0.5)
             for i, (h, w) in enumerate(sizes)]
-    srv = VisionServer(model, num_slots=4, buckets=(112, 224),
-                       clock=VirtualClock(), step_cost_s={112: 0.01,
-                                                          224: 0.03})
-    srv.warmup()
-    WALK.launches = 0
-    produced = srv.run(reqs)
-    torch.cuda.synchronize()
-    launches = WALK.launches
+    runs = {}
+    for compiled in (True, False):
+        srv = VisionServer(model, num_slots=4, buckets=(112, 224),
+                           clock=VirtualClock(), step_cost_s={112: 0.01,
+                                                              224: 0.03},
+                           compiled=compiled)
+        srv.warmup()
+        WALK.launches = 0
+        produced = srv.run(reqs)
+        torch.cuda.synchronize()
+        runs[compiled] = (srv, produced, WALK.launches)
+    srv, produced, launches = runs[True]
+    eager_srv, eager_out, eager_launches = runs[False]
     st = srv.stats
     require(st.images == len(reqs) and st.sla_misses == 0,
             f"server: {st.sla_misses} SLA misses of {st.images}")
-    require(launches > 0, "the server never launched the walker")
+    require(launches == st.engine_steps * model.num_layers == eager_launches,
+            f"the server launched the walker {launches} times (eager "
+            f"{eager_launches}), expected {model.num_layers} a step")
     solo = compile_forward(model)
     for r in reqs:
         canon = fit_image(r.image, route_bucket(srv.buckets,
@@ -2175,8 +2463,9 @@ def server_phase(model, card: str):
         one = solo(torch.as_tensor(canon[None], device=model.device))[0]
         got = produced[r.rid]
         require(np.isfinite(got).all() and np.array_equal(
-            got, one.cpu().numpy()), f"server request {r.rid}: output != "
-                                     f"the solo forward of its fitted image")
+            got, one.cpu().numpy()) and np.array_equal(got, eager_out[r.rid]),
+            f"server request {r.rid}: output != the solo eager forward of "
+            f"its fitted image")
     sc = srv.schedule_counters()
     lat = st.latency_percentiles()
     print(f"VisionServer (virtual clock, step costs 0.01 / 0.03 s, SLA 0.5 "
@@ -2185,9 +2474,15 @@ def server_phase(model, card: str):
           f"SLA misses, latency p50 {lat['p50']:.3f} / p95 {lat['p95']:.3f} "
           f"s (virtual), slot utilization {st.slot_utilization:.3f}, "
           f"cross-request combine factor "
-          f"{sc['cross_request_combine_factor']:.2f}x; every output bitwise "
-          f"equal to the solo forward of its fitted image; walker launches "
-          f"{launches} ({launches / st.engine_steps:.0f} a step) [{card}]")
+          f"{sc['cross_request_combine_factor']:.2f}x; every output (graph "
+          f"and eager) bitwise equal to the solo eager forward of its fitted"
+          f" image; walker launches {launches} "
+          f"({launches / st.engine_steps:.0f} a step, all replays; eager "
+          f"{eager_launches}); host clock {st.wall_s:.4f} s = "
+          f"{st.img_per_s:.2f} img/s replayed, eager "
+          f"{eager_srv.stats.wall_s:.4f} s = "
+          f"{eager_srv.stats.img_per_s:.2f} img/s (compile_s "
+          f"{st.compile_s:.3f} / {eager_srv.stats.compile_s:.3f} s) [{card}]")
     return launches
 
 
@@ -2199,7 +2494,8 @@ def lazy_phase(card: str):
     from repro_torch.core import simulator as S
     from repro_torch.kernels.worklist_core import WALK
     from repro_torch.launch.vision import blob_images
-    from repro_torch.vision import build_vision_model, compile_forward
+    from repro_torch.vision import (build_vision_model, compile_forward,
+                                    graphed_forward)
     dev = torch.device("cuda")
     md = S.BENCHMARKS["VGGNet"].map_density
     imgs = blob_images(np.random.default_rng(SEED), 4, SIZE, md)
@@ -2217,9 +2513,12 @@ def lazy_phase(card: str):
             f"the lazy forward launched the walker {lazy_launches} times")
     require(torch.equal(lazy, default),
             "the lazy forward != the taps forward bitwise")
+    glazy = graphed_forward(model, use_tuned=True)
+    require(all(torch.equal(glazy(x0), default) for _ in range(2)),
+            "the replayed lazy forward != the taps forward bitwise")
     print(f"lazy forward ({model.num_layers - 1} tap-layout layers on the "
-          f"tap-slab operand): bitwise equal to the taps forward, "
-          f"{lazy_launches} walker launches")
+          f"tap-slab operand): eager and replayed bitwise equal to the taps "
+          f"forward, {lazy_launches} walker launches")
     split = lazy_forward_split(model, x0, card)
     tune = autotune_phase(model, x0, default, card)
     server = server_phase(model, card)
@@ -2293,6 +2592,12 @@ def main() -> int:
     mamba_phase(dev, card)                         # phase 16
     torch.cuda.empty_cache()
     add("paligemma_3b_prefix_forward", pali_phase(dev, card))      # 17
+    add("yi_34b_serving", yi_phase(dev, card))                     # 18
+    gc.collect()
+    torch.cuda.empty_cache()
+    arctic_phase(dev, card)                        # phase 19
+    gc.collect()
+    torch.cuda.empty_cache()
     slab_recs, slab_launches = lazy_phase(card)    # phase 11
     torch.cuda.empty_cache()
     vision_admission_phase(card, dev)              # phase 12 (VGG16)

@@ -27,13 +27,20 @@ mechanism for:
   ``except`` handler, turns a failed launch into a 10–100x slower answer
   nobody asked for, the counterpart of the reference's frozen-interpret
   rule (``KERNEL-FALLBACK``).
+* **Host reads in captured bodies.**  A function the port captures in a
+  CUDA graph (marked ``@graphs.captured``) runs on the card at every
+  replay, its Python only once: a host read in it (``.item()``,
+  ``.cpu()``, ``.tolist()``, ``.numpy()``, ``int()``/``float()``/
+  ``bool()`` of a tensor) fails the capture, and a tensor built from host
+  values (``torch.tensor(..., device=...)``) would freeze the capture's
+  values into every replay (``GRAPH-HOST-READ``, the counterpart of the
+  reference's ``HOST-TRACED-NP``).
 * **Silent suppressions.**  A suppression comment must say why
   (``LINT-SUPPRESS``).
 
-The reference's ``PL-INTERP-*``/``PL-NO-INTERPRET``, ``HOST-TRACED-NP``
-and ``JIT-STATIC-NONHASH`` have no counterpart: the port has no Pallas,
-no ``interpret`` switch and no jit. A rule for ``.item()`` inside a
-captured CUDA graph waits for the port's graphs (ROADMAP A6).
+The reference's ``PL-INTERP-*``/``PL-NO-INTERPRET`` and
+``JIT-STATIC-NONHASH`` have no counterpart: the port has no Pallas, no
+``interpret`` switch and no jit static arguments.
 """
 from __future__ import annotations
 
@@ -55,6 +62,9 @@ register("TF32-ON", E, "TF32 switched on (allow_tf32 = True, or a matmul "
          "precision other than 'highest') under the 1e-5 gate", "ci")
 register("KERNEL-FALLBACK", E, "kernel wrapper reaches its plain version "
          "off the CPU-tensor branch (silent slow path)", "ci")
+register("GRAPH-HOST-READ", E, "host read (.item()/.cpu()/.tolist()/"
+         ".numpy(), int()/float()/bool() of a tensor) or host-built device "
+         "tensor inside a function captured in a CUDA graph", "ci")
 register("LINT-SUPPRESS", W, "suppression comment without a justifying "
          "reason", "ci")
 
@@ -78,6 +88,16 @@ _DICT_WRITES = ("clear", "pop", "popitem", "setdefault", "update")
 EAGER_SCHEDULES = ("build_worklist",)
 #: The capture query a guard calls.
 CAPTURE_GUARDS = ("is_current_stream_capturing",)
+
+#: The decorator that marks a body ``graphs.CapturedGraph`` captures.
+CAPTURE_MARK = "captured"
+#: Tensor methods that copy to the host (and synchronise).
+HOST_READS = ("item", "cpu", "tolist", "numpy")
+#: Python casts that read a tensor's value to the host.
+HOST_CASTS = ("int", "float", "bool")
+#: Tensor attributes that are host metadata, not values.
+TENSOR_META = ("shape", "ndim", "dim", "size", "numel", "dtype", "device",
+               "is_cuda", "element_size", "stride")
 
 
 @dataclasses.dataclass
@@ -322,10 +342,80 @@ def rule_kernel_fallback(tree: ast.Module, ctx: FileContext
     return out
 
 
+def _captured(fn: ast.FunctionDef) -> bool:
+    return any(_dotted(d.func if isinstance(d, ast.Call) else d)
+               .split(".")[-1] == CAPTURE_MARK for d in fn.decorator_list)
+
+
+def _tensor_value(node: ast.AST, names: Set[str]) -> bool:
+    """Whether ``node`` reads the value of one of ``names`` (a parameter
+    of a captured body, best taken for a tensor): the name itself, a
+    subscript, an arithmetic expression or a method call on it, but not its
+    host metadata (``x.shape[0]``, ``x.size(1)``)."""
+    if isinstance(node, ast.Name):
+        return node.id in names
+    if isinstance(node, ast.Subscript):
+        return _tensor_value(node.value, names)
+    if isinstance(node, ast.BinOp):
+        return _tensor_value(node.left, names) or \
+            _tensor_value(node.right, names)
+    if isinstance(node, ast.UnaryOp):
+        return _tensor_value(node.operand, names)
+    if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute):
+        return node.func.attr not in TENSOR_META and \
+            _tensor_value(node.func.value, names)
+    return False
+
+
+def rule_graph_host_read(tree: ast.Module, ctx: FileContext
+                         ) -> List[Diagnostic]:
+    """GRAPH-HOST-READ: inside a function marked ``@captured`` (and the
+    functions nested in it), ``.item()``/``.cpu()``/``.tolist()``/
+    ``.numpy()`` on anything, ``int()``/``float()``/``bool()`` of a
+    parameter's value, and ``torch.tensor``/``torch.as_tensor`` with a
+    ``device=`` (host values copied at capture, replayed frozen)."""
+    out: List[Diagnostic] = []
+    hint = ("keep the value on the card (a static input buffer of the "
+            "graph), or do the host work before the capture")
+    for fn in _walk_functions(tree):
+        if not _captured(fn):
+            continue
+        names: Set[str] = set()
+        for node in ast.walk(fn):
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                 ast.Lambda)):
+                names.update(a.arg for a in _params(node))
+        for node in ast.walk(fn):
+            if not isinstance(node, ast.Call):
+                continue
+            callee = _dotted(node.func)
+            bad = None
+            if isinstance(node.func, ast.Attribute) and \
+                    node.func.attr in HOST_READS:
+                bad = f".{node.func.attr}()"
+            elif callee in HOST_CASTS and node.args and \
+                    _tensor_value(node.args[0], names):
+                bad = f"{callee}() of a tensor"
+            elif callee.split(".")[-1] in ("tensor", "as_tensor") and \
+                    callee.startswith("torch.") and \
+                    any(k.arg == "device" for k in node.keywords):
+                bad = f"{callee}(..., device=...) from host values"
+            if bad:
+                d = _fdiag(
+                    "GRAPH-HOST-READ", ctx, node,
+                    f"{bad} inside {fn.name}(), which a CUDA graph "
+                    f"captures: the capture fails or replays a frozen "
+                    f"value", hint=hint)
+                if d:
+                    out.append(d)
+    return out
+
+
 ALL_RULES: Sequence[Callable[[ast.Module, FileContext], List[Diagnostic]]] \
     = (
         rule_cache_mutate,
         rule_eager_guard,
         rule_tf32_on,
         rule_kernel_fallback,
+        rule_graph_host_read,
     )

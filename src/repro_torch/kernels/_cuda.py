@@ -9,9 +9,14 @@ rebuilt and an unchanged one is reused.
 
 A failed build raises :class:`KernelBuildError` with the compiler's output;
 a launch whose ``cudaGetLastError()`` is not 0 raises :class:`RuntimeError`.
+
+A launch made while the current stream is capturing a CUDA graph runs
+nothing: it is tallied on the graph (:func:`capture_tally`), and each
+replay adds the tally to the counters (:mod:`repro_torch.graphs`).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -40,6 +45,22 @@ class KernelBuildError(RuntimeError):
     pass
 
 
+# {kernel: launches} of the graph being captured (None: no tally open)
+_TALLY: Optional[Dict["CudaKernel", int]] = None
+
+
+@contextlib.contextmanager
+def capture_tally(tally: Dict["CudaKernel", int]):
+    """Within the block, launches made on a capturing stream add to
+    ``tally`` instead of the kernels' ``launches``."""
+    global _TALLY
+    prev, _TALLY = _TALLY, tally
+    try:
+        yield tally
+    finally:
+        _TALLY = prev
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -53,8 +74,10 @@ def _nvcc() -> str:
 class CudaKernel:
     """One ``.cu`` source, its C entry point and its launch counter.
 
-    ``launches`` counts successful launches made through :meth:`launch`;
-    callers reset it to 0 to count one run.
+    ``launches`` counts the kernel's runs on the card: successful eager
+    launches made through :meth:`launch`, plus, for each replay of a CUDA
+    graph, the launches captured in it; callers reset it to 0 to count one
+    run.
     """
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence):
@@ -111,15 +134,28 @@ class CudaKernel:
 
     def launch(self, device: torch.device, *args) -> None:
         """Launch on ``device``'s current stream (appended as the last
-        argument) and count it; raise if the launch was refused."""
+        argument) and count it; raise if the launch was refused. On a
+        capturing stream the launch is recorded, not run: it goes to the
+        open :func:`capture_tally`, not to ``launches``; with no tally
+        open, the launch raises before it is recorded."""
         fn = self._load()
         with torch.cuda.device(device):
+            capturing = torch.cuda.is_current_stream_capturing()
+            if capturing and _TALLY is None:
+                raise RuntimeError(
+                    f"{self.symbol}: launched on a stream that is capturing "
+                    f"a CUDA graph with no capture_tally open; capture "
+                    f"through repro_torch.graphs.CapturedGraph so that "
+                    f"each replay counts its launches")
             stream = torch.cuda.current_stream(device).cuda_stream
             code = fn(*args, stream)
         if code != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {code} "
                                f"({self._err(code).decode()})")
-        self.launches += 1
+        if capturing:
+            _TALLY[self] = _TALLY.get(self, 0) + 1
+        else:
+            self.launches += 1
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> Dict[str, float]:

@@ -346,12 +346,16 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig,
     xt = x.reshape(T, D)
     probs, gates, ids = moe_route(p, xt, cfg, expert_perm)
 
-    # aux load-balance loss (Switch)
-    ce = torch.bincount(ids.reshape(-1), minlength=E).float() / (T * K)
+    # aux load-balance loss (Switch); tokens per expert counted into a
+    # fixed [E] (bincount reads the largest id back to the host to size its
+    # output, which a CUDA graph cannot capture); integer counts, exact
+    flat_e = ids.reshape(-1)                                   # [T*K]
+    per_expert = torch.zeros((E,), dtype=torch.long, device=x.device) \
+        .scatter_add_(0, flat_e, torch.ones_like(flat_e))
+    ce = per_expert.float() / (T * K)
     aux = E * torch.sum(probs.mean(0) * ce)
 
     cap = moe_capacity(T, cfg)
-    flat_e = ids.reshape(-1)                                   # [T*K]
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
     seg_start = torch.searchsorted(sorted_e,
@@ -363,7 +367,7 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
     # dispatch: [E, cap + 1, D], the spare slot cut off
     buf = torch.zeros((E, cap + 1, D), dtype=x.dtype, device=x.device)
-    buf[flat_e, slot] = xt.repeat_interleave(K, dim=0)
+    buf[flat_e, slot] = xt[:, None].expand(T, K, D).reshape(T * K, D)
     buf = buf[:, :cap]
     h = torch.bmm(buf, p["w_in"])
     g = torch.bmm(buf, p["w_gate"]) if "w_gate" in p else None

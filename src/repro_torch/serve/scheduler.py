@@ -7,10 +7,16 @@ per-slot-position decode engine (port of ``repro.serve.scheduler``).
 * **Round-robin lane assignment** (§3.3.2) — free slots are scanned in an
   order rotated by :func:`repro_torch.core.balance.round_robin_permutation`.
 * **Colored buffers** — admission rebuilds the slot's cache lane from
-  zeros (:func:`repro_torch.serve.engine.make_admit_fn`).
+  zeros (:func:`repro_torch.serve.engine.prefill_lane`, written over the
+  slot's lane by :func:`~repro_torch.serve.engine.write_lane`).
 
 The scheduler is host bookkeeping; the math runs in the engine functions
-on the params' device.
+on the params' device. By default (``compiled=True``) each decode step
+replays the captured step (:class:`~repro_torch.serve.engine.
+GraphedServeStep`, one graph for the scheduler's width), whose static
+buffer is the scheduler's cache, and the slot table goes to the card in
+one packed copy a step. On either step the scheduler writes admissions
+and lane resets into its cache in place.
 """
 from __future__ import annotations
 
@@ -25,8 +31,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.balance import round_robin_permutation
 from repro_torch.models import model as M
-from repro_torch.serve.engine import (make_admit_fn, make_ffn_stats_fn,
-                                      make_serve_step, reset_slots)
+from repro_torch import graphs
+from repro_torch.serve.engine import (GraphedServeStep, make_ffn_stats_fn,
+                                      make_serve_step, prefill_lane,
+                                      write_lane)
 
 
 @dataclasses.dataclass
@@ -65,12 +73,15 @@ class Scheduler:
     ``num_slots`` is the fixed batch width; requests beyond it queue.
     ``max_len`` bounds prompt_len + max_new per request (one cache row per
     position). ``verify_artifacts`` (on by default) verifies the packed
-    sparse-FFN leaves at construction, before any launch.
+    sparse-FFN leaves at construction, before any launch. ``compiled`` (on
+    by default, as the reference jits its step) replays the captured decode
+    step on the card; ``compiled=False`` runs the eager step, for the
+    comparison runs.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, num_slots: int = 4,
                  max_len: int = 256, greedy: bool = True,
-                 verify_artifacts: bool = True):
+                 verify_artifacts: bool = True, compiled: bool = True):
         if cfg.encoder_layers:
             raise ValueError("the scheduler serves decoder-only models")
         # admission gate: when the checkpoint carries packed sparse-FFN
@@ -86,8 +97,13 @@ class Scheduler:
         self.device = params["embed"].device
         self.num_slots = num_slots
         self.max_len = max_len
-        self._step_fn = make_serve_step(cfg, greedy)
-        self._admit_fn = make_admit_fn(cfg, max_len, greedy)
+        self.greedy = greedy
+        if compiled:
+            self._step_fn = GraphedServeStep(cfg, greedy)
+        else:
+            eager = make_serve_step(cfg, greedy)
+            self._step_fn = lambda params, cache, *slots: eager(
+                params, cache, *map(self._dev, slots))
         self._stats_fn = make_ffn_stats_fn(cfg)
         self.cache = M.init_cache(cfg, num_slots, max_len, device=self.device)
         # slot table
@@ -143,8 +159,9 @@ class Scheduler:
             if req is None:
                 break
             prompt = self._dev(np.asarray(req.prompt, np.int64))[None]
-            tok, self.cache = self._admit_fn(self.params, self.cache, prompt,
-                                             int(s))
+            tok, lane = prefill_lane(self.params, self.cfg, self.max_len,
+                                     prompt, self.greedy)
+            write_lane(self.cache, lane, int(s))
             first = int(tok[0, 0])
             self.stats.prefills += 1
             self.stats.tokens += 1
@@ -213,9 +230,9 @@ class Scheduler:
                 self.clock += 1
                 return True
             return False
-        nxt, self.cache = self._step_fn(
-            self.params, self.cache, self._dev(self.slot_tok[:, None]),
-            self._dev(self.slot_pos), self._dev(active))
+        nxt, self.cache = self._step_fn(self.params, self.cache,
+                                        self.slot_tok[:, None],
+                                        self.slot_pos, active)
         nxt = nxt.cpu().numpy()
         self.stats.engine_steps += 1
         self.stats.decode_lane_steps += int(active.sum())
@@ -233,7 +250,9 @@ class Scheduler:
                 freed[s] = True
         if freed.any():
             # lane hygiene: zero freed lanes now; admission re-zeroes anyway
-            self.cache = reset_slots(self.cache, self._dev(freed))
+            keep = self._dev(~freed)
+            for a in graphs.leaves(self.cache):
+                a.mul_(keep.reshape((-1,) + (1,) * (a.ndim - 1)).to(a.dtype))
         self.clock += 1
         return True
 

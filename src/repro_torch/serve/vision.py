@@ -26,8 +26,10 @@ The open-loop counterpart of :class:`repro_torch.vision.engine.VisionEngine`:
 :class:`WallClock` serves real open-loop load (latency percentiles);
 :class:`VirtualClock` with fixed step costs gives exact, replayable SLA
 accounting. ``verify_artifacts`` (on by default) verifies the packed
-chain at construction, as :class:`~repro_torch.vision.engine.VisionEngine`
-does; ``mesh`` is not ported yet and raises ``NotImplementedError``.
+chain at construction, and ``compiled`` (on by default) replays each
+bucket's forward from a CUDA graph captured at its warm-up, as
+:class:`~repro_torch.vision.engine.VisionEngine` does; ``mesh`` is not
+ported yet and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -175,7 +177,7 @@ class VisionServer:
                  sub_m: int = 8, two_sided: bool = True,
                  schedule: str = "compact", im2col: str = "auto",
                  use_tuned: bool = False, verify_artifacts: bool = True,
-                 ewma: float = 0.3, mesh=None):
+                 compiled: bool = True, ewma: float = 0.3, mesh=None):
         if verify_artifacts:
             from repro_torch.analysis import raise_on_errors, verify_model
             raise_on_errors(
@@ -209,7 +211,8 @@ class VisionServer:
             if missing:
                 raise ValueError(f"step_cost_s missing buckets {missing}")
         self._ewma = ewma
-        self._fwd = VM.compile_forward(
+        self.compiled = compiled
+        self._fwd = (VM.graphed_forward if compiled else VM.compile_forward)(
             model, sub_m=sub_m, two_sided=two_sided, schedule=schedule,
             im2col=im2col, use_tuned=use_tuned)
         self._channels = model.layers[0].conv.cin
@@ -307,7 +310,8 @@ class VisionServer:
 
     def warmup(self) -> None:
         """Run (and, under a wall clock, measure) every bucket's batch up
-        front, charged to ``stats.compile_s``, never to latencies."""
+        front, capturing its graph when compiled, charged to
+        ``stats.compile_s``, never to latencies."""
         for bucket in self.buckets:
             self._warm_bucket(bucket)
 
@@ -348,7 +352,8 @@ class VisionServer:
         for lane, p in zip(lanes, batch_reqs):
             batch[lane] = p.image
         t0 = time.monotonic()
-        out = self._fwd(torch.as_tensor(batch, device=self.device))
+        x = torch.from_numpy(batch)      # the graph copies it in itself
+        out = self._fwd(x if self.compiled else x.to(self.device))
         out = out.cpu().numpy()
         measured = time.monotonic() - t0
         if self._fixed_cost is not None and getattr(

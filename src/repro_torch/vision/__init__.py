@@ -5,13 +5,14 @@ from repro_torch.vision.engine import ImageRequest, VisionEngine, VisionStats
 from repro_torch.vision.model import (SUPPORTED_ARCHS, VisionLayer,
                                       VisionModel, build_vision_model,
                                       compile_forward, dense_forward,
-                                      fit_image, forward, layer_geometry,
-                                      layer_table, max_pool,
+                                      fit_image, forward, graphed_forward,
+                                      layer_geometry, layer_table, max_pool,
                                       measured_densities, oracle_check,
                                       route_bucket, schedule_summary)
 
 __all__ = ["ImageRequest", "VisionEngine", "VisionStats", "SUPPORTED_ARCHS",
            "VisionLayer", "VisionModel", "build_vision_model",
            "compile_forward", "dense_forward", "fit_image", "forward",
-           "layer_geometry", "layer_table", "max_pool", "measured_densities",
-           "oracle_check", "route_bucket", "schedule_summary"]
+           "graphed_forward", "layer_geometry", "layer_table", "max_pool",
+           "measured_densities", "oracle_check", "route_bucket",
+           "schedule_summary"]

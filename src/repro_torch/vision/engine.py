@@ -61,13 +61,18 @@ class VisionEngine:
     model's device. ``num_slots`` is the fixed batch width; outputs are
     the network's final feature maps (host numpy), keyed by request id.
     ``verify_artifacts`` (on by default) verifies the packed chain at
-    construction, before anything launches; ``mesh`` is not ported yet."""
+    construction, before anything launches; ``compiled`` (on by default, as
+    the reference jits its forward) replays the forward captured per batch
+    shape (:func:`~repro_torch.vision.model.graphed_forward`; the warm-up
+    captures it, each step copies the host batch into the graph's input),
+    ``compiled=False`` runs the eager forward; ``mesh`` is not ported
+    yet."""
 
     def __init__(self, model: VM.VisionModel, *, num_slots: int = 4,
                  sub_m: int = 8, two_sided: bool = True,
                  schedule: str = "compact", im2col: str = "auto",
                  use_tuned: bool = False, verify_artifacts: bool = True,
-                 mesh=None):
+                 compiled: bool = True, mesh=None):
         # admission gate: an engine admits arbitrary checkpoints, so the
         # packed chain (and its cached schedules' device copies, which the
         # walker reads as raw offsets) is verified before any launch;
@@ -85,7 +90,8 @@ class VisionEngine:
         self.num_slots = num_slots
         self.sub_m = sub_m
         self.two_sided = two_sided
-        self._fwd = VM.compile_forward(
+        self.compiled = compiled
+        self._fwd = (VM.graphed_forward if compiled else VM.compile_forward)(
             model, sub_m=sub_m, two_sided=two_sided, schedule=schedule,
             im2col=im2col, use_tuned=use_tuned)
         self._warm_shapes: set = set()
@@ -193,7 +199,8 @@ class VisionEngine:
         for s in np.nonzero(active)[0]:
             batch[s] = self._slot_img[s]
         self._warmup(batch.shape)
-        out = self._fwd(torch.as_tensor(batch, device=self.device))
+        x = torch.from_numpy(batch)      # the graph copies it in itself
+        out = self._fwd(x if self.compiled else x.to(self.device))
         out = out.cpu().numpy()
         self.stats.engine_steps += 1
         self.stats.active_lane_steps += int(active.sum())
@@ -210,8 +217,9 @@ class VisionEngine:
 
     def _warmup(self, batch_shape) -> None:
         """Run the forward once per batch shape — building its work lists,
-        copying their schedules to the device and, on first use, building
-        the kernels — charged to ``stats.compile_s``."""
+        copying their schedules to the device, on first use building the
+        kernels and, when compiled, capturing the graph — charged to
+        ``stats.compile_s``."""
         if batch_shape in self._warm_shapes:
             return
         t0 = time.perf_counter()

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import graphs
 from repro_torch.core import simulator as S
 from repro_torch.core.sparse import Padding, Stride, normalize_stride, \
     resolve_pads
@@ -196,6 +197,7 @@ def max_pool(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+@graphs.captured
 def _forward_layers(model: VisionModel, x: torch.Tensor, *, sub_m: int,
                     two_sided: bool, schedule: str, im2col: str,
                     use_tuned: bool = False) -> torch.Tensor:
@@ -232,10 +234,7 @@ def compile_forward(model: VisionModel, *, sub_m: int = 8,
     """
     if mesh is not None:
         raise NotImplementedError("the mesh-sharded forward is not ported yet")
-    tuned_key = tuple(
-        cfg.key() if (cfg := _tuned_config(layer, use_tuned)) else None
-        for layer in model.layers)
-    key = (sub_m, two_sided, schedule, im2col, use_tuned, tuned_key)
+    key = _forward_key(model, sub_m, two_sided, schedule, im2col, use_tuned)
     fn = model._fwd_cache.get(key)
     if fn is None:
         @torch.no_grad()
@@ -243,6 +242,60 @@ def compile_forward(model: VisionModel, *, sub_m: int = 8,
             return _forward_layers(model, x, sub_m=sub_m,
                                    two_sided=two_sided, schedule=schedule,
                                    im2col=im2col, use_tuned=use_tuned)
+        model._fwd_cache[key] = fn
+    return fn
+
+
+def _forward_key(model: VisionModel, sub_m: int, two_sided: bool,
+                 schedule: str, im2col: str, use_tuned: bool) -> tuple:
+    """The forward caches' key: the knobs and every layer's tuned config
+    (re-tuning a layer gets a new forward and a new graph)."""
+    tuned_key = tuple(
+        cfg.key() if (cfg := _tuned_config(layer, use_tuned)) else None
+        for layer in model.layers)
+    return (sub_m, two_sided, schedule, im2col, use_tuned, tuned_key)
+
+
+def graphed_forward(model: VisionModel, *, sub_m: int = 8,
+                    two_sided: bool = True, schedule: str = "compact",
+                    im2col: str = "auto", use_tuned: bool = False
+                    ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The whole-net forward of :func:`compile_forward` captured in a CUDA
+    graph per input shape: the port's counterpart of the reference's
+    jitted ``compile_forward`` (one compiled executable of the whole net).
+    Cached on the model under the same key as :func:`compile_forward`'s
+    closure, with one :class:`repro_torch.graphs.CapturedGraph` per
+    ``(shape, dtype)`` of the input batch.
+
+    The first call of a shape runs the forward eagerly (building the
+    layers' work lists and their device copies) and captures it; later
+    calls copy the batch (on the host or the card) into the graph's input
+    buffer and replay: 13 K1 launches and the pools of VGG16 in one graph
+    launch, bitwise what the eager forward gives. Returns a new tensor on
+    the model's device; the callable's ``graphs`` holds its graphs by
+    shape. On the CPU it is the eager forward. The instrumented
+    paths (``forward(collect_stats=True)``, ``oracle_check``) read counters
+    to the host and stay eager.
+    """
+    key = ("graph",) + _forward_key(model, sub_m, two_sided, schedule,
+                                    im2col, use_tuned)
+    fn = model._fwd_cache.get(key)
+    if fn is None:
+        body = compile_forward(model, sub_m=sub_m, two_sided=two_sided,
+                               schedule=schedule, im2col=im2col,
+                               use_tuned=use_tuned)
+        per_shape: Dict[tuple, graphs.CapturedGraph] = {}
+
+        def fn(x: torch.Tensor) -> torch.Tensor:
+            shape = (tuple(x.shape), x.dtype)
+            g = per_shape.get(shape)
+            if g is None:
+                g = per_shape[shape] = graphs.CapturedGraph(
+                    body, model.device,
+                    f"{model.name} forward of {tuple(x.shape)}")
+            out = g(x)
+            return out.clone() if g.replays else out
+        fn.graphs = per_shape            # the captured graphs, by shape
         model._fwd_cache[key] = fn
     return fn
 

@@ -881,6 +881,56 @@ def test_lint_kernel_fallback_silent():
     """) == []
 
 
+def test_lint_graph_host_read():
+    got = _lint("""
+        import torch
+        from repro_torch import graphs
+
+        @graphs.captured
+        def body(cache, packed):
+            n = packed[0].item()
+            rows = packed.cpu()
+            ids = packed[1].tolist()
+            arr = cache.numpy()
+            if bool(packed[2].any()):
+                pos = int(packed[1][0])
+            scale = float(cache.max() * 2)
+            pos_t = torch.as_tensor(ids, device=cache.device)
+            eps = torch.tensor(1e-6, device="cuda")
+            return cache
+
+        @captured
+        def factory(params):
+            def step(x):
+                return x * float(x.sum())
+            return step
+    """)
+    assert [d.rule for d in got] == ["GRAPH-HOST-READ"] * 10
+    assert "body()" in got[0].message and got[0].path == "snippet.py:7"
+    assert "factory()" in got[-1].message
+
+
+def test_lint_graph_host_read_silent():
+    assert _lint("""
+        import torch
+        from repro_torch import graphs
+
+        @graphs.captured
+        def body(cache, packed, cfg):
+            B = int(packed.shape[0])
+            D = int(cache.size(1))
+            eps = float(cfg.norm_eps)
+            keep = packed[2].bool()
+            idx = torch.arange(B, device=cache.device)
+            return cache * keep[:, None] + eps, idx
+
+        def eager(cache, packed):
+            # not captured: the scheduler reads tokens back here
+            return packed.cpu().numpy(), int(cache.sum()), \
+                torch.as_tensor([1, 2], device="cuda")
+    """) == []
+
+
 def test_lint_suppression():
     src = """
         import torch
@@ -902,7 +952,7 @@ def test_port_tree_is_lint_clean():
 def test_rule_registry_renders():
     for rule in ("WL-LIVE-MAP", "PC-VMEM", "FF-SHAPE", "CACHE-MUTATE",
                  "EAGER-GUARD", "TF32-ON", "KERNEL-FALLBACK",
-                 "LINT-SUPPRESS"):
+                 "GRAPH-HOST-READ", "LINT-SUPPRESS"):
         assert rule in REGISTRY
         assert f"`{rule}`" in t_lint.render_rules()
     assert "No findings" in TA.render_github([])

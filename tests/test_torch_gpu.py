@@ -1044,3 +1044,201 @@ def test_sparse_seamless_generate_on_card_equals_cpu(cuda):
     layers = cfg.n_layers + cfg.encoder_layers
     assert BITMASK_SPMM.launches - k3 >= layers
     assert FUSED_FFN.launches - k4 >= layers
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs of the serving paths (repro_torch.graphs): the captured decode
+# step and whole-net forward replayed on the card, bitwise equal to eager
+# ---------------------------------------------------------------------------
+def _graph_lm(cuda, arch):
+    """A smoke LM on the card: Qwen3 and SeamlessM4T widened (d_model 256)
+    and packed sparse, RWKV6 packed at its smoke width, Moonlight and
+    Jamba dense (MoE, Mamba); fp32."""
+    cfg = load_smoke(arch)
+    if arch in ("qwen3_4b", "seamless_m4t_medium"):
+        cfg = dataclasses.replace(cfg, sparse_ffn=True, d_model=256,
+                                  d_ff=512)
+    params = M.init_params(cfg, seed=0, device="cpu")
+    if cfg.sparse_ffn:
+        params = sparsify_model(params, cfg, num_shards=4, strict=True)
+    return cfg, M.map_tree(lambda t: t.to(cuda), params)
+
+
+@pytest.mark.parametrize("arch", ["qwen3_4b", "rwkv6_3b",
+                                  "moonshot_v1_16b_a3b",
+                                  "jamba_1_5_large_398b",
+                                  "seamless_m4t_medium"])
+def test_graphed_step_bitwise_eager_on_card(cuda, arch):
+    """Five decode steps from one prefilled cache: the replayed graph's
+    logits, tokens and cache bitwise equal to the eager ``decode_step``'s;
+    one graph, its K3/K4 tally one launch a sparse layer."""
+    from repro_torch.serve import GraphedServeStep
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params = _graph_lm(cuda, arch)
+    B, S, steps = 3, 7, 5
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    toks = torch.randint(1, cfg.vocab, (B, S), generator=gen, device=cuda)
+    enc = 6 if cfg.encoder_layers else 0
+    cache = M.init_cache(cfg, B, S + steps + 1, enc_len=enc, device=cuda)
+    if enc:
+        src = 0.02 * torch.randn((B, enc, cfg.d_model), generator=gen,
+                                 device=cuda)
+        cache = M.prefill_cache(params, cfg, cache,
+                                M.encode(params, src, cfg))
+    last, cache = M.prefill(params, cfg, toks, cache)
+    eager = M.map_tree(torch.clone, cache)
+    step = GraphedServeStep(cfg)
+    tok = torch.argmax(last, -1)[:, None]
+    for i in range(steps):
+        pos = torch.full((B,), S + i, dtype=torch.long, device=cuda)
+        el, eager = M.decode_step(params, cfg, tok, eager, pos)
+        nxt, cache = step(params, cache, tok, pos)
+        torch.cuda.synchronize()
+        assert torch.equal(step.last_logits, el[:, 0]), i
+        assert torch.equal(nxt, torch.argmax(el[:, 0], -1)[:, None]), i
+        assert all(torch.equal(a, b) for a, b in
+                   zip(_tensors(cache), _tensors(eager))), i
+        tok = nxt
+    g, = step.graphs.values()
+    assert g.replays == steps - 1
+    sparse = cfg.n_layers if cfg.sparse_ffn else 0
+    assert g.tally.get(BITMASK_SPMM, 0) == sparse
+    assert g.tally.get(FUSED_FFN, 0) == sparse
+
+
+def _tensors(tree):
+    from repro_torch.graphs import leaves
+    return leaves(tree)
+
+
+def test_graphed_scheduler_bitwise_eager_on_card(cuda):
+    """``Scheduler`` (sparse Qwen3 smoke, 4 slots, staggered requests) on
+    its replayed step: tokens, the final cache and the K3/K4 launch counts
+    equal to ``compiled=False``'s; the counts are eager launches + replays
+    x the graph's tally."""
+    cfg, params = _graph_lm(cuda, "qwen3_4b")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(1, cfg.vocab, (6, 9))
+    runs = {}
+    for compiled in (False, True):
+        BITMASK_SPMM.launches = FUSED_FFN.launches = 0
+        sch = Scheduler(cfg, params, num_slots=4, max_len=24,
+                        compiled=compiled)
+        out = sch.run([Request(i, prompts[i], 7, arrival=i) for i in
+                       range(6)])
+        torch.cuda.synchronize()
+        runs[compiled] = (out, BITMASK_SPMM.launches, FUSED_FFN.launches,
+                          sch)
+    assert runs[True][0] == runs[False][0]
+    assert runs[True][1:3] == runs[False][1:3]
+    sch = runs[True][3]
+    assert all(torch.equal(a, b) for a, b in
+               zip(_tensors(sch.cache), _tensors(runs[False][3].cache)))
+    g, = sch._step_fn.graphs.values()
+    assert g.tally == {BITMASK_SPMM: cfg.n_layers, FUSED_FFN: cfg.n_layers}
+    assert g.replays == sch.stats.engine_steps - 1
+    prefills = sch.stats.prefills
+    assert runs[True][1] == cfg.n_layers * (prefills +
+                                            sch.stats.engine_steps)
+
+
+def test_graphed_generate_new_batch_width_new_graph(cuda):
+    """A held ``GraphedServeStep`` handed to ``generate`` replays one graph
+    per batch width, tokens bitwise equal to ``compiled=False``."""
+    from repro_torch.serve import GraphedServeStep
+    cfg, params = _graph_lm(cuda, "qwen3_4b")
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    toks = torch.randint(1, cfg.vocab, (4, 5), generator=gen, device=cuda)
+    step = GraphedServeStep(cfg)
+    for B in (2, 4, 2):
+        got = generate(params, cfg, toks[:B], 6, step=step)
+        assert torch.equal(got, generate(params, cfg, toks[:B], 6,
+                                         compiled=False))
+    assert len(step.graphs) == 2
+    assert sorted(g.replays for g in step.graphs.values()) == [4, 9]
+
+
+def test_graphed_step_recaptures_a_rebound_params_leaf(cuda):
+    """Rebinding ``params["expert_perm"]`` (Moonlight smoke, MoE) makes the
+    held step capture a new graph that reads the new leaf: its tokens
+    follow the eager step on the new params, not the old graph's baked
+    pointer, and rebinding back replays the first graph."""
+    from repro_torch.serve import GraphedServeStep
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params = _graph_lm(cuda, "moonshot_v1_16b_a3b")
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    toks = torch.randint(1, cfg.vocab, (2, 5), generator=gen, device=cuda)
+    step = GraphedServeStep(cfg)
+    perms = (params["expert_perm"], params["expert_perm"].flip(0))
+    outs = []
+    for perm in perms + perms:
+        params["expert_perm"] = perm
+        got = generate(params, cfg, toks, 6, step=step)
+        want = generate(params, cfg, toks, 6, compiled=False)
+        assert torch.equal(got, want)
+        outs.append(got)
+    assert len(step.graphs) == 2
+    # per graph: 4 replays after its warm-up and capture, then 5
+    assert all(g.replays == 9 for g in step.graphs.values())
+    assert not torch.equal(outs[0], outs[1])
+
+
+def test_graphed_vgg_head_forward_bitwise_on_card(cuda):
+    """The captured forward of a 4-layer VGG head (chunk pattern, 2 images
+    at 32 px): every replay, from a card or a host batch, bitwise equal to
+    the eager forward; the graph's input buffer its own (the first call's
+    batch is not overwritten by a later one); the walker's launches exact
+    (one a layer and forward); ``VisionEngine`` graphed == eager."""
+    from repro_torch.vision import graphed_forward
+    from repro_torch.launch.vision import blob_images
+    model = build_vision_model("VGGNet", pattern="chunk", num_layers=4,
+                               seed=0, device=cuda)
+    imgs = blob_images(np.random.default_rng(0), 4, 32, 0.45)
+    x = torch.as_tensor(imgs[:2], device=cuda)
+    eager = compile_forward(model)(x)
+    fwd = graphed_forward(model)
+    WALK.launches = 0
+    outs = [fwd(x) for _ in range(3)] + [fwd(torch.as_tensor(imgs[2:]))]
+    torch.cuda.synchronize()
+    assert torch.equal(x, torch.as_tensor(imgs[:2], device=cuda))  # own
+    assert WALK.launches == 4 * model.num_layers
+    assert all(torch.equal(o, eager) for o in outs[:3])
+    assert torch.equal(outs[3], compile_forward(model)(
+        torch.as_tensor(imgs[2:], device=cuda)))
+    reqs = [ImageRequest(rid=i, image=imgs[i], arrival=i // 3)
+            for i in range(4)]
+    got = VisionEngine(model, num_slots=2).run(reqs)
+    want = VisionEngine(model, num_slots=2, compiled=False).run(reqs)
+    assert all(np.array_equal(got[i], want[i]) for i in range(4))
+
+
+def test_capture_refuses_host_schedules_and_host_reads(cuda):
+    """A body that builds a host schedule under capture (the compact FFN
+    schedule with activation occupancy) or reads a tensor to the host
+    raises ``GraphCaptureError`` naming the graph, at the capture and at
+    every later call; nothing runs eagerly in its place. A kernel launched
+    on a capturing stream with no tally open raises."""
+    from repro_torch.graphs import CapturedGraph, GraphCaptureError
+    cfg, params = _graph_lm(cuda, "qwen3_4b")
+    sp = params["blocks"][0]["p0"]["ffn_sparse"]
+    x = torch.randn((4, cfg.d_model), device=cuda)
+    g = CapturedGraph(lambda t: sparse_ffn_apply(
+        sp, t, cfg.act, schedule="compact", compact_activations=True),
+        cuda, "compact FFN")
+    for _ in range(2):                   # the failed capture, then again
+        with pytest.raises(GraphCaptureError, match="compact FFN"):
+            g(x)
+    assert g.graph is None
+    h = CapturedGraph(lambda t: t * float(t.sum().item()), cuda, "host read")
+    with pytest.raises(GraphCaptureError, match="host read"):
+        h(x)
+    # a kernel launch captured outside CapturedGraph (no tally) raises
+    # rather than go uncounted
+    dense = sparse_ffn_apply(sp, x, cfg.act)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="capture_tally"):
+        with torch.cuda.graph(graph):
+            sparse_ffn_apply(sp, x, cfg.act)
+    torch.cuda.synchronize()
+    assert torch.equal(x * 2, x + x)           # the card still works
+    assert torch.equal(sparse_ffn_apply(sp, x, cfg.act), dense)
