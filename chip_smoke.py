@@ -153,8 +153,26 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    and its placement imbalance over 4 shards before and after
    ``rebalance``; the phase's peak memory.
 
-Phases 13-19 run between phases 10 and 11; K3's and K4's
-``launches_by_path`` gain the paths of 13, 14, 17 and 18.
+20. training and the pruning pipeline on Qwen3-4B at full width (bf16,
+   4 of 36 layers, ~0.79 B parameters; seq 256, batch 8, remat on): one
+   step twice from one state bitwise equal (determinism); ``train`` 6
+   steps with a checkpoint every 3, then a fresh ``train`` to 9 that
+   resumes from step 6 (``opt.step`` 9), bitwise equal to 9 steps in one
+   run; ``prune_masks`` at 0.35 and 3 fixed-mask steps (every pruned weight
+   exactly 0); ``save`` then ``restore`` into ``abstract_params``
+   templates, bitwise (seconds and bytes); ``sparsify_model(strict=True)``
+   of the restored weights served through ``Scheduler`` as in phase 7 and
+   held to phase 8's fp32 oracle (K3 and K4 on the trained weights); the
+   same batch 8 times at lr 1e-3 (the loss falls by more than 0.1), each
+   step timed by CUDA events (median ms, tok/s, peak GiB) and one traced
+   (the card's idle share, the largest kernels); one full-width layer in
+   fp32 (TF32 off, batch 2 x 64) against the same step in fp64 on the card
+   (loss, grad norm, every gradient within 1e-5; the params after AdamW
+   within 1e-5 plus lr x gradient error / eps; AdamW alone within 1e-5).
+   Training launches none of the four kernels.
+
+Phases 13-19 run between phases 10 and 11, phase 20 last; K3's and K4's
+``launches_by_path`` gain the paths of 13, 14, 17, 18 and 20.
 
 The serving paths run compiled, as the reference's ``jax.jit`` does: the
 LM decode step under ``Scheduler`` and ``generate`` replays a CUDA graph
@@ -231,6 +249,11 @@ ARCTIC_ARCH, ARCTIC_LAYERS = "arctic_480b", 1             # of 35
 ARCTIC_REQUESTS, ARCTIC_PROMPT, ARCTIC_NEW = 4, 128, 32
 # decode steps timed per model, graph against eager
 DECODE_STEPS = 16
+# phase 20, training and the pruning pipeline on Qwen3-4B (LM_LAYERS)
+TRAIN_SEQ, TRAIN_BATCH = 256, 8
+TRAIN_STEPS, TRAIN_RESUME, TRAIN_CKPT_EVERY, PRUNE_STEPS = 6, 9, 3, 3
+DESCENT_STEPS, DESCENT_LR = 8, 1e-3
+FP64_BATCH, FP64_SEQ = 2, 64                 # one full-width layer, fp32
 
 
 class SmokeFailure(RuntimeError):
@@ -2529,6 +2552,330 @@ def lazy_phase(card: str):
 
 
 
+def leaves_bitwise(a, b) -> list:
+    """Keys of the leaves of two trees (params, an OptState, metrics) whose
+    bits differ."""
+    import torch
+    from repro_torch.models import model as M
+    fa, fb = M.flatten_tree(a), M.flatten_tree(b)
+    require(list(fa) == list(fb), "trees of different structure")
+    bits = lambda t: t.view(torch.int16) if t.dtype == torch.bfloat16 \
+        else t                                               # noqa: E731
+    return [k for k in fa if fa[k].dtype != fb[k].dtype
+            or not torch.equal(bits(fa[k]), bits(fb[k]))]
+
+
+def train_fp64_gate(dev, card):
+    """Phase 20's fp64 gate: one full-width Qwen3-4B layer in fp32 (TF32
+    off), batch FP64_BATCH x FP64_SEQ: the card's step (remat on) against
+    the same step on fp64 params under ``promote_fp64`` (its gradients
+    with remat off, then AdamW). The loss, the grad norm and every gradient
+    leaf within rel err TOL.
+
+    The params after the AdamW step are held to TOL plus what AdamW makes
+    of the gradients' own rounding: at step 1 the update is ``lr * g / (|g|
+    + eps)``, so a gradient error e at |g| ~ eps moves a param by up to
+    ``lr * e / eps`` (e taken per leaf from this run's two gradients); and
+    AdamW's own fp32 arithmetic (the same gradients, rounded to fp32, into
+    both) within rel err TOL."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import ShapeConfig, load_config
+    from repro_torch.data.pipeline import batch_for
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import (loss_and_grads,
+                                              make_train_step, promote_fp64)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(load_config(LM_ARCH), n_layers=1,
+                              dtype="float32")
+    c64 = dataclasses.replace(cfg, dtype="float64")
+    params = M.init_params(cfg, seed=SEED, device=dev)
+    p64 = M.map_tree(lambda t: t.double() if t.is_floating_point() else t,
+                     params)
+    batch = batch_for(cfg, ShapeConfig("fp64", FP64_SEQ, FP64_BATCH,
+                                       "train"), 0, seed=SEED, device=dev)
+    opt_cfg = adamw.AdamWConfig(warmup_steps=0)
+    l32, _, g32 = loss_and_grads(params, batch, cfg)
+    n32, _, m32 = make_train_step(cfg, opt_cfg)(params, adamw.init(params),
+                                                batch)
+    with promote_fp64():
+        l64, _, g64 = loss_and_grads(p64, batch, c64, remat=False)
+        n64, _, m64 = adamw.apply(opt_cfg, p64, g64, adamw.init(p64))
+    # AdamW alone: the fp64 gradients rounded to fp32, into both
+    g_q = M.map_tree(lambda g: g.float(), g64)
+    nq32 = adamw.apply(opt_cfg, params, g_q, adamw.init(params))[0]
+    with promote_fp64():
+        nq64 = adamw.apply(opt_cfg, p64, M.map_tree(torch.Tensor.double, g_q),
+                           adamw.init(p64))[0]
+    torch_sync()
+    lr = float(m64["lr"])
+    rel = {"loss": errors(l32.double(), l64)[1],
+           "grad_norm": errors(m32["grad_norm"].double(),
+                               m64["grad_norm"])[1]}
+    fg32, fg64 = M.flatten_tree(g32), M.flatten_tree(g64)
+    per = {k: errors(fg32[k].double(), fg64[k])[1] for k in fg64}
+    rel["gradient"] = max(per.values())
+    per_q = {k: errors(a.double(), b)[1] for (k, a), b in zip(
+        M.flatten_tree(nq32).items(), M.flatten_tree(nq64).values())}
+    rel["AdamW alone"] = max(per_q.values())
+    over, raw = {}, {}
+    for (k, a), b in zip(M.flatten_tree(n32).items(),
+                         M.flatten_tree(n64).values()):
+        d = float((a.double() - b).abs().max())
+        raw[k] = d / float(b.abs().max())
+        allow = TOL * float(b.abs().max()) + lr * float(
+            (fg32[k].double() - fg64[k]).abs().max()) / opt_cfg.eps
+        over[k] = d / allow
+    require(all(t.dtype == torch.float64 for t in
+                M.flatten_tree(n64).values()), "the fp64 step left fp64")
+    worst = max(raw, key=raw.get)
+    print(f"  fp32 step vs fp64 on the card (one full-width layer, batch "
+          f"{FP64_BATCH} x {FP64_SEQ}, TF32 off, {len(per)} leaves): loss "
+          f"{float(l32):.6f} / {float(l64):.6f} rel err {rel['loss']:.3e}, "
+          f"grad norm {rel['grad_norm']:.3e}, gradients worst "
+          f"{rel['gradient']:.3e} ({max(per, key=per.get)}); AdamW alone "
+          f"on shared gradients worst {rel['AdamW alone']:.3e}; params "
+          f"after the step worst {raw[worst]:.3e} ({worst}), "
+          f"{max(over.values()):.3f} of TOL + lr x gradient error / eps "
+          f"(lr {lr:.3e}) [{card}]")
+    bad = {k: v for k, v in rel.items() if not v <= TOL}
+    bad.update({k: v for k, v in over.items() if not v <= 1.0})
+    require(not bad, f"fp32 train step vs fp64: {bad} over the gate")
+    return rel
+
+
+def train_phase(dev, card):
+    """Phase 20: train, resume, prune and restore sparse-to-be Qwen3-4B at
+    full width (LM_LAYERS layers, bf16), then serve it through K3/K4.
+
+    (a) determinism: one step twice from one state, every bit equal;
+    (b) ``train`` TRAIN_STEPS steps (seq TRAIN_SEQ, batch TRAIN_BATCH,
+    remat on, a checkpoint every TRAIN_CKPT_EVERY), a fresh ``train`` to
+    TRAIN_RESUME that resumes from the newest checkpoint, bitwise equal to
+    TRAIN_RESUME steps in one run, its optimizer step restored; (c)
+    ``prune_masks`` at LM_DENSITY, PRUNE_STEPS fixed-mask steps, every
+    pruned weight exactly 0; (d) ``save`` then ``restore`` into
+    ``abstract_params`` templates, bitwise; (e) ``sparsify_model(strict=
+    True)`` of the restored weights and phases 7/8 on them (``Scheduler``,
+    tokens == solo, launches exact; the fp32 oracle); (f) the same batch
+    DESCENT_STEPS times at DESCENT_LR: the loss falls by more than 0.1, each
+    step timed by CUDA events, peak memory, one step traced; (g) the fp64
+    gate. The training launches none of the four kernels (the reference
+    trains the dense forward). Returns {kernel: launches} of (e)."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import ShapeConfig, load_config
+    from repro_torch.core.sparse import prune_by_magnitude
+    from repro_torch.data.pipeline import batch_for
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.sparsity import pruning
+    from repro_torch.sparsity.sparse_ffn import sparsify_model
+    from repro_torch.train.loop import TrainLoopConfig, init_state, train
+    from repro_torch.train.train_step import make_train_step
+    t_phase = time.perf_counter()
+    full = load_config(LM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=LM_LAYERS)
+    shape = ShapeConfig("phase20", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    total = TRAIN_RESUME + PRUNE_STEPS
+    opt_cfg = adamw.AdamWConfig(warmup_steps=2, total_steps=total)
+    (ROOT / "build").mkdir(exist_ok=True)
+    ck = tempfile.mkdtemp(prefix="phase20_ckpt_", dir=ROOT / "build")
+    free_gb = shutil.disk_usage(ck).free / 1e9
+    ffn_counts(reset=True)
+    try:
+        # (a) determinism of one step
+        state = init_state(cfg, seed=SEED, device=dev)
+        n, nbytes = dense_size(state.params)
+        print(f"phase 20: {full.name} at full width, {cfg.n_layers} of "
+              f"{full.n_layers} layers, {cfg.dtype}: {n / 1e9:.3f} B "
+              f"parameters ({nbytes / 1e9:.3f} GB, AdamW's fp32 moments "
+              f"{8 * n / 1e9:.3f} GB beside); seq {TRAIN_SEQ} x batch "
+              f"{TRAIN_BATCH}, remat on; disk free {free_gb:.1f} GB [{card}]")
+        step = make_train_step(cfg, opt_cfg)
+        batch = batch_for(cfg, shape, 0, seed=SEED, device=dev)
+        runs = [step(state.params, state.opt, batch) for _ in range(2)]
+        torch_sync()
+        diff = leaves_bitwise(runs[0], runs[1])
+        require(not diff, f"train step not deterministic: {diff[:6]}")
+        print(f"  determinism: one step twice from one state, params, "
+              f"moments and metrics bitwise equal "
+              f"({len(M.flatten_tree(runs[0]))} leaves) [{card}]")
+        del runs, state
+
+        # (b) train, resume, and the uninterrupted run
+        seen = {}
+        hook = lambda s, m: seen.__setitem__(s, m)           # noqa: E731
+        lc = TrainLoopConfig(steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
+                             ckpt_dir=ck, log_every=10 ** 9, seed=SEED)
+        t0 = time.perf_counter()
+        first = train(cfg, shape, lc, opt_cfg, step_hook=hook, device=dev)
+        t1 = time.perf_counter()
+        require(first.step == TRAIN_STEPS and ckpt.latest_step(ck) ==
+                TRAIN_STEPS, "the first run did not checkpoint its end")
+        del first
+        resumed = train(cfg, shape, dataclasses.replace(
+            lc, steps=TRAIN_RESUME), opt_cfg, step_hook=hook, device=dev)
+        t2 = time.perf_counter()
+        require(resumed.step == TRAIN_RESUME and
+                int(resumed.opt.step) == TRAIN_RESUME,
+                f"resume: step {resumed.step}, opt.step "
+                f"{int(resumed.opt.step)}, expected {TRAIN_RESUME}")
+        one = train(cfg, shape, TrainLoopConfig(
+            steps=TRAIN_RESUME, log_every=10 ** 9, seed=SEED), opt_cfg,
+            device=dev)
+        diff = leaves_bitwise((resumed.params, resumed.opt),
+                              (one.params, one.opt))
+        require(not diff, f"restart != uninterrupted run: {diff[:6]}")
+        del one
+        losses = [seen[s]["loss"] for s in sorted(seen)]
+        secs = [seen[s]["sec"] for s in sorted(seen)]
+        print(f"  train {TRAIN_STEPS} steps (checkpoints every "
+              f"{TRAIN_CKPT_EVERY}) {t1 - t0:.2f} s, a fresh train to "
+              f"{TRAIN_RESUME} resumed at {TRAIN_STEPS} {t2 - t1:.2f} s "
+              f"(opt.step {int(resumed.opt.step)}), bitwise equal to "
+              f"{TRAIN_RESUME} steps in one run; loss by step "
+              f"{[round(x, 4) for x in losses]}; host s a step "
+              f"{[round(x, 3) for x in secs]} [{card}]")
+        require(all(np.isfinite(losses)), "train: loss not finite")
+
+        # (c) prune, then fixed-mask steps
+        t0 = time.perf_counter()
+        masks = pruning.prune_masks(resumed.params, pruning.PruneConfig(
+            density=LM_DENSITY))
+        prune_s = time.perf_counter() - t0
+        rep = pruning.density_report(resumed.params, masks)
+        require(len(rep) == 3 * cfg.n_layers and all(
+            abs(d - LM_DENSITY) < 0.01 for d in rep.values()),
+            f"prune_masks: densities {rep}")
+        params = pruning.apply_masks(resumed.params, masks)
+        opt = resumed.opt
+        del resumed
+        pstep = pruning.make_pruned_train_step(make_train_step(cfg, opt_cfg),
+                                               masks)
+        plosses = []
+        for i in range(PRUNE_STEPS):
+            params, opt, m = pstep(params, opt, batch_for(
+                cfg, shape, TRAIN_RESUME + i, seed=SEED, device=dev))
+            plosses.append(float(m["loss"]))
+        kept = {}                # {leaf: (pruned non-zero, kept non-zero)}
+        M.map_tree_with_path(
+            lambda path, p, mk: None if mk is None else kept.__setitem__(
+                M.path_key(path), (int((p[mk == 0] != 0).sum()),
+                                   int((p[mk == 1] != 0).sum()))),
+            params, masks)
+        require(all(v[0] == 0 for v in kept.values()),
+                f"a pruned weight moved: {kept}")
+        w0 = params["blocks"][0]["p0"]["ffn"]["w_in"].float().cpu().numpy()
+        require(np.array_equal(w0 * prune_by_magnitude(w0, LM_DENSITY), w0),
+                "packing would prune the trained weights again")
+        print(f"  prune_masks at {LM_DENSITY}: {len(rep)} leaves, density "
+              f"{min(rep.values()):.4f}-{max(rep.values()):.4f}, "
+              f"{prune_s:.2f} s on the host; {PRUNE_STEPS} fixed-mask steps,"
+              f" loss {[round(x, 4) for x in plosses]}, every pruned weight "
+              f"exactly 0 ({sum(v[1] for v in kept.values())} kept "
+              f"non-zero) [{card}]")
+
+        # (d) save, restore into abstract templates
+        t0 = time.perf_counter()
+        final = ckpt.save(ck, total, params, opt, extra={"arch": cfg.name})
+        save_s = time.perf_counter() - t0
+        ck_bytes = sum(f.stat().st_size for f in Path(final).iterdir())
+        abs_p = M.abstract_params(cfg)
+        t0 = time.perf_counter()
+        p2, o2, man = ckpt.restore(ck, total, abs_p, adamw.init(abs_p),
+                                   device=dev)
+        torch_sync()
+        restore_s = time.perf_counter() - t0
+        diff = leaves_bitwise((params, opt), (p2, o2))
+        require(not diff and man["step"] == total,
+                f"restore != saved: {diff[:6]}")
+        print(f"  checkpoint of step {total}: save {save_s:.2f} s, restore "
+              f"into abstract_params templates {restore_s:.2f} s, "
+              f"{ck_bytes / 1e9:.3f} GB (params and AdamW moments), "
+              f"bitwise equal; the loop's saves ran in threads [{card}]")
+        del params, opt, o2
+        launched = ffn_counts()
+        require(launched == {"k3": 0, "k4": 0},
+                f"training launched FFN kernels: {launched}")
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (e) pack the restored weights and serve them through K3/K4
+    scfg = dataclasses.replace(cfg, sparse_ffn=True)
+    t0 = time.perf_counter()
+    packed = sparsify_model(p2, scfg, density=LM_DENSITY,
+                            num_shards=LM_SHARDS, strict=True)
+    torch_sync()
+    print(f"  sparsify_model(strict=True) of the restored weights "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    del p2
+    launches = lm_serving_phase(scfg, packed, card)
+    lm_oracle_phase(scfg, packed)
+    del packed
+    torch.cuda.empty_cache()
+
+    # (f) descent on one batch, each step timed; one step traced
+    ffn_counts(reset=True)
+    state = init_state(cfg, seed=SEED, device=dev)
+    params, opt = state.params, state.opt
+    del state
+    dstep = make_train_step(cfg, adamw.AdamWConfig(lr=DESCENT_LR,
+                                                   warmup_steps=0))
+    batch = batch_for(cfg, shape, 0, seed=SEED, device=dev)
+    torch_sync()
+    torch.cuda.reset_peak_memory_stats()
+    ms, dlosses = [], []
+    for _ in range(DESCENT_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, m = dstep(params, opt, batch)
+        end.record()
+        torch_sync()
+        ms.append(start.elapsed_time(end))
+        dlosses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = float(np.median(ms[1:]))
+    kernels = trace_kernels(lambda: dstep(params, opt, batch))
+    busy = sum(t for _, t in kernels)
+    top = sorted(by_name(kernels).items(), key=lambda kv: -kv[1][1])[:5]
+    print(f"  same batch {DESCENT_STEPS} steps at lr {DESCENT_LR}: loss "
+          f"{[round(x, 4) for x in dlosses]} [{card}]")
+    print(f"  train step ({tokens} tokens, remat on): median "
+          f"{med:.4f} ms by CUDA events over steps 2-{DESCENT_STEPS} (range "
+          f"{min(ms[1:]):.4f}-{max(ms[1:]):.4f}; the first {ms[0]:.4f}), "
+          f"{tokens / med * 1e3:.1f} tok/s; peak {peak:.3f} GiB allocated "
+          f"[{card}]")
+    if kernels:
+        print(f"  one traced step (torch.profiler): {len(kernels)} kernels, "
+              f"the card busy {busy:.4f} ms, idle {med - busy:.4f} ms "
+              f"({(med - busy) / med:.1%}) of the median [{card}]; top: "
+              + "; ".join(f"{n[:48]} ({k}, {t:.4f})" for n, (k, t) in top))
+    else:
+        print("  one traced step: the profiler saw no kernel on the card "
+              "(not measured)")
+    require(dlosses[-1] < dlosses[0] - 0.1 and all(np.isfinite(dlosses)),
+            f"the loss did not fall on one batch: {dlosses}")
+    del params, opt
+    torch.cuda.empty_cache()
+    require(ffn_counts() == {"k3": 0, "k4": 0},
+            "the training step launched FFN kernels")
+
+    # (g) fp32 against fp64
+    train_fp64_gate(dev, card)
+    torch.cuda.empty_cache()
+    print(f"  phase 20 {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2601,6 +2948,8 @@ def main() -> int:
     slab_recs, slab_launches = lazy_phase(card)    # phase 11
     torch.cuda.empty_cache()
     vision_admission_phase(card, dev)              # phase 12 (VGG16)
+    launches["qwen3_4b_trained_serving"] = train_phase(dev, card)   # 20
+    torch.cuda.empty_cache()
 
     walker = kernels[0]
     walker["shapes"] += k1_recs + k1_rwkv_recs + slab_recs

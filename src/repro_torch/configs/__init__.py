@@ -1,6 +1,7 @@
 """Model configurations of the reference's ten archs."""
-from repro_torch.configs.base import (ARCHS, MambaConfig, ModelConfig,
-                                      MoEConfig, load_config, load_smoke)
+from repro_torch.configs.base import (ARCHS, SHAPES, MambaConfig,
+                                      ModelConfig, MoEConfig, ShapeConfig,
+                                      load_config, load_smoke)
 
-__all__ = ["ARCHS", "MambaConfig", "ModelConfig", "MoEConfig",
-           "load_config", "load_smoke"]
+__all__ = ["ARCHS", "SHAPES", "MambaConfig", "ModelConfig", "MoEConfig",
+           "ShapeConfig", "load_config", "load_smoke"]

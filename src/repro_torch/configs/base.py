@@ -89,6 +89,23 @@ class ModelConfig:
         return getattr(torch, self.dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """A workload's shape: sequence length, global batch and kind."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
 def load_config(arch: str) -> ModelConfig:
     return _module(arch).CONFIG
 

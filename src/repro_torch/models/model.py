@@ -20,12 +20,15 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.overrides import TorchFunctionMode
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
 Cache = List[Dict[str, Dict[str, torch.Tensor]]]
+META = torch.device("meta")
 
 
 def _uses_moe(cfg: ModelConfig, pos: int) -> bool:
@@ -40,14 +43,47 @@ def _uses_moe(cfg: ModelConfig, pos: int) -> bool:
 
 
 def map_tree(fn: Callable, *trees):
-    """Apply ``fn`` leaf-wise over nested dicts/lists of tensors of the
-    same structure (the port's stand-in for ``jax.tree.map``)."""
+    """Apply ``fn`` leaf-wise over nested dicts/lists/tuples (NamedTuples
+    too) of tensors of the same structure (the port's stand-in for
+    ``jax.tree.map``)."""
     t0 = trees[0]
     if isinstance(t0, dict):
         return {k: map_tree(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, tuple) and hasattr(t0, "_fields"):
+        return type(t0)(*(map_tree(fn, *xs) for xs in zip(*trees)))
     if isinstance(t0, (list, tuple)):
         return type(t0)(map_tree(fn, *xs) for xs in zip(*trees))
     return fn(*trees)
+
+
+def map_tree_with_path(fn: Callable, *trees, _path: Tuple = ()):
+    """:func:`map_tree` with each leaf's path, a tuple of dict keys, list
+    indices and NamedTuple field names, as ``fn``'s first argument (the
+    port's ``jax.tree_util.tree_map_with_path``)."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: map_tree_with_path(fn, *(t[k] for t in trees),
+                                      _path=_path + (k,)) for k in t0}
+    if isinstance(t0, tuple) and hasattr(t0, "_fields"):
+        return type(t0)(*(map_tree_with_path(fn, *xs, _path=_path + (f,))
+                          for f, xs in zip(t0._fields, zip(*trees))))
+    if isinstance(t0, (list, tuple)):
+        return type(t0)(map_tree_with_path(fn, *xs, _path=_path + (i,))
+                        for i, xs in enumerate(zip(*trees)))
+    return fn(_path, *trees)
+
+
+def path_key(path: Tuple) -> str:
+    """A leaf's path as one string, ``"blocks/0/p0/ffn/w_in"``."""
+    return "/".join(str(k) for k in path)
+
+
+def flatten_tree(tree) -> Dict[str, Any]:
+    """{:func:`path_key`: leaf} in :func:`map_tree`'s order."""
+    out: Dict[str, Any] = {}
+    map_tree_with_path(lambda path, leaf: out.__setitem__(path_key(path),
+                                                          leaf), tree)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -119,6 +155,30 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
         params["expert_perm"] = torch.arange(cfg.moe.num_experts,
                                              dtype=torch.int32, device=dev)
     return params
+
+
+class _NoDraw(TorchFunctionMode):
+    """Inside, every call that names a device or a generator builds its
+    tensor on the meta device, without the generator: no draw and no
+    allocation."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if "device" in kwargs or "generator" in kwargs:
+            kwargs.pop("generator", None)
+            kwargs["device"] = META
+        return func(*args, **kwargs)
+
+
+def abstract_params(cfg: ModelConfig) -> Params:
+    """The params tree of ``cfg`` as tensors on ``torch.device("meta")``:
+    every leaf's shape and dtype and no allocation (the templates of
+    ``ckpt.restore``; the full configs of 340B+ parameters too). A
+    generator cannot live on the meta device, so :func:`init_params` runs
+    with its CPU generator unused: each draw and each factory call inside
+    goes to the meta device without it."""
+    with _NoDraw():
+        return init_params(cfg, device="cpu")
 
 
 def _sparse_of(bp: Params, cfg: ModelConfig,
@@ -222,11 +282,21 @@ def encode(params: Params, src_embeds: torch.Tensor,
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             prefix_embeds: Optional[torch.Tensor] = None,
             src_embeds: Optional[torch.Tensor] = None,
+            remat: bool = False,
+            remat_group: int = 1,
             ssm_chunk: Optional[int] = None,
             flash_chunk: Optional[int] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward -> (logits [B, S_text, V] fp32, MoE aux loss
     summed over the blocks).
+
+    ``remat``: activation checkpointing, one
+    ``torch.utils.checkpoint.checkpoint`` per group of ``remat_group``
+    periods (which must divide the periods): only the residual stream
+    entering each group is kept for the backward, the rest is recomputed,
+    as the reference's ``jax.checkpoint`` with ``nothing_saveable`` over its
+    scan. The reference's ``unroll`` and ``flash_unroll`` exist for XLA's
+    cost analysis only and have no counterpart.
 
     ``prefix_embeds`` [B, P, D]: a modality prefix ahead of the tokens that
     attends bidirectionally (PaliGemma); its rows are stripped before the
@@ -258,16 +328,30 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
                              "needs src_embeds")
         enc_out = encode(params, src_embeds, cfg)
     expert_perm = params.get("expert_perm")
+
+    def run(group, x, aux):
+        for period in group:
+            for i, kind in enumerate(cfg.block_pattern):
+                x, a = _block_fwd(
+                    period[f"p{i}"], x, cfg, kind, positions=positions,
+                    mask=mask, expert_perm=expert_perm, enc_out=enc_out,
+                    ssm_chunk=ssm_chunk,
+                    flash_chunk=flash_chunk if use_flash else None)
+                if a is not None:
+                    aux = aux + a
+        return x, aux
+
+    blocks = params["blocks"]
+    if remat_group < 1 or len(blocks) % remat_group:
+        raise ValueError(f"remat_group {remat_group} does not divide "
+                         f"{len(blocks)} periods")
     aux = torch.zeros((), dtype=torch.float32, device=dev)
-    for period in params["blocks"]:
-        for i, kind in enumerate(cfg.block_pattern):
-            x, a = _block_fwd(period[f"p{i}"], x, cfg, kind,
-                              positions=positions, mask=mask,
-                              expert_perm=expert_perm, enc_out=enc_out,
-                              ssm_chunk=ssm_chunk,
-                              flash_chunk=flash_chunk if use_flash else None)
-            if a is not None:
-                aux = aux + a
+    for g in range(0, len(blocks), remat_group):
+        group = blocks[g:g + remat_group]
+        if remat:
+            x, aux = checkpoint(run, group, x, aux, use_reentrant=False)
+        else:
+            x, aux = run(group, x, aux)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)[:, prefix:]
     return _head(params, cfg, x), aux
 

@@ -1,0 +1,122 @@
+"""Checkpointed training loop with restart (port of
+``repro.train.loop``): the deterministic data pipeline, the train step,
+atomic async checkpoints (one save in flight at a time) and resuming from
+the newest complete checkpoint. The loop only sequences the step.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, Optional
+
+
+from repro_torch.ckpt import checkpoint as ckpt
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.data.pipeline import batch_for
+from repro_torch.models import model as M
+from repro_torch.optim import adamw
+from repro_torch.train.train_step import make_train_step
+
+
+@dataclasses.dataclass
+class TrainLoopConfig:
+    steps: int = 100
+    ckpt_every: int = 50
+    ckpt_dir: Optional[str] = None
+    log_every: int = 10
+    microbatches: int = 1
+    remat_group: int = 1
+    fsdp: bool = False
+    seed: int = 0
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Any
+    opt: adamw.OptState
+    step: int
+
+
+def _no_mesh(mesh, fsdp: bool = False) -> None:
+    if mesh is not None or fsdp:
+        raise NotImplementedError("sharded training (mesh=, fsdp) needs the "
+                                  "mesh port (A8)")
+
+
+def init_state(cfg: ModelConfig, mesh=None, *, fsdp: bool = False,
+               seed: int = 0, device="cuda") -> TrainState:
+    """Fresh params from ``seed`` on ``device`` and a zero optimizer."""
+    _no_mesh(mesh, fsdp)
+    params = M.init_params(cfg, seed=seed, device=device)
+    return TrainState(params, adamw.init(params), 0)
+
+
+def restore_or_init(cfg: ModelConfig, loop_cfg: TrainLoopConfig,
+                    mesh=None, device="cuda") -> TrainState:
+    """Resume from the newest complete checkpoint in ``loop_cfg.ckpt_dir``
+    if there is one, else :func:`init_state`. A resume never draws a fresh
+    init: the templates are ``abstract_params`` (meta tensors)."""
+    _no_mesh(mesh, loop_cfg.fsdp)
+    last = ckpt.latest_step(loop_cfg.ckpt_dir) if loop_cfg.ckpt_dir \
+        else None
+    if last is None:
+        return init_state(cfg, seed=loop_cfg.seed, device=device)
+    abs_p = M.abstract_params(cfg)
+    params, opt, man = ckpt.restore(loop_cfg.ckpt_dir, last, abs_p,
+                                    adamw.init(abs_p), device=device)
+    return TrainState(params, opt, int(man["step"]))
+
+
+def train(cfg: ModelConfig, shape: ShapeConfig,
+          loop_cfg: TrainLoopConfig = TrainLoopConfig(),
+          opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(),
+          mesh=None,
+          step_hook: Optional[Callable[[int, Dict], None]] = None,
+          post_step: Optional[Callable] = None,
+          device="cuda") -> TrainState:
+    """Run the loop from :func:`restore_or_init` to ``loop_cfg.steps``;
+    returns the final state.
+
+    ``step_hook(step, metrics)`` gets each step's metrics as floats and its
+    seconds (``sec``, host clock up to the metrics' read); without one, a
+    line is printed every ``log_every`` steps. ``post_step(state,
+    metrics)`` may return a new state (re-applied pruning masks, a rotated
+    MoE expert permutation). Every ``ckpt_every`` steps the state is saved
+    asynchronously (its host copy taken before the next step), one save in
+    flight at a time; the last is joined before returning. The params and
+    moments are updated in place from step to step.
+    """
+    state = restore_or_init(cfg, loop_cfg, mesh, device=device)
+    # the state is donated: each step updates its params and moments in
+    # place (as the reference jits its step with donate_argnums), so a
+    # step holds one copy of them
+    step_fn = make_train_step(cfg, opt_cfg,
+                              microbatches=loop_cfg.microbatches,
+                              remat_group=loop_cfg.remat_group, donate=True)
+    pending_save = None
+    while state.step < loop_cfg.steps:
+        batch = batch_for(cfg, shape, state.step, seed=loop_cfg.seed,
+                          device=device)
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(state.params, state.opt, batch)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        dt = time.perf_counter() - t0
+        state = TrainState(params, opt, state.step + 1)
+        if post_step is not None:
+            state = post_step(state, metrics) or state
+        if step_hook:
+            step_hook(state.step, {**metrics, "sec": dt})
+        elif state.step % loop_cfg.log_every == 0:
+            print(f"step {state.step:5d} loss {metrics['loss']:.4f} "
+                  f"gnorm {metrics.get('grad_norm', 0):.2f} "
+                  f"{dt * 1e3:.0f} ms")
+        if (loop_cfg.ckpt_dir and loop_cfg.ckpt_every
+                and state.step % loop_cfg.ckpt_every == 0):
+            if pending_save is not None:
+                pending_save.join()         # one save in flight at a time
+            pending_save = ckpt.save_async(
+                loop_cfg.ckpt_dir, state.step, state.params, state.opt,
+                extra={"arch": cfg.name, "loss": metrics["loss"]})
+    if pending_save is not None:
+        pending_save.join()
+    return state

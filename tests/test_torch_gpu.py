@@ -1242,3 +1242,105 @@ def test_capture_refuses_host_schedules_and_host_reads(cuda):
     torch.cuda.synchronize()
     assert torch.equal(x * 2, x + x)           # the card still works
     assert torch.equal(sparse_ffn_apply(sp, x, cfg.act), dense)
+
+
+# ---------------------------------------------------------------------------
+# training (phase 20 of chip_smoke.py at smoke size)
+# ---------------------------------------------------------------------------
+def _train_setup(cuda, arch, dtype):
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import batch_for
+    cfg = dataclasses.replace(load_smoke(arch), dtype=dtype)
+    params = M.init_params(cfg, seed=0, device=cuda)
+    batch = batch_for(cfg, ShapeConfig("t", 64, 4, "train"), 0, device=cuda)
+    return cfg, params, batch
+
+
+def test_train_step_on_card_matches_fp64(cuda):
+    """The fp32 step on the card (TF32 off) against the same step in fp64
+    on the card: loss, grad norm and every gradient within 1e-5; the params
+    after AdamW within 1e-5 plus ``lr * (gradient error) / eps`` (AdamW's
+    step-1 update ``g / (|g| + eps)``), and AdamW's own arithmetic on
+    shared gradients within 1e-5."""
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import (loss_and_grads,
+                                              make_train_step, promote_fp64)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params, batch = _train_setup(cuda, "qwen3_4b", "float32")
+    c64 = dataclasses.replace(cfg, dtype="float64")
+    p64 = M.map_tree(torch.Tensor.double, params)
+    opt_cfg = adamw.AdamWConfig(warmup_steps=0)
+    l32, _, g32 = loss_and_grads(params, batch, cfg)
+    n32, _, m32 = make_train_step(cfg, opt_cfg)(params, adamw.init(params),
+                                                batch)
+    with promote_fp64():
+        l64, _, g64 = loss_and_grads(p64, batch, c64, remat=False)
+        n64, _, m64 = adamw.apply(opt_cfg, p64, g64, adamw.init(p64))
+        q64 = adamw.apply(opt_cfg, p64, M.map_tree(
+            lambda g: g.float().double(), g64), adamw.init(p64))[0]
+    q32 = adamw.apply(opt_cfg, params, M.map_tree(torch.Tensor.float, g64),
+                      adamw.init(params))[0]
+
+    def rel(a, b):
+        return float((a.double() - b).abs().max() / b.abs().max())
+    assert rel(l32, l64) <= 1e-5
+    assert rel(m32["grad_norm"], m64["grad_norm"]) <= 1e-5
+    fg32, fg64 = M.flatten_tree(g32), M.flatten_tree(g64)
+    assert all(rel(fg32[k], fg64[k]) <= 1e-5 for k in fg64)
+    assert all(rel(a, b) <= 1e-5 for a, b in zip(
+        M.flatten_tree(q32).values(), M.flatten_tree(q64).values()))
+    lr = float(m64["lr"])
+    for (k, a), b in zip(M.flatten_tree(n32).items(),
+                         M.flatten_tree(n64).values()):
+        assert b.dtype == torch.float64
+        g_err = float((fg32[k].double() - fg64[k]).abs().max())
+        allow = 1e-5 * float(b.abs().max()) + lr * g_err / opt_cfg.eps
+        assert float((a.double() - b).abs().max()) <= allow, k
+
+
+@pytest.mark.parametrize("arch", ["qwen3_4b", "moonshot_v1_16b_a3b"])
+def test_train_step_deterministic_on_card(cuda, arch):
+    """One bf16 step twice from one state: params, moments and metrics bit
+    for bit equal (the embedding gather's backward and the MoE's dispatch
+    on the card included), and no FFN kernel launched by training."""
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+    cfg, params, batch = _train_setup(cuda, arch, "bfloat16")
+    step = make_train_step(cfg, adamw.AdamWConfig(warmup_steps=0))
+    before = (BITMASK_SPMM.launches, FUSED_FFN.launches)
+    runs = [step(params, adamw.init(params), batch) for _ in range(2)]
+    torch.cuda.synchronize()
+    fa, fb = M.flatten_tree(runs[0]), M.flatten_tree(runs[1])
+    for k in fa:
+        a, b = fa[k], fb[k]
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        assert torch.equal(a, b), k
+    assert (BITMASK_SPMM.launches, FUSED_FFN.launches) == before
+
+
+def test_train_loop_restart_and_restore_on_card(cuda, tmp_path):
+    """The loop on the card: 4 steps with a checkpoint every 2, resumed to
+    6, bitwise equal to 6 in one run; the restored params on the card."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.train.loop import TrainLoopConfig, train
+    cfg = dataclasses.replace(load_smoke("qwen3_4b"), dtype="bfloat16")
+    shape = ShapeConfig("t", 32, 4, "train")
+    lc = TrainLoopConfig(steps=4, ckpt_every=2, ckpt_dir=str(tmp_path),
+                         log_every=100)
+    train(cfg, shape, lc, device=cuda)
+    st = train(cfg, shape, dataclasses.replace(lc, steps=6), device=cuda)
+    one = train(cfg, shape, TrainLoopConfig(steps=6, log_every=100),
+                device=cuda)
+    assert st.step == 6 and int(st.opt.step) == 6
+    assert st.params["embed"].device.type == "cuda"
+    for a, b in zip(M.flatten_tree((st.params, st.opt)).values(),
+                    M.flatten_tree((one.params, one.opt)).values()):
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        assert torch.equal(a, b)
+    p, _, _ = ckpt.restore(str(tmp_path), 6, M.abstract_params(cfg),
+                           device=cuda)
+    assert torch.equal(p["embed"].view(torch.int16),
+                       st.params["embed"].view(torch.int16))

@@ -86,3 +86,49 @@ def test_lm_entry_points_default_to_the_card():
         M.init_cache(cfg, 1, 4)
     with pytest.raises((AssertionError, RuntimeError)):
         main(["--arch", "qwen3_4b", "--smoke", "--sparse", "--continuous"])
+
+
+TRAIN_MODULES = ("repro_torch.optim.adamw", "repro_torch.ckpt.checkpoint",
+                 "repro_torch.data.pipeline", "repro_torch.train.train_step",
+                 "repro_torch.train.loop", "repro_torch.sparsity.pruning",
+                 "repro_torch.sparsity.instrument",
+                 "repro_torch.launch.train")
+
+
+def test_training_modules_import_no_jax_and_no_reference():
+    """The training and pruning modules, imported alone in a fresh
+    process, load neither JAX nor ``repro``."""
+    probe = (f"import importlib, sys\nfor m in {TRAIN_MODULES!r}:\n"
+             "    importlib.import_module(m)\n"
+             "print(sorted(m for m in sys.modules if m == 'jax' or "
+             "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro'))")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_training_entry_points_default_to_the_card(tmp_path):
+    """Training state, batches, restores and the training launcher need a
+    card unless the caller names the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device works")
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import ShapeConfig, load_smoke
+    from repro_torch.data.pipeline import batch_for
+    from repro_torch.launch.train import main
+    from repro_torch.models import model as M
+    from repro_torch.train.loop import TrainLoopConfig, init_state, train
+    cfg = load_smoke("qwen3_4b")
+    shape = ShapeConfig("t", 8, 2, "train")
+    ckpt.save(str(tmp_path), 1, M.init_params(cfg, device="cpu"))
+    for call in (lambda: init_state(cfg),
+                 lambda: batch_for(cfg, shape, 0),
+                 lambda: train(cfg, shape, TrainLoopConfig(steps=1)),
+                 lambda: ckpt.restore(str(tmp_path), 1,
+                                      M.abstract_params(cfg)),
+                 lambda: main(["--arch", "qwen3_4b", "--smoke",
+                               "--steps", "1"])):
+        with pytest.raises((AssertionError, RuntimeError)):
+            call()
