@@ -47,7 +47,15 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    arrivals every 2 steps, FFN probe on): tok/s, slot utilization, the
    probe's executed/skipped fractions, one launch of each FFN kernel per
    layer and forward, and every request's greedy tokens bitwise equal to
-   the same request served alone on a scheduler of the same width;
+   the same request served alone on a scheduler of the same width; the
+   admissions replayed from one captured graph (``GraphedAdmit``, the
+   slot a device tensor) and the probe captured (``GraphedFfnStats``),
+   its counters equal to the eager scheduler's; then the captured prefill
+   (``GraphedPrefill``), admission and probe against their eager paths:
+   bitwise equal, prefill and admission timed graph against eager (CUDA
+   events), the probe's replay equal to the eager probe; and (Qwen3-4B
+   only) a sampled ``generate`` (a seeded CUDA generator) captured and
+   eager: tokens bitwise equal, tok/s of each;
 8. the LM oracle: the same model in fp32, ``prefill`` and ``decode_step``
    logits through the kernels within rel err 1e-5 of the same forward with
    every FFN on its densified weights (``torch.matmul``, TF32 off);
@@ -114,7 +122,8 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    N(0, 1)`` from SEED) and a 16-token prompt, 32 new tokens each; K3's and
    K4's launches counted from zero (the encoder once, the decoder at the
    prefill and each decode step), tok/s on the host clock, every request's
-   tokens bitwise equal to the request generated alone; in fp32 the forward
+   tokens bitwise equal to the request generated alone, the held step's
+   captured prefill replayed by the second run; in fp32 the forward
    logits within 1e-5 of the forward with every encoder and decoder FFN on
    its densified weights, and ``prefill`` + ``decode_step`` within 1e-5 of
    the forward; K4 (relu) and K3 held to their plain versions as in phase 6
@@ -155,29 +164,39 @@ Phases, each of which stops the script with a non-zero exit when it fails:
 
 20. training and the pruning pipeline on Qwen3-4B at full width (bf16,
    4 of 36 layers, ~0.79 B parameters; seq 256, batch 8, remat on): one
-   step twice from one state bitwise equal (determinism); ``train`` 6
-   steps with a checkpoint every 3, then a fresh ``train`` to 9 that
-   resumes from step 6 (``opt.step`` 9), bitwise equal to 9 steps in one
-   run; ``prune_masks`` at 0.35 and 3 fixed-mask steps (every pruned weight
+   step twice from one state bitwise equal (determinism); the captured
+   step (``GraphedTrainStep``, one CUDA graph) bitwise equal to the eager
+   donated step over 3 steps from one state; ``train`` (captured by
+   default) 6 steps with a checkpoint every 3, then a fresh ``train`` to 9
+   that resumes from step 6 (``opt.step`` 9), bitwise equal to 9 steps in
+   one run; ``prune_masks`` at 0.35 and 3 captured fixed-mask steps
+   bitwise equal to the eager ``apply_masks`` steps (every pruned weight
    exactly 0); ``save`` then ``restore`` into ``abstract_params``
    templates, bitwise (seconds and bytes); ``sparsify_model(strict=True)``
    of the restored weights served through ``Scheduler`` as in phase 7 and
    held to phase 8's fp32 oracle (K3 and K4 on the trained weights); the
-   same batch 8 times at lr 1e-3 (the loss falls by more than 0.1), each
-   step timed by CUDA events (median ms, tok/s, peak GiB) and one traced
-   (the card's idle share, the largest kernels); one full-width layer in
-   fp32 (TF32 off, batch 2 x 64) against the same step in fp64 on the card
-   (loss, grad norm, every gradient within 1e-5; the params after AdamW
-   within 1e-5 plus lr x gradient error / eps; AdamW alone within 1e-5).
+   same batch 8 times at lr 1e-3, eager then captured (the same losses;
+   the loss falls by more than 0.1), each step timed by CUDA events
+   (median ms, tok/s, peak GiB; the graph's capture seconds and pool GiB)
+   and one step of each traced (the card's idle share, the largest
+   kernels); one full-width layer in fp32 (TF32 off, batch 2 x 64) against
+   the same step in fp64 on the card (loss, grad norm, every gradient
+   within 1e-5; the params after AdamW within 1e-5 plus lr x gradient
+   error / eps; AdamW alone within 1e-5); last, the launcher's ``train``
+   at all 36 layers, captured, for 5 steps (step ms and peak GiB; a depth
+   that does not fit is printed and the next of 30, 24, 18 tried).
    Training launches none of the four kernels.
 
 Phases 13-19 run between phases 10 and 11, phase 20 last; K3's and K4's
 ``launches_by_path`` gain the paths of 13, 14, 17, 18 and 20.
 
-The serving paths run compiled, as the reference's ``jax.jit`` does: the
-LM decode step under ``Scheduler`` and ``generate`` replays a CUDA graph
-per batch width, and ``VisionEngine`` and ``VisionServer`` replay the
-VGG16 forward captured per input shape (``repro_torch.graphs``). Phases 4,
+The serving and training paths run compiled, as the reference's
+``jax.jit`` does: the LM decode step under ``Scheduler`` and ``generate``
+replays a CUDA graph per batch width (greedy or sampled), their prefill
+and admission one per prompt length, the FFN probe one per width, the
+train step one per batch geometry, and ``VisionEngine`` and
+``VisionServer`` replay the VGG16 forward captured per input shape
+(``repro_torch.graphs``). Phases 4,
 7, 10, 11(d), 13, 15, 18 and 19 run the graphed default and, once, the
 eager path (``compiled=False``), and require their tokens or outputs
 bitwise equal, and the launch counts exact: the eager launches plus the
@@ -253,6 +272,10 @@ DECODE_STEPS = 16
 TRAIN_SEQ, TRAIN_BATCH = 256, 8
 TRAIN_STEPS, TRAIN_RESUME, TRAIN_CKPT_EVERY, PRUNE_STEPS = 6, 9, 3, 3
 DESCENT_STEPS, DESCENT_LR = 8, 1e-3
+GRAPH_STEPS = 3                  # captured train step against eager
+# the launcher's train at full depth (36 layers), captured; the depths
+# tried in turn if one does not fit the card
+FULL_DEPTHS, FULL_STEPS = (36, 30, 24, 18), 5
 FP64_BATCH, FP64_SEQ = 2, 64                 # one full-width layer, fp32
 
 
@@ -1251,8 +1274,15 @@ def lm_serving_phase(cfg, params, card):
                                    f"tokens != the eager one's")
     require(eager_launches == launches, f"{cfg.name}: graphed launches "
             f"{launches} != eager {eager_launches}")
-    g, = sch._step_fn.graphs.values()
+    require(sch.ffn_probe == eager_sch.ffn_probe, f"{cfg.name}: the "
+            f"captured probe's counters != the eager probe's")
     st, probe = sch.stats, sch.ffn_probe
+    g, = sch._step_fn.graphs.values()
+    adm, = sch._admit_fn.graphs.values()       # one prompt length
+    every = sch.captured_graphs()              # step, admission, probe
+    require(len(every) == 3 and adm.replays == st.prefills - 1,
+            f"{cfg.name}: {len(every)} graphs, admission replayed "
+            f"{adm.replays} times for {st.prefills} admissions")
     require(probe is not None, "the FFN probe found no sparse leaves")
     forwards = st.prefills + st.engine_steps + 1          # + the probe
     print(f"serving sparse {cfg.name} ({cfg.n_layers} layers, {cfg.dtype}):"
@@ -1262,7 +1292,8 @@ def lm_serving_phase(cfg, params, card):
           f"tok/s on the replayed decode step (first calls and the capture "
           f"included; eager step {eager_sch.stats.wall_s:.3f} s = "
           f"{eager_sch.stats.tok_per_s:.2f} tok/s, tokens bitwise equal), "
-          f"{st.prefills} prefills + {st.engine_steps} decode steps "
+          f"{st.prefills} admissions ({adm.replays} replays of one graph, "
+          f"capture {adm.capture_s:.3f} s) + {st.engine_steps} decode steps "
           f"({g.replays} replays of one graph, capture "
           f"{g.capture_s:.3f} s), slot utilization "
           f"{st.slot_utilization:.3f} [{card}]")
@@ -1271,20 +1302,27 @@ def lm_serving_phase(cfg, params, card):
           f"{probe['skipped_frac']:.4f}, weight-tile density "
           f"{probe['weight_tile_macs'] / probe['dense_tile_macs']:.4f}, "
           f"decode compaction {probe['decode_compaction']:.2f}x")
-    eager_part = st.prefills + 2        # the prefills, the probe, warm-up
+    # each graph's first call (the eager warm-up of the decode step, the
+    # admission and the probe), then every replay adds its tally
+    eager_part = len(every)
+    replays = sum(x.replays for x in every)
     print(f"  main-path launches: fused FFN {launches['k4']}, sparse matmul "
           f"{launches['k3']} ({cfg.n_layers} layers x {forwards} forwards "
           f"= {cfg.n_layers * forwards}: {cfg.n_layers} x {eager_part} eager"
-          f" + {g.replays} replays x a tally of {g.tally.get(BITMASK_SPMM)}"
-          f" / {g.tally.get(FUSED_FFN)}), equal to the eager step's")
+          f" (the first call of the step, admission and probe graphs) + "
+          f"{g.replays} step and {adm.replays} admission replays x a tally "
+          f"of {g.tally.get(BITMASK_SPMM)} / {g.tally.get(FUSED_FFN)}), "
+          f"equal to the eager paths'")
     for key, name, kernel in (("k4", "fused FFN", FUSED_FFN),
                               ("k3", "sparse matmul", BITMASK_SPMM)):
         require(launches[key] == cfg.n_layers * forwards,
                 f"{name} launched {launches[key]} times, expected one per "
                 f"layer and forward ({cfg.n_layers * forwards})")
-        require(g.tally.get(kernel) == cfg.n_layers and launches[key] ==
-                cfg.n_layers * eager_part + g.replays * g.tally[kernel],
-                f"{name}: launches != eager + replays x tally")
+        require(all(x.tally.get(kernel) == cfg.n_layers for x in every)
+                and launches[key] == cfg.n_layers * eager_part + sum(
+                    x.replays * x.tally[kernel] for x in every),
+                f"{name}: launches != eager + replays x tally "
+                f"({replays} replays)")
     for r in reqs:
         got = produced[r.rid]
         require(len(got) == LM_NEW and all(0 <= t < cfg.padded_vocab
@@ -1298,7 +1336,169 @@ def lm_serving_phase(cfg, params, card):
           f"{LM_SLOTS} slots ({len(reqs)} requests); request 0: "
           f"{produced[0][:12]}")
     decode_phase(cfg, params, card, LM_SLOTS, LM_PROMPT)
+    captured_serving_phase(cfg, params, card)
     return launches
+
+
+def timed_pair(graph_fn, eager_fn, reps: int):
+    """(graph ms, eager ms) a call by CUDA events: after one call of each
+    (the graph's warm-up and capture), ``reps`` calls of the graphed then
+    the eager function, in turns, 3 windows; the median window."""
+    import torch
+    graph_fn()
+    eager_fn()
+    torch_sync()
+    out = {"graph": [], "eager": []}
+    for _ in range(3):
+        for name, fn in (("graph", graph_fn), ("eager", eager_fn)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            torch_sync()
+            out[name].append(start.elapsed_time(end) / reps)
+    return float(np.median(out["graph"])), float(np.median(out["eager"]))
+
+
+def captured_serving_phase(cfg, params, card, reps: int = 5):
+    """The captured prefill, admission and probe of phases 7, 10 and 18
+    against their eager paths: bitwise equal (tokens, logits, caches,
+    counters), then each timed graph against eager (CUDA events,
+    :func:`timed_pair`): the prefill of LM_SLOTS prompts of LM_PROMPT
+    (``GraphedPrefill`` / ``prefill``) and one admission
+    (``GraphedAdmit`` with a device slot / ``prefill_lane`` +
+    ``write_lane``); the probe replayed (its second call) equal to the
+    eager probe on the same live batch. Runs after the main path's
+    counters were read."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serve import (GraphedAdmit, GraphedFfnStats,
+                                   GraphedPrefill)
+    from repro_torch.serve.engine import (make_ffn_stats_fn, prefill_lane,
+                                          write_lane)
+    dev = params["embed"].device
+    max_len = LM_PROMPT + LM_NEW
+    rng = np.random.default_rng(SEED + 7)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab, (LM_SLOTS, LM_PROMPT)),
+                           device=dev)
+    pre = GraphedPrefill(cfg)
+    for i in range(2):                         # the warm-up, then a replay
+        # a zeroed cache each time (the prefill writes into the one given,
+        # and an SSM's state carries on from it)
+        mine = M.init_cache(cfg, LM_SLOTS, max_len, device=dev)
+        last, got = pre(params, toks, mine)
+        wl, wc = M.prefill(params, cfg, toks, M.init_cache(
+            cfg, LM_SLOTS, max_len, device=dev))
+        require(torch.equal(last, wl) and all(torch.equal(a, b) for a, b in
+                zip(graph_leaves(got), graph_leaves(wc))),
+                f"{cfg.name}: the graphed prefill != prefill (call {i})")
+    gp, = pre.graphs.values()
+    p_ms = timed_pair(lambda: pre(params, toks, mine),
+                      lambda: M.prefill(params, cfg, toks, mine), reps)
+    admit = GraphedAdmit(cfg, max_len)
+    cache = M.init_cache(cfg, LM_SLOTS, max_len, device=dev)
+    want = M.map_tree(torch.clone, cache)
+    for i in range(LM_SLOTS + 2):
+        slot = i % LM_SLOTS
+        prompt = rng.integers(1, cfg.vocab, LM_PROMPT)
+        first, cache = admit(params, cache, prompt,
+                             torch.tensor(slot, device=dev))
+        tok, lane = prefill_lane(params, cfg, max_len,
+                                 torch.as_tensor(prompt, device=dev)[None])
+        write_lane(want, lane, slot)
+        require(torch.equal(first, tok) and all(
+            torch.equal(a, b) for a, b in zip(graph_leaves(cache),
+                                              graph_leaves(want))),
+            f"{cfg.name}: the graphed admission != prefill_lane + "
+            f"write_lane (admission {i})")
+    ga, = admit.graphs.values()
+    slot_t = torch.tensor(1, device=dev)
+    a_ms = timed_pair(
+        lambda: admit(params, cache, prompt, slot_t),
+        lambda: write_lane(want, prefill_lane(
+            params, cfg, max_len, torch.as_tensor(prompt, device=dev)[None])
+            [1], 1), reps)
+    probe = GraphedFfnStats(cfg)
+    live = np.array([True] * (LM_SLOTS - 1) + [False])
+    tok = rng.integers(1, cfg.vocab, (LM_SLOTS, 1))
+    pos = np.full(LM_SLOTS, LM_PROMPT)
+    eager_stats = make_ffn_stats_fn(cfg)(
+        params, cache, torch.as_tensor(tok, device=dev),
+        torch.as_tensor(pos, device=dev), torch.as_tensor(live, device=dev))
+    eager_stats = {k: float(v) for k, v in eager_stats.items()}
+    runs = [{k: float(v) for k, v in probe(params, cache, tok, pos,
+                                           live).items()} for _ in range(2)]
+    gs, = probe.graphs.values()
+    require(gs.replays == 1 and runs[0] == runs[1] == eager_stats,
+            f"{cfg.name}: the replayed probe's counters != the eager "
+            f"probe's")
+    print(f"  captured prefill ({LM_SLOTS} x {LM_PROMPT} tokens, "
+          f"{gp.replays} replays so far, capture {gp.capture_s:.3f} s, pool "
+          f"{gp.pool_bytes / 2**30:.3f} GiB): graph {p_ms[0]:.4f} ms, eager "
+          f"{p_ms[1]:.4f} ms ({p_ms[1] / p_ms[0]:.2f}x); admission (1 x "
+          f"{LM_PROMPT}, the slot a device tensor, capture "
+          f"{ga.capture_s:.3f} s): graph {a_ms[0]:.4f} ms, eager "
+          f"{a_ms[1]:.4f} ms ({a_ms[1] / a_ms[0]:.2f}x), by CUDA events, "
+          f"median of 3 windows of {reps}; both bitwise equal to eager "
+          f"({LM_SLOTS + 2} admissions); the probe replayed, its "
+          f"{len(eager_stats)} counters equal to the eager probe's "
+          f"[{card}]")
+    return {"prefill_ms": p_ms, "admit_ms": a_ms}
+
+
+def graph_leaves(tree):
+    from repro_torch.graphs import leaves
+    return leaves(tree)
+
+
+def sampled_generate_phase(cfg, params, card):
+    """Sampling on the graphed path: ``generate`` of LM_SLOTS prompts of
+    LM_PROMPT, LM_NEW new tokens, ``greedy=False`` with a CUDA generator
+    seeded SEED, captured (prefill and decode graphs, the generator
+    registered with the decode graph) and eager: tokens bitwise equal and
+    the generators' states equal after; tok/s of each on the host
+    clock (a first call of each before, so the timed graphed run replays a
+    held step's graphs)."""
+    import torch
+    from repro_torch.serve import GraphedServeStep, generate
+    dev = params["embed"].device
+    prompt = torch.as_tensor(np.random.default_rng(SEED + 11).integers(
+        1, cfg.vocab, (LM_SLOTS, LM_PROMPT)), device=dev)
+    step = GraphedServeStep(cfg, greedy=False)
+    out, secs, gens = {}, {}, {}
+    for name in ("graph", "eager"):
+        kw = {"step": step} if name == "graph" else {"compiled": False}
+        # one generator each (the graph is registered with it): a first
+        # run, then re-seeded for the timed one
+        gens[name] = torch.Generator(device=dev).manual_seed(SEED + 1)
+        generate(params, cfg, prompt, LM_NEW, greedy=False, rng=gens[name],
+                 **kw)
+        gens[name].manual_seed(SEED)
+        torch_sync()
+        t0 = time.perf_counter()
+        out[name] = generate(params, cfg, prompt, LM_NEW, greedy=False,
+                             rng=gens[name], **kw)
+        torch_sync()
+        secs[name] = time.perf_counter() - t0
+    require(torch.equal(out["graph"], out["eager"]) and torch.equal(
+        gens["graph"].get_state(), gens["eager"].get_state()),
+        f"{cfg.name}: sampled tokens of the graphed generate != eager on "
+        f"one seed")
+    g, = step.graphs.values()
+    greedy = generate(params, cfg, prompt, LM_NEW)
+    differs = int((greedy[:, LM_PROMPT:] != out["graph"][:, LM_PROMPT:])
+                  .sum())
+    n = LM_SLOTS * LM_NEW
+    print(f"  sampled generate ({LM_SLOTS} x {LM_PROMPT} prompt, {LM_NEW} "
+          f"new, seed {SEED}): graph {n / secs['graph']:.2f} tok/s "
+          f"({secs['graph']:.3f} s, {g.replays} decode replays in all), "
+          f"eager {n / secs['eager']:.2f} tok/s ({secs['eager']:.3f} s), "
+          f"host clock; tokens bitwise equal and the generators at one "
+          f"state after; {differs} of {n} tokens differ from greedy "
+          f"[{card}]")
+    require(differs > 0, "sampling drew the greedy tokens everywhere")
 
 
 def decode_phase(cfg, params, card, B, S, steps=DECODE_STEPS, src=None):
@@ -1786,6 +1986,9 @@ def seamless_phase(dev, card):
     torch_sync()
     dt2 = time.perf_counter() - t0
     require(torch.equal(again, out), "seamless: a second run differs")
+    gp, = step.prefill.graphs.values()
+    require(gp.replays == 1, f"seamless: the held step's prefill graph "
+                             f"replayed {gp.replays} times, expected 1")
     t0 = time.perf_counter()
     eager = generate(params, cfg, prompt, new, src_embeds=src,
                      compiled=False)
@@ -1804,7 +2007,8 @@ def seamless_phase(dev, card):
           f" {new} new tokens each, on the replayed decode step: "
           f"{R * new} tokens in {dt:.3f} s = {R * new / dt:.2f} tok/s "
           f"(first calls and the capture in), again {dt2:.3f} s = "
-          f"{R * new / dt2:.2f} tok/s; the eager step {dt_e:.3f} s = "
+          f"{R * new / dt2:.2f} tok/s (its prefill replayed: capture "
+          f"{gp.capture_s:.3f} s); the eager step {dt_e:.3f} s = "
           f"{R * new / dt_e:.2f} tok/s; tokens bitwise the same [{card}]")
     print(f"  main-path launches: fused FFN (relu) {launches['k4']}, sparse "
           f"matmul {launches['k3']} ({cfg.encoder_layers} encoder layers + "
@@ -2677,7 +2881,8 @@ def train_phase(dev, card):
     from repro_torch.sparsity import pruning
     from repro_torch.sparsity.sparse_ffn import sparsify_model
     from repro_torch.train.loop import TrainLoopConfig, init_state, train
-    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.train_step import GraphedTrainStep, \
+        make_train_step
     t_phase = time.perf_counter()
     full = load_config(LM_ARCH)
     cfg = dataclasses.replace(full, n_layers=LM_LAYERS)
@@ -2707,7 +2912,34 @@ def train_phase(dev, card):
         print(f"  determinism: one step twice from one state, params, "
               f"moments and metrics bitwise equal "
               f"({len(M.flatten_tree(runs[0]))} leaves) [{card}]")
-        del runs, state
+        del runs
+
+        # (a2) the captured step against the eager donated step
+        estep = make_train_step(cfg, opt_cfg, donate=True)
+        gstep = GraphedTrainStep(cfg, opt_cfg)
+        ep = M.map_tree(torch.clone, state.params)
+        eo = adamw.init(ep)
+        gp, go = state.params, state.opt
+        del state
+        for i in range(GRAPH_STEPS):
+            b = batch_for(cfg, shape, i, seed=SEED, device=dev)
+            ep, eo, em = estep(ep, eo, b)
+            gp, go, gm = gstep(gp, go, b)
+            diff = leaves_bitwise((gp, go, gm), (ep, eo, em))
+            require(not diff, f"captured train step {i + 1} != eager: "
+                              f"{diff[:6]}")
+        g, = gstep.graphs.values()
+        require(g.replays == GRAPH_STEPS - 1, "the train step did not "
+                                              "replay its graph")
+        print(f"  captured train step (GraphedTrainStep: forward, remat's "
+              f"recompute, gradients and AdamW in one CUDA graph): "
+              f"{GRAPH_STEPS} steps from one state bitwise equal to the "
+              f"eager donated step (params, moments, counter, metrics; "
+              f"the first eager, then {g.replays} replays), capture "
+              f"{g.capture_s:.3f} s, pool {g.pool_bytes / 2**30:.3f} GiB "
+              f"[{card}]")
+        del ep, eo, gp, go, gstep, g
+        torch.cuda.empty_cache()
 
         # (b) train, resume, and the uninterrupted run
         seen = {}
@@ -2757,13 +2989,30 @@ def train_phase(dev, card):
         params = pruning.apply_masks(resumed.params, masks)
         opt = resumed.opt
         del resumed
-        pstep = pruning.make_pruned_train_step(make_train_step(cfg, opt_cfg),
+        # the captured fixed-mask step (masks multiplied in place in the
+        # graph) against the eager one (apply_masks), from copies
+        pstep = pruning.make_pruned_train_step(
+            GraphedTrainStep(cfg, opt_cfg), masks)
+        estep = pruning.make_pruned_train_step(make_train_step(cfg, opt_cfg),
                                                masks)
+        ep = M.map_tree(torch.clone, params)
+        eo = adamw.OptState(opt.step.clone(), M.map_tree(torch.clone, opt.mu),
+                            M.map_tree(torch.clone, opt.nu))
+        ptrs = [t.data_ptr() for t in graph_leaves(params)]
         plosses = []
         for i in range(PRUNE_STEPS):
-            params, opt, m = pstep(params, opt, batch_for(
-                cfg, shape, TRAIN_RESUME + i, seed=SEED, device=dev))
+            b = batch_for(cfg, shape, TRAIN_RESUME + i, seed=SEED, device=dev)
+            ep, eo, em = estep(ep, eo, b)
+            params, opt, m = pstep(params, opt, b)
+            diff = leaves_bitwise((params, opt, m), (ep, eo, em))
+            require(not diff, f"captured fixed-mask step {i + 1} != eager "
+                              f"apply_masks: {diff[:6]}")
             plosses.append(float(m["loss"]))
+        del ep, eo
+        gpr, = pstep.graphs.values()
+        require(gpr.replays == PRUNE_STEPS - 1 and ptrs == [
+            t.data_ptr() for t in graph_leaves(params)],
+            "the fixed-mask steps were not replayed on the params in place")
         kept = {}                # {leaf: (pruned non-zero, kept non-zero)}
         M.map_tree_with_path(
             lambda path, p, mk: None if mk is None else kept.__setitem__(
@@ -2778,9 +3027,12 @@ def train_phase(dev, card):
         print(f"  prune_masks at {LM_DENSITY}: {len(rep)} leaves, density "
               f"{min(rep.values()):.4f}-{max(rep.values()):.4f}, "
               f"{prune_s:.2f} s on the host; {PRUNE_STEPS} fixed-mask steps,"
-              f" loss {[round(x, 4) for x in plosses]}, every pruned weight "
+              f" captured ({gpr.replays} replays, the masks multiplied in "
+              f"place, bitwise the eager apply_masks steps), loss "
+              f"{[round(x, 4) for x in plosses]}, every pruned weight "
               f"exactly 0 ({sum(v[1] for v in kept.values())} kept "
               f"non-zero) [{card}]")
+        del pstep, gpr
 
         # (d) save, restore into abstract templates
         t0 = time.perf_counter()
@@ -2822,58 +3074,131 @@ def train_phase(dev, card):
     del packed
     torch.cuda.empty_cache()
 
-    # (f) descent on one batch, each step timed; one step traced
+    # (f) descent on one batch, each step timed, eager then captured (the
+    # same losses); one step of each traced
     ffn_counts(reset=True)
-    state = init_state(cfg, seed=SEED, device=dev)
-    params, opt = state.params, state.opt
-    del state
-    dstep = make_train_step(cfg, adamw.AdamWConfig(lr=DESCENT_LR,
-                                                   warmup_steps=0))
     batch = batch_for(cfg, shape, 0, seed=SEED, device=dev)
-    torch_sync()
-    torch.cuda.reset_peak_memory_stats()
-    ms, dlosses = [], []
-    for _ in range(DESCENT_STEPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        params, opt, m = dstep(params, opt, batch)
-        end.record()
+    dcfg = adamw.AdamWConfig(lr=DESCENT_LR, warmup_steps=0)
+    timed = {}
+    for name in ("eager", "graph"):
+        state = init_state(cfg, seed=SEED, device=dev)
+        params, opt = state.params, state.opt
+        del state
+        dstep = GraphedTrainStep(cfg, dcfg) if name == "graph" else \
+            make_train_step(cfg, dcfg, donate=True)
         torch_sync()
-        ms.append(start.elapsed_time(end))
-        dlosses.append(float(m["loss"]))
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    med = float(np.median(ms[1:]))
-    kernels = trace_kernels(lambda: dstep(params, opt, batch))
-    busy = sum(t for _, t in kernels)
-    top = sorted(by_name(kernels).items(), key=lambda kv: -kv[1][1])[:5]
+        torch.cuda.reset_peak_memory_stats()
+        ms, dlosses = [], []
+        for _ in range(DESCENT_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            params, opt, m = dstep(params, opt, batch)
+            end.record()
+            torch_sync()
+            ms.append(start.elapsed_time(end))
+            dlosses.append(float(m["loss"]))
+        # steps 1-2: the first calls (the graph's eager warm-up and
+        # capture, then its first replay)
+        skip = 2
+        rec = {"ms": ms, "losses": dlosses,
+               "med": float(np.median(ms[skip:])), "skip": skip,
+               "peak": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "kernels": trace_kernels(lambda: dstep(params, opt, batch))}
+        if name == "graph":
+            g, = dstep.graphs.values()
+            rec["capture_s"], rec["pool"] = g.capture_s, g.pool_bytes / 2**30
+            del g
+        timed[name] = rec
+        del params, opt, dstep
+        torch.cuda.empty_cache()
+    dlosses = timed["eager"]["losses"]
+    require(timed["graph"]["losses"] == dlosses,
+            f"the captured descent's losses != eager: "
+            f"{timed['graph']['losses']} vs {dlosses}")
     print(f"  same batch {DESCENT_STEPS} steps at lr {DESCENT_LR}: loss "
-          f"{[round(x, 4) for x in dlosses]} [{card}]")
-    print(f"  train step ({tokens} tokens, remat on): median "
-          f"{med:.4f} ms by CUDA events over steps 2-{DESCENT_STEPS} (range "
-          f"{min(ms[1:]):.4f}-{max(ms[1:]):.4f}; the first {ms[0]:.4f}), "
-          f"{tokens / med * 1e3:.1f} tok/s; peak {peak:.3f} GiB allocated "
+          f"{[round(x, 4) for x in dlosses]}, the captured step's equal "
           f"[{card}]")
-    if kernels:
-        print(f"  one traced step (torch.profiler): {len(kernels)} kernels, "
-              f"the card busy {busy:.4f} ms, idle {med - busy:.4f} ms "
-              f"({(med - busy) / med:.1%}) of the median [{card}]; top: "
-              + "; ".join(f"{n[:48]} ({k}, {t:.4f})" for n, (k, t) in top))
-    else:
-        print("  one traced step: the profiler saw no kernel on the card "
-              "(not measured)")
+    for name, rec in timed.items():
+        med, ms, kernels = rec["med"], rec["ms"], rec["kernels"]
+        extra = (f"; capture {rec['capture_s']:.3f} s, pool "
+                 f"{rec['pool']:.3f} GiB") if name == "graph" else ""
+        print(f"  train step, {name} ({tokens} tokens, remat on): median "
+              f"{med:.4f} ms by CUDA events over steps {rec['skip'] + 1}-"
+              f"{DESCENT_STEPS} (range {min(ms[rec['skip']:]):.4f}-"
+              f"{max(ms[rec['skip']:]):.4f}; the first {ms[0]:.4f}), "
+              f"{tokens / med * 1e3:.1f} tok/s; peak {rec['peak']:.3f} GiB "
+              f"allocated{extra} [{card}]")
+        if not kernels:
+            print(f"  one traced {name} step: the profiler saw no kernel on "
+                  f"the card (not measured)")
+            continue
+        busy = sum(t for _, t in kernels)
+        top = sorted(by_name(kernels).items(), key=lambda kv: -kv[1][1])[:5]
+        print(f"  one traced {name} step (torch.profiler): {len(kernels)} "
+              f"kernels, the card busy {busy:.4f} ms, idle "
+              f"{med - busy:.4f} ms ({(med - busy) / med:.1%}) of the median"
+              f" [{card}]; top: " + "; ".join(
+                  f"{n[:48]} ({k}, {t:.4f})" for n, (k, t) in top))
+    print(f"  train step graph against eager: {timed['graph']['med']:.4f} "
+          f"ms vs {timed['eager']['med']:.4f} ms "
+          f"({timed['eager']['med'] / timed['graph']['med']:.3f}x) [{card}]")
     require(dlosses[-1] < dlosses[0] - 0.1 and all(np.isfinite(dlosses)),
             f"the loss did not fall on one batch: {dlosses}")
-    del params, opt
-    torch.cuda.empty_cache()
     require(ffn_counts() == {"k3": 0, "k4": 0},
             "the training step launched FFN kernels")
 
     # (g) fp32 against fp64
     train_fp64_gate(dev, card)
     torch.cuda.empty_cache()
+    gc.collect()
+
+    # (h) the launcher at full depth, captured
+    full_depth_train(dev, card)
     print(f"  phase 20 {time.perf_counter() - t_phase:.1f} s [{card}]")
     return launches
+
+
+def full_depth_train(dev, card):
+    """Phase 20 (h): ``python -m repro_torch.launch.train --arch qwen3_4b``
+    (all 36 layers, seq TRAIN_SEQ x batch TRAIN_BATCH, the captured step)
+    for FULL_STEPS steps in this process: its step ms (host clock, the
+    median after the first two) and peak GiB. Where a depth does not fit
+    the card (out of memory) that is printed on its own line and the next
+    depth of FULL_DEPTHS is tried; none fitting fails the phase."""
+    import torch
+    from repro_torch.graphs import GraphCaptureError
+    from repro_torch.launch import train as launch_train
+    for depth in FULL_DEPTHS:
+        argv = ["--arch", LM_ARCH, "--steps", str(FULL_STEPS), "--seq",
+                str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH), "--layers",
+                str(depth)]
+        t0 = time.perf_counter()
+        out = None
+        try:
+            out = launch_train.main(argv)
+        except (torch.OutOfMemoryError, GraphCaptureError) as e:
+            # a capture that ran out of memory names it in its message
+            if "out of memory" not in str(e):
+                raise
+            why = f"{type(e).__name__}: {str(e)[:200]}"
+        gc.collect()                    # the failed run's tensors go too
+        torch.cuda.empty_cache()
+        if out is None:
+            print(f"  full-depth train: {depth} layers did not fit the card "
+                  f"({why}); {torch.cuda.memory_reserved() / 2**30:.3f} GiB "
+                  f"still reserved after [{card}]")
+            continue
+        require(out["steps"] == FULL_STEPS and np.isfinite(out["step_ms"]),
+                f"full-depth train: {out}")
+        print(f"  full-depth train (the launcher, {depth} of 36 layers, "
+              f"captured, seq {TRAIN_SEQ} x batch {TRAIN_BATCH}): step "
+              f"{out['step_ms']:.3f} ms (median of steps 3-{FULL_STEPS}, "
+              f"host clock), the first {out['first_ms']:.3f} ms (eager "
+              f"warm-up), peak {out['peak_gib']:.3f} GiB allocated, "
+              f"{time.perf_counter() - t0:.1f} s in all [{card}]")
+        return out
+    raise SmokeFailure(f"full-depth train: no depth of {FULL_DEPTHS} fits")
 
 
 def main() -> int:
@@ -2913,6 +3238,7 @@ def main() -> int:
     lm_admission_phase(cfg, params, card)          # phase 12 (Qwen3-4B)
     recs = ffn_kernel_phase(params, cfg, card)     # phase 6
     launches = {"qwen3_4b_serving": lm_serving_phase(cfg, params, card)}
+    sampled_generate_phase(cfg, params, card)
     lm_oracle_phase(cfg, params)                   # phase 8
     k1_recs, k1_qwen = walker_ffn_phase(params, cfg, card)   # phase 9
     del params

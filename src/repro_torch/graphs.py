@@ -1,18 +1,22 @@
 """CUDA graphs: the port's counterpart of the reference's ``jax.jit``.
 
-The reference compiles each serving path once per static shape: the
-decode step (``jitted_serve_step``, ``repro.serve.engine``) and the whole
-VGG16 forward (``repro.vision.model.compile_forward``). Here a
+The reference compiles each path once per static shape: the decode step,
+the prefill, slot admission and the FFN probe (``jitted_serve_step``,
+``jitted_prefill``, ``jitted_admit``, ``jitted_ffn_stats``,
+``repro.serve.engine``), the train step (``repro.train.loop``, with
+donation) and the whole VGG16 forward
+(``repro.vision.model.compile_forward``). Here a
 :class:`CapturedGraph` captures one callable, the *body*, with
 ``torch.cuda.graph`` into a private memory pool, and replays it after
 copying new inputs into its static input buffers.
 
 * **Static inputs.** The first call copies each input into a buffer of
   the graph's own, so the caller's tensors are never written; an input
-  the caller marks as adopted (``adopt``, the decode step's cache) is
-  taken as the buffer itself, which the graph reads and writes. Later
-  calls copy each input into its buffer (``copy_``, from the host or the
-  card); a call given the buffer itself copies nothing. The buffers are
+  the caller marks as adopted (``adopt``: the decode step's cache, the
+  train step's params and optimizer state) is taken as the buffer
+  itself, which the graph reads and writes. Later calls copy each input
+  into its buffer (``copy_``, from the host or the card); a call given
+  the buffer itself copies nothing. The buffers are
   never reallocated: the graph bakes in their addresses, as K1's tensor
   maps bake in its input's.
 * **Warm-up, then capture.** The first call runs the body eagerly. That
@@ -32,6 +36,12 @@ copying new inputs into its static input buffers.
   every later call of that graph; nothing runs eagerly in its place. The
   port's lint flags host reads in the bodies statically
   (``GRAPH-HOST-READ``): mark each body with :func:`captured`.
+* **Random numbers.** A body that draws from a ``torch.Generator`` of the
+  card's (a sampled decode step) names it as ``generator``: the graph
+  registers it (``CUDAGraph.register_generator_state``), so each replay
+  draws from the generator's current Philox offset and advances it by
+  what one eager call would, and a replayed run draws the eager run's
+  numbers.
 * **The CPU.** There is nothing to capture on the CPU: the body is called
   directly on the inputs given, as the kernels' plain versions are.
 
@@ -82,19 +92,23 @@ class CapturedGraph:
     call (the caller's tensors, then read and written by every replay);
     every other input is copied into a buffer of the graph's. ``keep``
     holds objects alive as long as the graph (the params whose addresses
-    it bakes in). ``name`` names the graph in errors. ``replays`` counts the replays, ``capture_s`` is the
+    it bakes in). ``generator`` is the ``torch.Generator`` the body draws
+    from, if any. ``name`` names the graph in errors. ``replays`` counts
+    the replays, ``capture_s`` is the
     capture's host time, ``pool_bytes`` the memory the capture reserved on
     the device (the graph's private pool: its intermediates and outputs)
     and ``tally`` the kernel launches one replay makes.
     """
 
     def __init__(self, body: Callable, device, name: str,
-                 adopt: Sequence[int] = (), keep: Any = None):
+                 adopt: Sequence[int] = (), keep: Any = None,
+                 generator: Optional[torch.Generator] = None):
         self.body = body
         self.device = torch.device(device)
         self.name = name
         self.adopt = frozenset(adopt)
         self.keep = keep
+        self.generator = generator
         self.static: Optional[tuple] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.error: Optional[GraphCaptureError] = None
@@ -145,6 +159,8 @@ class CapturedGraph:
         graph = torch.cuda.CUDAGraph()
         tally: Dict[_cuda.CudaKernel, int] = {}
         try:
+            if self.generator is not None:
+                graph.register_generator_state(self.generator)
             with torch.cuda.device(self.device), \
                     _cuda.capture_tally(tally), torch.cuda.graph(graph):
                 # after the context emptied the allocator's cache

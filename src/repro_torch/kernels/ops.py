@@ -124,8 +124,8 @@ def sparse_matmul_tile_stats(x: torch.Tensor, indices: torch.Tensor, *,
                     valid.reshape(-1).float())
     executed = (occ.sum(0).float() * cnt).sum()
     weight = valid.sum().float() * msub
-    dense = torch.tensor(float(indices.shape[0] * kb * msub),
-                         dtype=torch.float32, device=indices.device)
+    dense = torch.full((), float(indices.shape[0] * kb * msub),
+                       dtype=torch.float32, device=indices.device)
     return {"executed": executed, "weight_tile_macs": weight,
             "dense_tile_macs": dense}
 

@@ -451,7 +451,8 @@ def schedule_stats(patches: Optional[torch.Tensor], indices: torch.Tensor, *,
     return {"live_chunk_steps": live_steps,
             "dead_pairs": dead_pairs,
             "scheduled_steps": live_steps + dead_pairs,
-            "dense_grid_steps": torch.tensor(nb * mb * max_nz)}
+            "dense_grid_steps": torch.full((), nb * mb * max_nz,
+                                           dtype=torch.long, device=dev)}
 
 
 def schedule_counters(wl: WorkList, *,

@@ -2,18 +2,27 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_4b \\
         [--smoke] [--steps N] [--seq S] [--batch B] [--ckpt DIR] \\
-        [--microbatches M] [--lr LR] [--device cuda]
+        [--microbatches M] [--lr LR] [--device cuda] [--eager] \\
+        [--layers L]
 
 ``--smoke`` takes the reduced config of the same family (runs on the CPU
 with ``--device cpu``). A full config trains on one card where it fits:
 Qwen3-4B's 4.02 B parameters take 12 bytes each in bf16 with their
 gradients and AdamW's fp32 moments (~48 GB). ``--device`` defaults to
-``cuda``; ``--mesh`` and ``--fsdp`` wait for the mesh port (A8).
+``cuda``; ``--mesh`` and ``--fsdp`` wait for the mesh port (A8). The
+step is captured as one CUDA graph and replayed (the reference jits it);
+``--eager`` runs it op by op. ``--layers`` cuts the depth. At the end it
+prints the median step time (host clock, the steps after the first two:
+the eager warm-up with the capture, and the first replay) and, on the
+card, the peak memory; ``main`` returns them.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+from typing import Dict
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import SHAPES, ShapeConfig, load_config, \
@@ -22,7 +31,7 @@ from repro_torch.optim import adamw
 from repro_torch.train.loop import TrainLoopConfig, train
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> Dict[str, float]:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -39,12 +48,18 @@ def main(argv=None) -> None:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda: the card)")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the step op by op, not its CUDA graph")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     args = ap.parse_args(argv)
     if args.mesh or args.fsdp:
         raise NotImplementedError("--mesh and --fsdp need the mesh port "
                                   "(A8)")
 
     cfg = load_smoke(args.arch) if args.smoke else load_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     shape = SHAPES[args.shape] if args.shape \
         else ShapeConfig("cli", args.seq, args.batch, "train")
     dev = torch.device(args.device)
@@ -52,10 +67,30 @@ def main(argv=None) -> None:
         steps=args.steps, ckpt_dir=args.ckpt, ckpt_every=args.ckpt_every,
         microbatches=args.microbatches)
     opt_cfg = adamw.AdamWConfig(lr=args.lr, total_steps=args.steps)
-    print(f"arch={cfg.name} device={dev} seq={shape.seq_len} "
-          f"batch={shape.global_batch}")
-    state = train(cfg, shape, loop_cfg, opt_cfg, device=dev)
-    print(f"finished at step {state.step}")
+    print(f"arch={cfg.name} layers={cfg.n_layers} device={dev} "
+          f"seq={shape.seq_len} batch={shape.global_batch} "
+          f"step={'eager' if args.eager else 'graph'}")
+    if dev.type == "cuda" and torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats(dev)     # (train raises if not)
+    secs = []
+
+    def hook(step: int, m: Dict[str, float]) -> None:
+        secs.append(m["sec"])
+        if step % loop_cfg.log_every == 0:
+            print(f"step {step:5d} loss {m['loss']:.4f} gnorm "
+                  f"{m['grad_norm']:.2f} {m['sec'] * 1e3:.0f} ms")
+
+    state = train(cfg, shape, loop_cfg, opt_cfg, device=dev,
+                  compiled=not args.eager, step_hook=hook)
+    out = {"steps": state.step, "layers": cfg.n_layers,
+           "step_ms": float(np.median(secs[2:] or secs)) * 1e3,
+           "first_ms": secs[0] * 1e3 if secs else float("nan"),
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30
+           if dev.type == "cuda" else float("nan")}
+    print(f"finished at step {state.step}: step {out['step_ms']:.3f} ms "
+          f"(median, host clock, after the first two), the first "
+          f"{out['first_ms']:.3f} ms, peak {out['peak_gib']:.3f} GiB")
+    return out
 
 
 if __name__ == "__main__":

@@ -151,7 +151,10 @@ def _flash_sdpa(q, k, v, n_rep: int, *, window: Optional[int] = None,
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
     nch = (Sk + pad) // kv_chunk
-    scale = torch.tensor(1.0 / (dh ** 0.5), dtype=q.dtype, device=q.device)
+    # the scale rounded to q's dtype on the host: the same product as a
+    # 0-d tensor of that dtype, with no copy to the device (a capture
+    # cannot take one)
+    scale = torch.tensor(1.0 / (dh ** 0.5), dtype=q.dtype).item()
     qg = (q * scale).reshape(B, Sq, G, R, dh).float()
     q_pos = q_offset + torch.arange(Sq, device=q.device)
     out = torch.zeros((B, G, R, Sq, dh), dtype=torch.float32,

@@ -349,7 +349,10 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     for g in range(0, len(blocks), remat_group):
         group = blocks[g:g + remat_group]
         if remat:
-            x, aux = checkpoint(run, group, x, aux, use_reentrant=False)
+            # the forward draws no random numbers, so the RNG state is not
+            # stashed around the group (which a captured step cannot do)
+            x, aux = checkpoint(run, group, x, aux, use_reentrant=False,
+                                preserve_rng_state=False)
         else:
             x, aux = run(group, x, aux)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)[:, prefix:]
@@ -446,8 +449,8 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
 
     ``return_ffn_stats`` also returns the sparse-FFN stats summed over all
     blocks (tile-MAC counts and work-list schedule counters, fp32
-    scalars; zeros of the three tile-MAC keys when the params carry no
-    sparse leaves).
+    scalars on the device; zeros of the three tile-MAC keys when the
+    params carry no sparse leaves).
     """
     B = token.shape[0]
     dev = token.device
@@ -473,11 +476,13 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     logits = _head(params, cfg, x)
     if not return_ffn_stats:
         return logits, new_cache
+    # the sums stay on the device (a captured probe reads them after the
+    # replay)
     if stats:
-        totals = {k: sum(s[k].cpu() for s in stats) for k in stats[0]}
+        totals = {k: sum(s[k] for s in stats) for k in stats[0]}
     else:
-        totals = {k: torch.tensor(0.0) for k in
-                  ("executed", "weight_tile_macs", "dense_tile_macs")}
+        totals = {k: torch.zeros((), dtype=torch.float32, device=dev) for k
+                  in ("executed", "weight_tile_macs", "dense_tile_macs")}
     return logits, new_cache, totals
 
 

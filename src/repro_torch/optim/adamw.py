@@ -87,12 +87,15 @@ def apply(cfg: AdamWConfig, params, grads, state: OptState, *,
     param and moment is written into the tensor it replaces, leaf by leaf
     (the same bits), so the step holds one copy of the params and moments
     instead of two (the counterpart of the reference loop's
-    ``donate_argnums``); the given trees are then the results."""
+    ``donate_argnums``), and the step counter is advanced in place; the
+    given trees are then the results. ``lr`` and the bias corrections stay
+    device tensors computed from the counter, so a captured step (a CUDA
+    graph replayed on the same buffers) reads each step's own values."""
     gnorm = global_norm(grads)
     scale = torch.ones((), dtype=torch.float32, device=gnorm.device)
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
-    step = state.step + 1
+    step = state.step.add_(1) if donate else state.step + 1
     lr = schedule(cfg, step)
     b1c = 1 - torch.pow(cfg.b1, step.float())
     b2c = 1 - torch.pow(cfg.b2, step.float())

@@ -7,11 +7,17 @@ another lane's position. The slot lifecycle functions (``make_admit_fn``,
 ``reset_slots``) rebuild a reused lane from zeros before any read, so a
 new request can never observe its predecessor's KV state.
 
-The reference compiles these functions with ``jax.jit``. Here the decode
-step is captured in a CUDA graph per batch width
-(:class:`GraphedServeStep`, the counterpart of ``jitted_serve_step``),
-which ``generate`` and the scheduler replay on the card; prefill,
-admission and the FFN probe run eagerly.
+The reference compiles these functions with ``jax.jit``. Here each is
+captured in a CUDA graph (:mod:`repro_torch.graphs`) and replayed on the
+card: the decode step per batch width, greedy or sampled
+(:class:`GraphedServeStep`, the counterpart of ``jitted_serve_step``), the
+cache-writing prefill per prompt length and batch width
+(:class:`GraphedPrefill`, ``jitted_prefill``), slot admission per prompt
+length (:class:`GraphedAdmit`, ``jitted_admit``; the slot is a device
+tensor, as the reference's is traced) and the FFN probe
+(:class:`GraphedFfnStats`, ``jitted_ffn_stats``). ``generate`` and the
+scheduler use them by default; ``compiled=False`` runs the eager
+functions.
 """
 from __future__ import annotations
 
@@ -48,11 +54,18 @@ def make_prefill_fn(cfg: ModelConfig, ssm_chunk: Optional[int] = None,
 
 def _pick(logits: torch.Tensor, greedy: bool,
           rng: Optional[torch.Generator]) -> torch.Tensor:
-    """Greedy (first maximum) or a sample drawn with ``rng``."""
+    """Greedy (first maximum) or a sample drawn with ``rng``.
+
+    The sample is ``torch.multinomial(p, 1, generator=rng)`` written out as
+    that function draws one sample (``argmax(p / q)``, ``q ~ Exp(1)`` from
+    ``rng``): the same tokens and the same draws from ``rng``, without its
+    host-side check of ``p``, which reads the device and so cannot be
+    captured."""
     if greedy or rng is None:
         return torch.argmax(logits, dim=-1)
-    return torch.multinomial(torch.softmax(logits, dim=-1), 1,
-                             generator=rng)[:, 0]
+    p = torch.softmax(logits, dim=-1)
+    q = torch.empty_like(p).exponential_(1, generator=rng)
+    return torch.argmax(p / q, dim=-1)
 
 
 def make_serve_step(cfg: ModelConfig, greedy: bool = True):
@@ -66,18 +79,37 @@ def make_serve_step(cfg: ModelConfig, greedy: bool = True):
     return serve_step
 
 
+def _copy_into(dst, src):
+    """Copy every leaf of ``src`` into the same leaf of ``dst``; returns
+    ``dst``."""
+    M.map_tree(lambda d, s: d.copy_(s), dst, src)
+    return dst
+
+
+def _params_key(params) -> tuple:
+    """What a graph bakes in of the params: every leaf's address, shape and
+    type (rebinding a leaf needs a new graph)."""
+    return tuple((t.data_ptr(), t.shape, t.dtype)
+                 for t in graphs.leaves(params))
+
+
+def _geometry(tree) -> tuple:
+    return tuple((t.shape, t.dtype) for t in graphs.leaves(tree))
+
+
 @graphs.captured
-def _step_body(params, cfg: ModelConfig, greedy: bool):
+def _step_body(params, cfg: ModelConfig, greedy: bool,
+               rng: Optional[torch.Generator]):
     """The captured decode step: (cache, packed [3, B] int64: token, pos,
     active) -> (next_token [B, 1], cache, logits [B, V]). The eager step on
     those inputs, its new cache copied into ``cache`` at the end (the
-    graph's static buffers)."""
+    graph's static buffers); a sample draws from ``rng``."""
     def body(cache, packed):
         logits, new = M.decode_step(params, cfg, packed[0][:, None], cache,
                                     packed[1], active=packed[2].bool())
-        M.map_tree(lambda dst, src: dst.copy_(src), cache, new)
+        _copy_into(cache, new)
         logits = logits[:, 0]
-        return _pick(logits, greedy, None)[:, None], cache, logits
+        return _pick(logits, greedy, rng)[:, None], cache, logits
     return body
 
 
@@ -118,9 +150,14 @@ class GraphedServeStep:
     copies nothing, another cache of the same geometry is copied in first.
     ``token``, ``pos`` and ``active`` (None: every lane live) go in as one
     packed [3, B] copy. ``last_logits`` [B, V] fp32 are the last call's
-    logits (the graph's buffer: the next call overwrites them). Greedy
-    only: ``rng`` raises ``ValueError`` (sampling runs the eager
-    :func:`make_serve_step`). On the CPU the body runs directly.
+    logits (the graph's buffer: the next call overwrites them).
+
+    Sampled (``greedy=False`` with an ``rng``, a ``torch.Generator`` of the
+    params' device): the graph draws from ``rng`` (one graph per
+    generator, registered with it), so a replayed run samples the eager
+    step's tokens on the same seed. ``prefill`` is a :class:`GraphedPrefill`
+    of ``cfg`` that ``generate`` replays with this step, so a held step
+    keeps the prefill's graphs too. On the CPU the body runs directly.
     """
 
     def __init__(self, cfg: ModelConfig, greedy: bool = True):
@@ -128,28 +165,73 @@ class GraphedServeStep:
         self.greedy = greedy
         self.graphs: dict = {}
         self.last_logits: Optional[torch.Tensor] = None
+        self.prefill = GraphedPrefill(cfg)
 
-    def graph_for(self, params, cache) -> graphs.CapturedGraph:
-        weights = graphs.leaves(params)
-        key = (tuple((t.data_ptr(), t.shape, t.dtype) for t in weights),
-               tuple((t.shape, t.dtype) for t in graphs.leaves(cache)))
+    def graph_for(self, params, cache, rng=None) -> graphs.CapturedGraph:
+        sample = None if self.greedy else rng
+        key = (_params_key(params), _geometry(cache), id(sample))
         g = self.graphs.get(key)
         if g is None:
+            B = graphs.leaves(cache)[0].shape[0]
             g = graphs.CapturedGraph(
-                _step_body(params, self.cfg, self.greedy), _device(params),
-                f"{self.cfg.name} decode step (batch "
-                f"{key[1][0][0][0]})", adopt=(0,), keep=weights)
+                _step_body(params, self.cfg, self.greedy, sample),
+                _device(params),
+                f"{self.cfg.name} decode step (batch {B}"
+                f"{', sampled' if sample is not None else ''})",
+                adopt=(0,), keep=(graphs.leaves(params), sample),
+                generator=sample)
             self.graphs[key] = g
         return g
 
     def __call__(self, params, cache, token, pos, active=None, rng=None):
-        if rng is not None:
-            raise ValueError("the graphed decode step is greedy; sampling "
-                             "with rng runs the eager step "
-                             "(make_serve_step, generate(compiled=False))")
-        nxt, cache, self.last_logits = self.graph_for(params, cache)(
+        nxt, cache, self.last_logits = self.graph_for(params, cache, rng)(
             cache, _pack(token, pos, active))
         return nxt.clone(), cache
+
+
+@graphs.captured
+def _prefill_body(params, cfg: ModelConfig):
+    """The captured cache-writing prefill: (cache, tokens [B, S]) ->
+    (last_logits [B, V], the new cache in the graph's pool)."""
+    def body(cache, tokens):
+        return M.prefill(params, cfg, tokens, cache)
+    return body
+
+
+class GraphedPrefill:
+    """The cache-writing prefill captured in a CUDA graph per prompt length
+    and batch width: the port's counterpart of the reference's
+    ``jitted_prefill`` (one compile per prompt length). Called as
+    :func:`repro_torch.models.model.prefill` is: (params, tokens [B, S],
+    cache) -> (last_logits [B, V], cache).
+
+    One graph per (params leaves' addresses, the tokens' shape, the cache's
+    geometry). The cache given is copied into the graph's input buffer and
+    the prefilled cache copied back into it after the replay: the cache
+    returned is the caller's own tensors, written in place (unlike
+    ``prefill``, which leaves it), never a buffer of the graph's pool
+    (which the next replay overwrites), so another graph may adopt it.
+    ``last_logits`` is a copy. On the CPU the body runs directly.
+    """
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.graphs: dict = {}
+
+    def graph_for(self, params, tokens, cache) -> graphs.CapturedGraph:
+        key = (_params_key(params), tuple(tokens.shape), _geometry(cache))
+        g = self.graphs.get(key)
+        if g is None:
+            g = graphs.CapturedGraph(
+                _prefill_body(params, self.cfg), _device(params),
+                f"{self.cfg.name} prefill (batch {tokens.shape[0]}, prompt "
+                f"{tokens.shape[1]})", keep=graphs.leaves(params))
+            self.graphs[key] = g
+        return g
+
+    def __call__(self, params, tokens, cache):
+        last, new = self.graph_for(params, tokens, cache)(cache, tokens)
+        return last.clone(), _copy_into(cache, new)
 
 
 def write_lane(cache, lane, slot: int):
@@ -188,6 +270,62 @@ def make_admit_fn(cfg: ModelConfig, max_len: int, greedy: bool = True):
     return admit
 
 
+@graphs.captured
+def _admit_body(params, cfg: ModelConfig, max_len: int, greedy: bool):
+    """The captured admission: (cache, packed [S + 1] int64: the prompt,
+    then the slot) -> (first_token [1, 1], cache): a zeroed lane prefilled
+    with the prompt and written over row ``slot`` of ``cache`` in place
+    (:func:`write_lane`'s bits, the slot a tensor on the device)."""
+    def body(cache, packed):
+        prompt, slot = packed[None, :-1], packed[-1:]
+        lane = M.init_cache(cfg, 1, max_len, device=packed.device)
+        last, lane = M.prefill(params, cfg, prompt, lane)
+        M.map_tree(lambda big, ln: big.index_copy_(0, slot, ln.to(big.dtype)),
+                   cache, lane)
+        return _pick(last, greedy, None)[:, None], cache
+    return body
+
+
+class GraphedAdmit:
+    """Slot admission captured in a CUDA graph per prompt length: the
+    port's counterpart of the reference's ``jitted_admit`` (its ``slot``
+    traced, so one compile per prompt length, not per slot). (params,
+    cache, prompt [1, S] or [S], slot) -> (first_token [1, 1], cache): the
+    same tokens and cache as :func:`prefill_lane` then :func:`write_lane`.
+
+    The cache is the caller's (the scheduler's), adopted by the graph as
+    its buffer and written in place, as :class:`GraphedServeStep` adopts
+    it; another cache of the same geometry is copied in. The prompt and the
+    slot (an int, or a one-element tensor) go in as one packed copy. One
+    graph per (params leaves' addresses, cache geometry, prompt length).
+    On the CPU the body runs directly.
+    """
+
+    def __init__(self, cfg: ModelConfig, max_len: int, greedy: bool = True):
+        if cfg.encoder_layers:
+            raise ValueError("slot admission serves decoder-only models")
+        self.cfg = cfg
+        self.max_len = max_len
+        self.greedy = greedy
+        self.graphs: dict = {}
+
+    def __call__(self, params, cache, prompt, slot):
+        prompt = torch.as_tensor(prompt).reshape(-1)
+        packed = torch.cat([prompt.long(), torch.as_tensor(
+            slot, device=prompt.device).reshape(1).long()])
+        key = (_params_key(params), _geometry(cache), prompt.shape[0])
+        g = self.graphs.get(key)
+        if g is None:
+            g = graphs.CapturedGraph(
+                _admit_body(params, self.cfg, self.max_len, self.greedy),
+                _device(params), f"{self.cfg.name} admission (prompt "
+                f"{prompt.shape[0]})", adopt=(0,),
+                keep=graphs.leaves(params))
+            self.graphs[key] = g
+        first, cache = g(cache, packed)
+        return first.clone(), cache
+
+
 def make_ffn_stats_fn(cfg: ModelConfig):
     """Read-only instrumented decode step: (params, cache, token, pos
     [, active]) -> the sparse-FFN stats summed over all blocks. The step's
@@ -196,6 +334,41 @@ def make_ffn_stats_fn(cfg: ModelConfig):
         return M.decode_step(params, cfg, token, cache, pos, active=active,
                              return_ffn_stats=True)[2]
     return stats_step
+
+
+@graphs.captured
+def _ffn_stats_body(params, cfg: ModelConfig):
+    """The captured probe: (cache, packed [3, B] int64) -> the stats of
+    :func:`make_ffn_stats_fn`, 0-d tensors on the device."""
+    def body(cache, packed):
+        return M.decode_step(params, cfg, packed[0][:, None], cache,
+                             packed[1], active=packed[2].bool(),
+                             return_ffn_stats=True)[2]
+    return body
+
+
+class GraphedFfnStats:
+    """The FFN probe captured in a CUDA graph per batch width: the port's
+    counterpart of the reference's ``jitted_ffn_stats``. Called as
+    :func:`make_ffn_stats_fn`'s function is: (params, cache, token, pos[,
+    active]) -> {stat: 0-d tensor}, the graph's output buffers (read them
+    before the next call). The cache is adopted and only read. On the CPU
+    the body runs directly."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.graphs: dict = {}
+
+    def __call__(self, params, cache, token, pos, active=None):
+        key = (_params_key(params), _geometry(cache))
+        g = self.graphs.get(key)
+        if g is None:
+            g = graphs.CapturedGraph(
+                _ffn_stats_body(params, self.cfg), _device(params),
+                f"{self.cfg.name} FFN probe (batch {token.shape[0]})",
+                adopt=(0,), keep=graphs.leaves(params))
+            self.graphs[key] = g
+        return g(cache, _pack(token, pos, active))
 
 
 def reset_slots(cache, free_mask: torch.Tensor):
@@ -218,13 +391,14 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, max_new: int,
     [B, S0 + max_new] tokens.
 
     ``compiled`` (the default, as the reference always jits) replays the
-    captured decode step (:class:`GraphedServeStep`) and is greedy: ``rng``
-    raises ``ValueError``. ``step`` is a :class:`GraphedServeStep` of
-    ``cfg`` the caller holds to keep its graphs across calls (by default a
-    new one, dropped on return; a held one copies the prefilled cache into
-    its graph's buffers once). ``compiled=False`` runs the eager step
-    (sampling with ``rng``, and the comparison runs). An
-    encoder-decoder first encodes
+    captured prefill and decode step (:class:`GraphedServeStep` and its
+    :class:`GraphedPrefill`), greedy or sampling with ``rng`` (a
+    ``torch.Generator`` of the prompt's device: the eager run's tokens on
+    the same seed). ``step`` is a :class:`GraphedServeStep` of ``cfg``
+    the caller holds to keep its graphs across calls (by default a new
+    one, dropped on return; a held one copies the prefilled cache into its
+    decode graph's buffers once). ``compiled=False`` runs the eager
+    functions (the comparison runs). An encoder-decoder first encodes
     ``src_embeds`` [B, S_enc, D] and writes each decoder block's cross K/V
     into the cache. ``prefix_embeds`` is refused: the cache-writing
     prefill takes no prefix (the reference's ``generate`` takes one and
@@ -233,9 +407,6 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, max_new: int,
     if prefix_embeds is not None:
         raise ValueError("generate's prefill takes no prefix_embeds; run a "
                          "prefix through forward(prefix_embeds=...)")
-    if compiled and rng is not None:
-        raise ValueError("generate(compiled=True) replays the greedy graphed "
-                         "decode step; sample with compiled=False")
     if step is not None and (not compiled or step.cfg != cfg
                              or step.greedy != greedy):
         raise ValueError("generate(step=...) takes a GraphedServeStep of "
@@ -253,7 +424,10 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, max_new: int,
     if step is None:
         step = GraphedServeStep(cfg, greedy) if compiled \
             else make_serve_step(cfg, greedy)
-    last, cache = M.prefill(params, cfg, prompt, cache)
+    if compiled:
+        last, cache = step.prefill(params, prompt, cache)
+    else:
+        last, cache = M.prefill(params, cfg, prompt, cache)
     tok = _pick(last, greedy, rng)[:, None].to(prompt.dtype)
     out = [prompt, tok]
     pos = torch.full((B,), S0, dtype=torch.long, device=prompt.device)

@@ -13,10 +13,13 @@ per-slot-position decode engine (port of ``repro.serve.scheduler``).
 The scheduler is host bookkeeping; the math runs in the engine functions
 on the params' device. By default (``compiled=True``) each decode step
 replays the captured step (:class:`~repro_torch.serve.engine.
-GraphedServeStep`, one graph for the scheduler's width), whose static
-buffer is the scheduler's cache, and the slot table goes to the card in
-one packed copy a step. On either step the scheduler writes admissions
-and lane resets into its cache in place.
+GraphedServeStep`, one graph for the scheduler's width), each admission
+the captured admission (:class:`~repro_torch.serve.engine.GraphedAdmit`,
+one graph per prompt length, the slot a device tensor) and the FFN probe
+its captured form (:class:`~repro_torch.serve.engine.GraphedFfnStats`),
+all three on the scheduler's cache as their static buffer; the slot table
+goes to the card in one packed copy a step. On either path the scheduler
+writes admissions and lane resets into its cache in place.
 """
 from __future__ import annotations
 
@@ -32,7 +35,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.balance import round_robin_permutation
 from repro_torch.models import model as M
 from repro_torch import graphs
-from repro_torch.serve.engine import (GraphedServeStep, make_ffn_stats_fn,
+from repro_torch.serve.engine import (GraphedAdmit, GraphedFfnStats,
+                                      GraphedServeStep, make_ffn_stats_fn,
                                       make_serve_step, prefill_lane,
                                       write_lane)
 
@@ -74,9 +78,9 @@ class Scheduler:
     ``max_len`` bounds prompt_len + max_new per request (one cache row per
     position). ``verify_artifacts`` (on by default) verifies the packed
     sparse-FFN leaves at construction, before any launch. ``compiled`` (on
-    by default, as the reference jits its step) replays the captured decode
-    step on the card; ``compiled=False`` runs the eager step, for the
-    comparison runs.
+    by default, as the reference jits its step, admission and probe)
+    replays the captured decode step, admission and FFN probe on the card;
+    ``compiled=False`` runs the eager functions, for the comparison runs.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, num_slots: int = 4,
@@ -98,13 +102,19 @@ class Scheduler:
         self.num_slots = num_slots
         self.max_len = max_len
         self.greedy = greedy
+        self.compiled = compiled
         if compiled:
             self._step_fn = GraphedServeStep(cfg, greedy)
+            self._admit_fn = GraphedAdmit(cfg, max_len, greedy)
+            self._stats_fn = GraphedFfnStats(cfg)
         else:
             eager = make_serve_step(cfg, greedy)
             self._step_fn = lambda params, cache, *slots: eager(
                 params, cache, *map(self._dev, slots))
-        self._stats_fn = make_ffn_stats_fn(cfg)
+            self._admit_fn = self._admit_eager
+            probe = make_ffn_stats_fn(cfg)
+            self._stats_fn = lambda params, cache, *slots: probe(
+                params, cache, *map(self._dev, slots))
         self.cache = M.init_cache(cfg, num_slots, max_len, device=self.device)
         # slot table
         self.slot_req = np.full(num_slots, -1, np.int64)
@@ -121,6 +131,19 @@ class Scheduler:
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
+
+    def captured_graphs(self) -> List[graphs.CapturedGraph]:
+        """The captured graphs of the decode step, admission and probe
+        (none when ``compiled=False``)."""
+        if not self.compiled:
+            return []
+        return [g for fn in (self._step_fn, self._admit_fn, self._stats_fn)
+                for g in fn.graphs.values()]
+
+    def _admit_eager(self, params, cache, prompt: np.ndarray, slot: int):
+        tok, lane = prefill_lane(params, self.cfg, self.max_len,
+                                 self._dev(prompt)[None], self.greedy)
+        return tok, write_lane(cache, lane, slot)
 
     # -- queue -------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -158,10 +181,9 @@ class Scheduler:
             req = self._next_arrived()
             if req is None:
                 break
-            prompt = self._dev(np.asarray(req.prompt, np.int64))[None]
-            tok, lane = prefill_lane(self.params, self.cfg, self.max_len,
-                                     prompt, self.greedy)
-            write_lane(self.cache, lane, int(s))
+            tok, self.cache = self._admit_fn(
+                self.params, self.cache, np.asarray(req.prompt, np.int64),
+                int(s))
             first = int(tok[0, 0])
             self.stats.prefills += 1
             self.stats.tokens += 1
@@ -199,8 +221,8 @@ class Scheduler:
         if not active.any():
             return None
         stats = self._stats_fn(self.params, self.cache,
-                               self._dev(self.slot_tok[:, None]),
-                               self._dev(self.slot_pos), self._dev(active))
+                               self.slot_tok[:, None], self.slot_pos, active)
+        # read after the replay (the captured probe keeps them on the card)
         stats = {k: float(v) for k, v in stats.items()}
         if stats["dense_tile_macs"] == 0:
             return None                  # dense params: nothing to skip

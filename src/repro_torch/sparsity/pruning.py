@@ -19,6 +19,7 @@ import torch
 from repro_torch.convert import STACKS
 from repro_torch.core.sparse import prune_by_magnitude
 from repro_torch.models.model import map_tree, map_tree_with_path, path_key
+from repro_torch.train.train_step import GraphedTrainStep
 
 Params = Dict[str, Any]
 
@@ -86,7 +87,16 @@ def make_pruned_train_step(base_step: Callable, masks: Params) -> Callable:
     """Wrap a train step so the params leave every step pruned. Masking
     after the optimizer update (rather than masking the gradients alone)
     also cancels weight decay's and momentum's drift at pruned
-    positions."""
+    positions.
+
+    A captured step (``train_step.GraphedTrainStep``) gives its captured
+    form: the masks multiplied into the params in place inside the graph,
+    after AdamW (the bits of :func:`apply_masks`), so the params stay the
+    graph's buffers from step to step and are never copied in. Any other
+    step is wrapped eagerly (new params each step)."""
+    if isinstance(base_step, GraphedTrainStep):
+        return base_step.with_masks(masks)
+
     def step(params, opt_state, batch):
         new_params, new_opt, metrics = base_step(params, opt_state, batch)
         return apply_masks(new_params, masks), new_opt, metrics

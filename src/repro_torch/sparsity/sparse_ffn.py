@@ -353,7 +353,8 @@ def sparse_ffn_tile_stats(sp: Dict[str, torch.Tensor], x: torch.Tensor,
     (``scheduled_steps``, ``live_chunk_steps``, ``flush_only_steps``,
     ``dense_grid_steps``) at ``sub_m``-row granularity, and
     ``predicated_grid_steps``, the in-lane sub-block steps the dense grid
-    iterates for the same batch. fp32 scalars.
+    iterates for the same batch. fp32 scalars on ``x``'s device (nothing
+    is read to the host: the captured probe runs it).
     """
     D = x.shape[-1]
     k_in = -(-D // chunk) * chunk
@@ -394,6 +395,8 @@ def sparse_ffn_tile_stats(sp: Dict[str, torch.Tensor], x: torch.Tensor,
                      ("live_chunk_steps", "live_chunk_steps"),
                      ("flush_only_steps", "dead_pairs"),
                      ("dense_grid_steps", "dense_grid_steps")):
-        totals[key] = (s_in[src] + s_out[src].to(s_in[src].device)).float()
-    totals["predicated_grid_steps"] = torch.tensor(float(pred))
+        totals[key] = (s_in[src] + s_out[src]).float()
+    # a shape-only count: a number filled on the device, not a host tensor
+    totals["predicated_grid_steps"] = torch.full(
+        (), float(pred), dtype=torch.float32, device=x.device)
     return totals

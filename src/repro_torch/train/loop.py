@@ -15,7 +15,7 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.data.pipeline import batch_for
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
-from repro_torch.train.train_step import make_train_step
+from repro_torch.train.train_step import GraphedTrainStep, make_train_step
 
 
 @dataclasses.dataclass
@@ -73,7 +73,7 @@ def train(cfg: ModelConfig, shape: ShapeConfig,
           mesh=None,
           step_hook: Optional[Callable[[int, Dict], None]] = None,
           post_step: Optional[Callable] = None,
-          device="cuda") -> TrainState:
+          device="cuda", compiled: bool = True) -> TrainState:
     """Run the loop from :func:`restore_or_init` to ``loop_cfg.steps``;
     returns the final state.
 
@@ -85,20 +85,29 @@ def train(cfg: ModelConfig, shape: ShapeConfig,
     asynchronously (its host copy taken before the next step), one save in
     flight at a time; the last is joined before returning. The params and
     moments are updated in place from step to step.
+
+    ``compiled`` (the default, as the reference always jits its step)
+    replays the step captured as one CUDA graph (:class:`~repro_torch.
+    train.train_step.GraphedTrainStep`: the first step eager, then the
+    capture; the state's tensors are its buffers, a resumed state's its
+    own graph's); ``compiled=False`` runs the same donated step eagerly.
+    On the CPU both run the step directly.
     """
     state = restore_or_init(cfg, loop_cfg, mesh, device=device)
     # the state is donated: each step updates its params and moments in
     # place (as the reference jits its step with donate_argnums), so a
     # step holds one copy of them
-    step_fn = make_train_step(cfg, opt_cfg,
-                              microbatches=loop_cfg.microbatches,
-                              remat_group=loop_cfg.remat_group, donate=True)
+    kw = dict(microbatches=loop_cfg.microbatches,
+              remat_group=loop_cfg.remat_group)
+    step_fn = GraphedTrainStep(cfg, opt_cfg, **kw) if compiled \
+        else make_train_step(cfg, opt_cfg, donate=True, **kw)
     pending_save = None
     while state.step < loop_cfg.steps:
         batch = batch_for(cfg, shape, state.step, seed=loop_cfg.seed,
                           device=device)
         t0 = time.perf_counter()
         params, opt, metrics = step_fn(state.params, state.opt, batch)
+        # the metrics are the graph's outputs: read before the next replay
         metrics = {k: float(v) for k, v in metrics.items()}
         dt = time.perf_counter() - t0
         state = TrainState(params, opt, state.step + 1)
@@ -114,6 +123,8 @@ def train(cfg: ModelConfig, shape: ShapeConfig,
                 and state.step % loop_cfg.ckpt_every == 0):
             if pending_save is not None:
                 pending_save.join()         # one save in flight at a time
+            # save_async copies the state to the host before it returns,
+            # so the next replay cannot overwrite what it saves
             pending_save = ckpt.save_async(
                 loop_cfg.ckpt_dir, state.step, state.params, state.opt,
                 extra={"arch": cfg.name, "loss": metrics["loss"]})

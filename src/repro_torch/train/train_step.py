@@ -4,10 +4,11 @@ accumulation and activation checkpointing, then one AdamW step.
 
 ``make_train_step(cfg, opt_cfg, microbatches)`` returns ``step(params,
 opt_state, batch) -> (params, opt_state, metrics)``, which leaves what it
-is given unchanged unless asked to update it in place (``donate``). The
-step runs eagerly; capturing it as one CUDA graph
-(the counterpart of the reference's ``jax.jit`` with donation) is ROADMAP
-A7b. Nothing in it launches a kernel of this package: the reference trains
+is given unchanged unless asked to update it in place (``donate``).
+:class:`GraphedTrainStep` is that donated step captured as one CUDA graph
+(forward, remat's recompute, the gradients and the AdamW update), the
+counterpart of the reference's ``jax.jit(step, donate_argnums=(0, 1))``.
+Nothing in either launches a kernel of this package: the reference trains
 the dense forward too.
 """
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Dict, Tuple
 import torch
 from torch.overrides import TorchFunctionMode
 
+from repro_torch import graphs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
@@ -115,6 +117,86 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
         return new_params, new_opt, {"loss": loss, **aux_m, **om}
 
     return step
+
+
+def _mask_in_place(params, masks) -> None:
+    """``p *= mask`` at every masked leaf: the bits of
+    ``pruning.apply_masks`` written into the params."""
+    M.map_tree(lambda p, m: None if m is None else p.mul_(m.to(p.dtype)),
+               params, masks)
+
+
+@graphs.captured
+def _train_body(step, masks):
+    """The captured train step: (params, opt_state, batch) -> (params,
+    opt_state, metrics), the donated ``step`` (params, moments and the
+    counter updated in place), then the fixed masks multiplied into the
+    params in place."""
+    def body(params, opt_state, batch):
+        params, opt_state, metrics = step(params, opt_state, batch)
+        if masks is not None:
+            _mask_in_place(params, masks)
+        return params, opt_state, metrics
+    return body
+
+
+class GraphedTrainStep:
+    """The train step captured in one CUDA graph: the port's counterpart of
+    the reference's ``jax.jit(step, donate_argnums=(0, 1))``. Called as
+    :func:`make_train_step`'s step is: (params, opt_state, batch) ->
+    (params, opt_state, metrics), with the same arguments
+    (``microbatches`` fixed per object).
+
+    * **Buffers.** The params and the optimizer state are adopted at the
+      first call as the graph's buffers, updated in place by every replay
+      (``donate``), and returned; the batch is copied into a static
+      buffer. A call given other tensors of the same geometry (a restored
+      state) copies them in. The metrics (``loss``, ``ce``, ``moe_aux``,
+      ``grad_norm``, ``lr``) are the graph's 0-d outputs: read them before
+      the next call.
+    * **Warm-up.** The first call runs the step eagerly (it is the real
+      step: params and moments advance once) and the capture follows.
+    * **Graphs.** One per batch geometry (the keys, shapes and types of the
+      batch), each holding the device memory of one step's intermediates
+      in its pool for as long as this object lives.
+    * ``masks`` (the params' tree, ``None`` at unpruned leaves): fixed-mask
+      fine-tuning, each masked param multiplied by its mask in place after
+      AdamW, bitwise ``pruning.apply_masks`` of the step's params
+      (:func:`with_masks`).
+
+    On the CPU the body runs directly: the donated step.
+    """
+
+    def __init__(self, cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
+                 microbatches: int = 1, remat_group: int = 1,
+                 ssm_chunk=None, flash_chunk=None, masks=None):
+        self.cfg, self.opt_cfg = cfg, opt_cfg
+        self.kw = dict(microbatches=microbatches, remat_group=remat_group,
+                       ssm_chunk=ssm_chunk, flash_chunk=flash_chunk)
+        self.masks = masks
+        self.graphs: dict = {}
+
+    def with_masks(self, masks) -> "GraphedTrainStep":
+        """A new step of the same arguments with ``masks`` fixed."""
+        return GraphedTrainStep(self.cfg, self.opt_cfg, masks=masks,
+                                **self.kw)
+
+    def graph_for(self, params, batch) -> graphs.CapturedGraph:
+        key = tuple((k, tuple(v.shape), v.dtype) for k, v in batch.items())
+        g = self.graphs.get(key)
+        if g is None:
+            step = make_train_step(self.cfg, self.opt_cfg, donate=True,
+                                   **self.kw)
+            g = graphs.CapturedGraph(
+                _train_body(step, self.masks), params["embed"].device,
+                f"{self.cfg.name} train step (batch "
+                f"{tuple(batch['tokens'].shape)})", adopt=(0, 1),
+                keep=self.masks)
+            self.graphs[key] = g
+        return g
+
+    def __call__(self, params, opt_state: adamw.OptState, batch):
+        return self.graph_for(params, batch)(params, opt_state, batch)
 
 
 def make_eval_step(cfg: ModelConfig):

@@ -1344,3 +1344,264 @@ def test_train_loop_restart_and_restore_on_card(cuda, tmp_path):
                            device=cuda)
     assert torch.equal(p["embed"].view(torch.int16),
                        st.params["embed"].view(torch.int16))
+
+
+# ---------------------------------------------------------------------------
+# the remaining compiled paths: the captured train step, prefill and
+# admission, the sampled decode step and the FFN probe
+# ---------------------------------------------------------------------------
+def _bitwise_trees(a, b) -> bool:
+    fa, fb = M.flatten_tree(a), M.flatten_tree(b)
+    if list(fa) != list(fb):
+        return False
+    for k in fa:
+        x, y = fa[k], fb[k]
+        if x.dtype != y.dtype:
+            return False
+        if x.dtype == torch.bfloat16:
+            x, y = x.view(torch.int16), y.view(torch.int16)
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+@pytest.mark.parametrize("arch,microbatches", [
+    ("qwen3_4b", 1), ("qwen3_4b", 2), ("moonshot_v1_16b_a3b", 1)])
+def test_graphed_train_step_bitwise_eager_on_card(cuda, arch, microbatches):
+    """bf16, 4 steps from one state: the captured step (eager warm-up,
+    capture, 3 replays) bitwise equal to the eager donated step (params,
+    moments, counter, metrics), the state's tensors kept; a restored state
+    (other tensors) copied into the buffers, no new graph; no FFN kernel
+    launched."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import batch_for
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import GraphedTrainStep, \
+        make_train_step
+    cfg, params, _ = _train_setup(cuda, arch, "bfloat16")
+    shape = ShapeConfig("t", 64, 4, "train")
+    batches = [batch_for(cfg, shape, i, device=cuda) for i in range(5)]
+    opt_cfg = adamw.AdamWConfig(warmup_steps=2)
+    eager = make_train_step(cfg, opt_cfg, microbatches=microbatches,
+                            donate=True)
+    graphed = GraphedTrainStep(cfg, opt_cfg, microbatches=microbatches)
+    ep = M.map_tree(torch.clone, params)
+    eo = adamw.init(ep)
+    gp = M.map_tree(torch.clone, params)
+    go = adamw.init(gp)
+    ptrs = [t.data_ptr() for t in M.flatten_tree((gp, go)).values()]
+    before = (BITMASK_SPMM.launches, FUSED_FFN.launches)
+    for i in range(4):
+        ep, eo, em = eager(ep, eo, batches[i])
+        gp, go, gm = graphed(gp, go, batches[i])
+        torch.cuda.synchronize()
+        assert _bitwise_trees((gp, go, gm), (ep, eo, em)), i
+    g, = graphed.graphs.values()
+    assert g.replays == 3 and g.pool_bytes > 0
+    assert [t.data_ptr() for t in M.flatten_tree((gp, go)).values()] == ptrs
+    # a restored state: other tensors of the same geometry, copied in
+    rp, ro = M.map_tree(torch.clone, ep), adamw.OptState(
+        eo.step.clone(), M.map_tree(torch.clone, eo.mu),
+        M.map_tree(torch.clone, eo.nu))
+    ep, eo, em = eager(ep, eo, batches[4])
+    gp, go, gm = graphed(rp, ro, batches[4])
+    torch.cuda.synchronize()
+    assert _bitwise_trees((gp, go, gm), (ep, eo, em))
+    assert len(graphed.graphs) == 1 and g.replays == 4
+    assert (BITMASK_SPMM.launches, FUSED_FFN.launches) == before
+
+
+def test_graphed_pruned_steps_and_compiled_loop_on_card(cuda, tmp_path):
+    """The captured fixed-mask steps bitwise the eager ``apply_masks``
+    steps, every pruned weight exactly 0, the params the graph's buffers
+    throughout; ``train`` compiled (the default) bitwise ``compiled=False``
+    and its resume bitwise the uninterrupted run."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import batch_for
+    from repro_torch.optim import adamw
+    from repro_torch.sparsity import pruning
+    from repro_torch.train.loop import TrainLoopConfig, train
+    from repro_torch.train.train_step import GraphedTrainStep, \
+        make_train_step
+    cfg, params, _ = _train_setup(cuda, "qwen3_4b", "bfloat16")
+    shape = ShapeConfig("t", 64, 4, "train")
+    masks = pruning.prune_masks(params, pruning.PruneConfig(
+        density=0.5, min_size=512))
+    start = pruning.apply_masks(params, masks)
+    opt_cfg = adamw.AdamWConfig(warmup_steps=0)
+    eager = pruning.make_pruned_train_step(make_train_step(cfg, opt_cfg),
+                                           masks)
+    graphed = pruning.make_pruned_train_step(GraphedTrainStep(cfg, opt_cfg),
+                                             masks)
+    ep, eo = start, adamw.init(start)
+    gp = M.map_tree(torch.clone, start)
+    go = adamw.init(gp)
+    ptrs = [t.data_ptr() for t in M.flatten_tree(gp).values()]
+    for i in range(4):
+        b = batch_for(cfg, shape, i, device=cuda)
+        ep, eo, em = eager(ep, eo, b)
+        gp, go, gm = graphed(gp, go, b)
+        torch.cuda.synchronize()
+        assert _bitwise_trees((gp, go, gm), (ep, eo, em)), i
+    assert [t.data_ptr() for t in M.flatten_tree(gp).values()] == ptrs
+    assert list(graphed.graphs.values())[0].replays == 3
+    M.map_tree(lambda p, m: None if m is None else
+               _assert(bool((p[m == 0] == 0).all())), gp, masks)
+    lc = TrainLoopConfig(steps=4, ckpt_every=2, ckpt_dir=str(tmp_path),
+                         log_every=100)
+    train(cfg, ShapeConfig("t", 32, 4, "train"), lc, device=cuda)
+    resumed = train(cfg, ShapeConfig("t", 32, 4, "train"),
+                    dataclasses.replace(lc, steps=6), device=cuda)
+    runs = [train(cfg, ShapeConfig("t", 32, 4, "train"),
+                  TrainLoopConfig(steps=6, log_every=100), device=cuda,
+                  compiled=c) for c in (True, False)]
+    assert _bitwise_trees((resumed.params, resumed.opt),
+                          (runs[0].params, runs[0].opt))
+    assert _bitwise_trees((runs[0].params, runs[0].opt),
+                          (runs[1].params, runs[1].opt))
+
+
+def _assert(cond: bool) -> None:
+    assert cond
+
+
+def test_graphed_admission_and_prefill_bitwise_eager_on_card(cuda):
+    """``GraphedAdmit`` (slot a device tensor, one graph per prompt
+    length) over 6 admissions into a dirty cache: first tokens and the
+    cache bitwise ``prefill_lane`` + ``write_lane``'s, the cache written in
+    place; ``GraphedPrefill`` replays bitwise ``prefill`` into the
+    caller's cache; K3/K4 counts exact (warm-ups + replays x tallies)."""
+    from repro_torch.serve import GraphedAdmit, GraphedPrefill
+    from repro_torch.serve.engine import prefill_lane, write_lane
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params = _graph_lm(cuda, "qwen3_4b")
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    cache = M.map_tree(lambda t: torch.randn(t.shape, generator=gen,
+                                             device=cuda).to(t.dtype),
+                       M.init_cache(cfg, 4, 16, device=cuda))
+    want = M.map_tree(torch.clone, cache)
+    before = _tensors(cache)
+    admit = GraphedAdmit(cfg, 16)
+    rng = np.random.default_rng(1)
+    BITMASK_SPMM.launches = FUSED_FFN.launches = 0
+    for i, (slot, S) in enumerate(((1, 7), (3, 7), (0, 5), (2, 7), (1, 5),
+                                   (0, 7))):
+        prompt = rng.integers(1, cfg.vocab, S)
+        first, cache = admit(params, cache, prompt,
+                             torch.tensor(slot, device=cuda))
+        tok, lane = prefill_lane(params, cfg, 16,
+                                 torch.as_tensor(prompt, device=cuda)[None])
+        write_lane(want, lane, slot)
+        torch.cuda.synchronize()
+        assert torch.equal(first, tok), i
+        assert all(torch.equal(a, b) for a, b in
+                   zip(_tensors(cache), _tensors(want))), i
+    assert all(a is b for a, b in zip(_tensors(cache), before))
+    assert sorted(g.replays for g in admit.graphs.values()) == [1, 3]
+    # 6 graphed + 6 eager admissions: 2 warm-ups and 4 replays graphed
+    n = cfg.n_layers
+    assert BITMASK_SPMM.launches == FUSED_FFN.launches == 12 * n
+    assert all(g.tally == {BITMASK_SPMM: n, FUSED_FFN: n}
+               for g in admit.graphs.values())
+    pre = GraphedPrefill(cfg)
+    toks = torch.randint(1, cfg.vocab, (3, 6), generator=gen, device=cuda)
+    for _ in range(3):
+        mine = M.init_cache(cfg, 3, 12, device=cuda)
+        last, got = pre(params, toks, mine)
+        wl, wc = M.prefill(params, cfg, toks, M.init_cache(cfg, 3, 12,
+                                                           device=cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(last, wl)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(_tensors(got), _tensors(wc)))
+        assert all(a is b for a, b in zip(_tensors(got), _tensors(mine)))
+    g, = pre.graphs.values()
+    assert g.replays == 2
+
+
+def test_graphed_scheduler_admits_and_probes_through_graphs_on_card(cuda):
+    """``Scheduler`` (compiled, the default) admits through ``GraphedAdmit``
+    and probes through ``GraphedFfnStats``: tokens, probe and cache equal
+    to ``compiled=False``'s, the admissions replayed, the K3/K4 launches
+    exact: one eager call per graph plus its replays x its tally."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params = _graph_lm(cuda, "qwen3_4b")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(1, cfg.vocab, (6, 9))
+    runs = {}
+    for compiled in (False, True):
+        BITMASK_SPMM.launches = FUSED_FFN.launches = 0
+        sch = Scheduler(cfg, params, num_slots=4, max_len=24,
+                        compiled=compiled)
+        out = sch.run([Request(i, prompts[i], 7, arrival=i) for i in
+                       range(6)], probe_ffn=True)
+        torch.cuda.synchronize()
+        runs[compiled] = (out, BITMASK_SPMM.launches, FUSED_FFN.launches,
+                          sch)
+    sch, eager = runs[True][3], runs[False][3]
+    assert runs[True][:3] == runs[False][:3]
+    assert sch.ffn_probe == eager.ffn_probe
+    a, = sch._admit_fn.graphs.values()
+    assert a.replays == 5
+    graphs = sch.captured_graphs()
+    assert len(graphs) == 3
+    n = cfg.n_layers
+    assert runs[True][1] == sum(n + g.replays * g.tally[BITMASK_SPMM]
+                                for g in graphs)
+
+
+def test_sampled_graphed_step_bitwise_eager_on_card(cuda):
+    """The sampled decode step replayed (a CUDA generator registered with
+    its graph): 6 steps' tokens and caches bitwise the eager step's on the
+    same seed, the generators' offsets equal after; ``generate(rng=...)``
+    compiled bitwise eager."""
+    from repro_torch.serve import GraphedServeStep, make_serve_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params = _graph_lm(cuda, "qwen3_4b")
+    B, S = 3, 6
+    g0 = torch.Generator(device=cuda).manual_seed(5)
+    toks = torch.randint(1, cfg.vocab, (B, S), generator=g0, device=cuda)
+    last, cache = M.prefill(params, cfg, toks,
+                            M.init_cache(cfg, B, 16, device=cuda))
+    eg, gg = (torch.Generator(device=cuda).manual_seed(9) for _ in range(2))
+    step = GraphedServeStep(cfg, greedy=False)
+    eager = make_serve_step(cfg, greedy=False)
+    ec, gc = M.map_tree(torch.clone, cache), M.map_tree(torch.clone, cache)
+    et = gt = torch.argmax(last, -1)[:, None]
+    for i in range(6):
+        pos = torch.full((B,), S + i, dtype=torch.long, device=cuda)
+        et, ec = eager(params, ec, et, pos, None, eg)
+        gt, gc = step(params, gc, gt, pos, None, gg)
+        torch.cuda.synchronize()
+        assert torch.equal(gt, et), i
+        assert all(torch.equal(a, b) for a, b in
+                   zip(_tensors(gc), _tensors(ec))), i
+    g, = step.graphs.values()
+    assert g.replays == 5
+    assert torch.equal(eg.get_state(), gg.get_state())
+    a, b = (torch.Generator(device=cuda).manual_seed(1) for _ in range(2))
+    got = generate(params, cfg, toks, 8, greedy=False, rng=a)
+    want = generate(params, cfg, toks, 8, greedy=False, rng=b,
+                    compiled=False)
+    assert torch.equal(got, want)
+
+
+def test_seeded_host_read_in_a_body_raises(cuda):
+    """A body that draws a seeded number and reads it to the host raises
+    ``GraphCaptureError`` naming the graph, at the capture and again; the
+    warm-up ran once, eagerly, and nothing runs in the graph's place."""
+    from repro_torch.graphs import CapturedGraph, GraphCaptureError
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    calls = []
+
+    def body(t):
+        calls.append(1)
+        r = torch.rand((), generator=gen, device=cuda)
+        return t * float(r)
+    g = CapturedGraph(body, cuda, "seeded read", generator=gen)
+    with pytest.raises(GraphCaptureError, match="seeded read"):
+        g(torch.ones(3, device=cuda))
+    with pytest.raises(GraphCaptureError, match="seeded read"):
+        g(torch.ones(3, device=cuda))
+    assert g.graph is None and len(calls) == 2     # warm-up, capture
+    torch.cuda.synchronize()

@@ -203,21 +203,30 @@ def test_scheduler_cache_written_in_place():
     assert all(a is b for a, b in zip(before, graphs.leaves(sch.cache)))
 
 
-def test_graphed_step_is_greedy_only():
+def test_graphed_generate_samples_as_eager():
+    """Sampling on the graphed path (the refusal of ``rng`` is gone):
+    ``generate(compiled=True, rng=...)`` and a held sampled step give the
+    eager run's tokens on the same seed, batch width 2, and leave the
+    generator where the eager run leaves it; the eager step keeps
+    sampling."""
     _, tcfg, _, tp = _models("qwen_wide")
     toks = _t(_prompts(tcfg)).long()
-    gen = torch.Generator().manual_seed(0)
+    gens = [torch.Generator().manual_seed(0) for _ in range(3)]
+    want = generate(tp, tcfg, toks, 5, greedy=False, rng=gens[0],
+                    compiled=False)
+    got = generate(tp, tcfg, toks, 5, greedy=False, rng=gens[1])
+    held = GraphedServeStep(tcfg, greedy=False)
+    again = generate(tp, tcfg, toks, 5, greedy=False, rng=gens[2],
+                     step=held)
+    assert want.shape == (2, 11)
+    assert torch.equal(got, want) and torch.equal(again, want)
+    assert all(torch.equal(g.get_state(), gens[0].get_state())
+               for g in gens[1:])
+    assert len(held.graphs) == 1 and len(held.prefill.graphs) == 1
     cache = M.init_cache(tcfg, 2, 8, device=CPU)
-    with pytest.raises(ValueError, match="greedy"):
-        GraphedServeStep(tcfg)(tp, cache, toks[:, :1],
-                                 torch.zeros(2, dtype=torch.long), rng=gen)
-    with pytest.raises(ValueError, match="compiled=False"):
-        generate(tp, tcfg, toks, 3, rng=gen)
-    sampled = generate(tp, tcfg, toks, 3, rng=gen, compiled=False)
-    assert sampled.shape == (2, 9)
-    # the eager step keeps sampling with rng
     nxt, _ = make_serve_step(tcfg, greedy=False)(
-        tp, cache, toks[:, :1], torch.zeros(2, dtype=torch.long), None, gen)
+        tp, cache, toks[:, :1], torch.zeros(2, dtype=torch.long), None,
+        gens[0])
     assert nxt.shape == (2, 1)
 
 
