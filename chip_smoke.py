@@ -187,8 +187,28 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    that does not fit is printed and the next of 30, 24, 18 tried).
    Training launches none of the four kernels.
 
-Phases 13-19 run between phases 10 and 11, phase 20 last; K3's and K4's
-``launches_by_path`` gain the paths of 13, 14, 17, 18 and 20.
+21. the mesh-sharded vision runtime (``repro_torch.vision.mesh``) on a
+   VGG16 packed for MESH_DEVICES = 4 clusters (224 px, chunk pattern,
+   seed 0; layers 8-13 carry the shard map ``[0, 1, 2, 3]``): (a) each of
+   those layers walked per device through ``worklist_spmm_padded`` (K1
+   over the device's local work list, one launch a device), the 4 devices
+   one after another on the one card, on phase 3's 4 images; the slabs and
+   occupancies concatenated in ring order bitwise equal to K1 over the
+   whole list; each device's K1 ms, the whole list's, the per-shard steps,
+   their imbalance and the time imbalance (max/mean - 1) of the four
+   walks; (b) an NCCL world of one rank and ``data_mesh(1)``:
+   ``graphed_forward(mesh=)`` on 4 images, ``VisionEngine(mesh=)`` on 8
+   requests and ``VisionServer(mesh=)`` on 6, each bitwise equal to the
+   solo eager forward, the walker's launches counted from zero and held
+   exactly, the process group destroyed at the end; (c) the replayed
+   forward at local widths 8, 4, 2 and 1 (one rank's share of a batch of
+   8 over D = 1, 2, 4, 8): ms and ``t(8) / t(8 / D)`` beside the
+   step-count speed-up. One card: no traffic between cards, no speed-up
+   claimed.
+
+Phases 13-19 run between phases 10 and 11, phase 21 between 11 and the
+VGG16 half of 12, phase 20 last; K3's and K4's ``launches_by_path`` gain
+the paths of 13, 14, 17, 18 and 20, K1's those of 11 and 21.
 
 The serving and training paths run compiled, as the reference's
 ``jax.jit`` does: the LM decode step under ``Scheduler`` and ``generate``
@@ -244,6 +264,7 @@ RWKV_ARCH = "rwkv6_3b"      # the same cut: 4 of its 32 layers
 LM_LAYERS = 4
 LM_DENSITY = 0.35
 LM_SHARDS = 4
+MESH_DEVICES = 4            # phase 21: VGG16 packed for 4 clusters
 LM_SLOTS, LM_REQUESTS, LM_PROMPT, LM_NEW, LM_STAGGER = 4, 8, 128, 32, 2
 MODEL_NAMES = {"qwen3-4b": "Qwen3-4B", "rwkv6-3b": "RWKV6-3B",
                "seamless-m4t-medium": "SeamlessM4T-medium",
@@ -2755,6 +2776,227 @@ def lazy_phase(card: str):
                   "vgg16_vision_server": server}
 
 
+# lint: ignore[EAGER-GUARD] builds its schedules eagerly, before any capture
+def sharded_walks(model, imgs, card: str):
+    """Phase 21(a): each cout-sharded VGG16 layer (its shard map the
+    contiguous equal-count form at MESH_DEVICES) walked per device through
+    ``worklist_spmm_padded`` (K1 over the device's local work list), one
+    device after another on the one card, concatenated in ring order and
+    held bitwise to K1 over the whole list (output and occupancy), and
+    within TOL of the plain walk of the whole list (occupancy exactly).
+    Returns the per-layer records and the walker's launches of the
+    per-device walks."""
+    import torch
+    from repro_torch.kernels.worklist_core import (WALK, build_worklist,
+                                                   per_shard_steps,
+                                                   shard_imbalance,
+                                                   worklist_spmm,
+                                                   worklist_spmm_padded,
+                                                   worklist_spmm_plain)
+    d = MESH_DEVICES
+    recs, launches = [], 0
+    for layer, lay in enumerate(model.layers):
+        w = lay.conv.packed
+        expect = np.repeat(np.arange(d), w.n_blocks // d)
+        if w.shard_of is None or w.n_blocks % d or \
+                not np.array_equal(w.shard_of, expect):
+            continue
+        x, flat, m_img, m_pad = layer_inputs(model, layer, imgs)
+        mpi = m_pad // 128
+        wl = build_worklist(w.host_indices(), flat.shape[0] // 128,
+                            mb_per_img=mpi, shard_of=w.shard_of)
+        kw = dict(bk=w.bk, bn=w.bn, bm_rows=128, sub_m=8, mb_per_img=mpi,
+                  ncolors=2, act="relu", emit_occupancy=True)
+        whole, wocc = worklist_spmm(flat, w.vals, wl, **kw)
+        nbl = w.n_blocks // d
+        parts = [w.vals[i * nbl:(i + 1) * nbl] for i in range(d)]
+        WALK.launches = 0
+        slabs = [worklist_spmm_padded(flat, parts[i], wl, i, d, **kw)
+                 for i in range(d)]
+        torch.cuda.synchronize()
+        launches += WALK.launches
+        require(WALK.launches == d, f"layer {layer + 1}: {WALK.launches} "
+                                    f"walker launches for {d} devices")
+        cat_out = torch.cat([s[0] for s in slabs], dim=1)
+        cat_occ = torch.cat([s[1] for s in slabs], dim=1)
+        require(torch.equal(cat_out, whole) and torch.equal(cat_occ, wocc),
+                f"layer {layer + 1}: the per-device walks != K1 over the "
+                f"whole list")
+        pout, pocc = worklist_spmm_plain(flat, w.vals, wl, bk=w.bk, bn=w.bn,
+                                         bm_rows=128, sub_m=8, act="relu",
+                                         emit_occupancy=True)
+        abs_err, rel_err = errors(cat_out, pout)
+        require(rel_err <= TOL, f"layer {layer + 1}: the per-device walks vs "
+                                f"the plain walk: rel {rel_err:.3e}")
+        require(torch.equal(cat_occ, pocc),
+                f"layer {layer + 1}: the per-device occupancy differs from "
+                f"the plain walk's")
+        dev_ms = [graph_ms(lambda i=i: worklist_spmm_padded(
+            flat, parts[i], wl, i, d, **kw), reps=20) for i in range(d)]
+        whole_ms = graph_ms(lambda: worklist_spmm(flat, w.vals, wl, **kw),
+                            reps=20)
+        steps = per_shard_steps(wl, num_shards=d)
+        t_imb = max(dev_ms) / (sum(dev_ms) / d) - 1.0
+        rec = {"layer": layer + 1, "shard_of": [int(s) for s in w.shard_of],
+               "device_ms": dev_ms, "whole_ms": whole_ms,
+               "per_shard_steps": [int(s) for s in steps],
+               "step_imbalance": shard_imbalance(steps),
+               "time_imbalance": t_imb, "max_abs_err": abs_err,
+               "rel_err": rel_err}
+        recs.append(rec)
+        print(f"cout-sharded VGG16 layer {layer + 1} "
+              f"({lay.conv.cin}->{lay.conv.cout}, {imgs.shape[0]} images, "
+              f"{d} devices walked in turn on one card): per-device K1 ms "
+              f"{[round(t, 4) for t in dev_ms]}, whole list {whole_ms:.4f} "
+              f"ms, per-shard steps {rec['per_shard_steps']}, step "
+              f"imbalance {rec['step_imbalance']:.4f}, time imbalance "
+              f"{t_imb:.4f}; concatenated slabs and occupancy bitwise equal "
+              f"to K1 over the whole list, vs plain max abs {abs_err:.3e} "
+              f"rel {rel_err:.3e} (tol {TOL}) [{card}]")
+    require(len(recs) == 6, f"{len(recs)} layers carry the 4-way shard map,"
+                            f" expected layers 8-13")
+    return recs, launches
+
+
+def one_rank_mesh(model, imgs, card: str):
+    """Phase 21(b): a one-rank NCCL world and ``data_mesh(1)``: the replayed
+    forward on 4 images, ``VisionEngine`` on 8 requests and ``VisionServer``
+    on 6, each through the mesh, bitwise equal to the solo eager forward,
+    with the walker's launches counted from zero and held exactly. Returns
+    the launches."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.worklist_core import WALK
+    from repro_torch.serve.vision import VirtualClock, VisionServer
+    from repro_torch.vision import (ImageRequest, VisionEngine,
+                                    compile_forward, graphed_forward)
+    from repro_torch.vision.mesh import data_mesh
+    dev = model.device
+    mesh = data_mesh(1, device=dev)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    try:
+        require(dist.get_backend() == backend and
+                dist.get_world_size() == 1,
+                f"the one-rank world is not {backend} of size 1")
+        solo = compile_forward(model)
+        x4 = torch.as_tensor(imgs[:4], device=dev)
+        want = solo(x4)
+        layers = model.num_layers
+        WALK.launches = 0
+        fwd = graphed_forward(model, mesh=mesh)
+        got = [fwd(x4) for _ in range(3)]           # eager + capture, replays
+        torch.cuda.synchronize()
+        fwd_launches = WALK.launches
+        require(all(torch.equal(g, want) for g in got),
+                "graphed_forward(mesh=) != the solo forward bitwise")
+        require(fwd_launches == 3 * layers,
+                f"graphed_forward(mesh=) launched the walker {fwd_launches} "
+                f"times, expected {3 * layers}")
+        reqs = [ImageRequest(rid=i, image=imgs[i], arrival=i // 3)
+                for i in range(8)]
+        WALK.launches = 0
+        eng = VisionEngine(model, num_slots=4, mesh=mesh)
+        produced = eng.run(reqs)
+        torch.cuda.synchronize()
+        eng_launches = WALK.launches
+        forwards = eng.stats.engine_steps + 1
+        require(eng_launches == forwards * layers,
+                f"the mesh engine launched the walker {eng_launches} times, "
+                f"expected {forwards * layers}")
+        for r in reqs:
+            one = solo(torch.as_tensor(r.image[None], device=dev))[0]
+            require(np.array_equal(produced[r.rid], one.cpu().numpy()),
+                    f"mesh engine request {r.rid} != the solo forward")
+        sc = eng.schedule_counters()
+        require(sc["num_devices"] == 1 and sc["step_imbalance"] == 0.0,
+                f"mesh engine counters {sc}")
+        sreqs = [ImageRequest(rid=i, image=imgs[i], arrival_s=0.004 * i,
+                              deadline_s=0.004 * i + 0.5) for i in range(6)]
+        srv = VisionServer(model, num_slots=4, buckets=(SIZE,),
+                           clock=VirtualClock(), step_cost_s=0.03, mesh=mesh)
+        srv.warmup()
+        WALK.launches = 0
+        served = srv.run(sreqs)
+        torch.cuda.synchronize()
+        srv_launches = WALK.launches
+        require(srv_launches == srv.stats.engine_steps * layers and
+                srv.stats.sla_misses == 0,
+                f"the mesh server launched the walker {srv_launches} times "
+                f"in {srv.stats.engine_steps} steps, "
+                f"{srv.stats.sla_misses} SLA misses")
+        for r in sreqs:
+            one = solo(torch.as_tensor(r.image[None], device=dev))[0]
+            require(np.array_equal(served[r.rid], one.cpu().numpy()),
+                    f"mesh server request {r.rid} != the solo forward")
+        print(f"one-rank NCCL data mesh: graphed_forward(mesh=) on 4 images "
+              f"(3 calls, {fwd_launches} walker launches), VisionEngine("
+              f"mesh=) 8 requests in {eng.stats.engine_steps} steps "
+              f"({eng_launches} launches, per-device steps "
+              f"{sc['per_device_steps']}), VisionServer(mesh=) 6 requests "
+              f"in {srv.stats.engine_steps} steps ({srv_launches} launches):"
+              f" every output bitwise equal to the solo eager forward "
+              f"[{card}]")
+    finally:
+        dist.destroy_process_group()
+    return fwd_launches + eng_launches + srv_launches
+
+
+# lint: ignore[EAGER-GUARD] counts the schedules' steps on the host
+def local_width_times(model, imgs, card: str):
+    """Phase 21(c): one rank's share of a data-parallel batch of 8: the
+    replayed VGG16 forward at local widths 8, 4, 2 and 1 (D = 1, 2, 4, 8),
+    its ms (CUDA-graph replays) and ``t(8) / t(8 / D)`` beside the
+    step-count speed-up. One card: no traffic between cards."""
+    import torch
+    from repro_torch.kernels.worklist_core import build_worklist
+    from repro_torch.vision import compile_forward, layer_geometry
+    fwd = compile_forward(model)
+    x8 = torch.as_tensor(imgs, device=model.device)
+    geo = layer_geometry(model, SIZE)
+    rows = []
+    for d in (1, 2, 4, 8):
+        b = 8 // d
+        x = x8[:b].contiguous()
+        ms = graph_ms(lambda: fwd(x), reps=3)
+        steps = sum(build_worklist(lay.conv.packed.host_indices(),
+                                   b * g["mb_per_img"]).num_steps
+                    for lay, g in zip(model.layers, geo))
+        rows.append({"devices": d, "local_images": b, "ms": ms,
+                     "per_device_steps": steps})
+    for r in rows:
+        r["time_speedup"] = rows[0]["ms"] / r["ms"]
+        r["device_step_speedup"] = rows[0]["per_device_steps"] / \
+            r["per_device_steps"]
+        print(f"data-parallel share D={r['devices']}: {r['local_images']} "
+              f"images a rank, replayed forward {r['ms']:.4f} ms, "
+              f"t(8)/t(8/D) {r['time_speedup']:.3f} vs step-count speed-up "
+              f"{r['device_step_speedup']:.3f} ({r['per_device_steps']} "
+              f"steps a device) [{card}]")
+    return rows
+
+
+def mesh_phase(dev, card: str):
+    """Phase 21 on VGG16 packed for MESH_DEVICES clusters: the per-device
+    walks of its cout-sharded layers, the one-rank NCCL data mesh, and one
+    rank's share of a data-parallel batch. Returns the record and the
+    walker's launches by path."""
+    from repro_torch.core import simulator as S
+    from repro_torch.launch.vision import blob_images
+    from repro_torch.vision import build_vision_model
+    t0 = time.perf_counter()
+    md = S.BENCHMARKS["VGGNet"].map_density
+    imgs = blob_images(np.random.default_rng(SEED), 8, SIZE, md)
+    model = build_vision_model("VGGNet", pattern="chunk", seed=SEED,
+                               mesh_devices=MESH_DEVICES, device=dev)
+    walks, walk_launches = sharded_walks(model, imgs[:4], card)
+    mesh_launches = one_rank_mesh(model, imgs, card)
+    widths = local_width_times(model, imgs, card)
+    print(f"phase 21 took {time.perf_counter() - t0:.1f} s")
+    return {"cout_sharded_layers": walks, "local_widths": widths}, \
+        {"vgg16_cout_sharded_walks": walk_launches,
+         "vgg16_data_mesh": mesh_launches}
+
+
 
 def leaves_bitwise(a, b) -> list:
     """Keys of the leaves of two trees (params, an OptState, metrics) whose
@@ -3207,6 +3449,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs on an NVIDIA GPU", file=sys.stderr)
         return 2
+    t_all = time.perf_counter()
     from repro_torch.kernels._cuda import build_all
     from repro_torch.kernels.bitmask_spmm import BITMASK_SPMM
     from repro_torch.kernels.fused_ffn import FUSED_FFN
@@ -3273,6 +3516,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     slab_recs, slab_launches = lazy_phase(card)    # phase 11
     torch.cuda.empty_cache()
+    mesh_rec, mesh_launches = mesh_phase(dev, card)   # phase 21
+    torch.cuda.empty_cache()
     vision_admission_phase(card, dev)              # phase 12 (VGG16)
     launches["qwen3_4b_trained_serving"] = train_phase(dev, card)   # 20
     torch.cuda.empty_cache()
@@ -3291,7 +3536,9 @@ def main() -> int:
     walker["launches_by_path"] = {
         "vgg16_engine": walker["launches"],
         "qwen3_4b_ffn_compact": k1_qwen,
-        "rwkv6_3b_channel_mix_compact": k1_rwkv, **slab_launches}
+        "rwkv6_3b_channel_mix_compact": k1_rwkv, **slab_launches,
+        **mesh_launches}
+    walker["vgg16_mesh"] = mesh_rec
     walker["launches"] = sum(walker["launches_by_path"].values())
     for key in ("max_abs_err", "max_rel_err"):
         walker[key] = max(r[key] for r in walker["shapes"])
@@ -3316,6 +3563,9 @@ def main() -> int:
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "at": head["at"], "shapes": recs[key]})
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_all:.1f} s from the build's start "
+          f"[{card}]")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

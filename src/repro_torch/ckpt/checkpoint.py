@@ -18,7 +18,7 @@
 
 Keys are the port's tree paths (``models.model.path_key``:
 ``blocks/0/p0/ffn/w_in``, ``mu/embed``). Restoring under other shardings
-(the reference's elastic restart) waits for the mesh port (ROADMAP A8).
+(the reference's elastic restart) waits for the mesh port (ROADMAP A8b).
 """
 from __future__ import annotations
 

@@ -216,6 +216,10 @@ class WorkList:
         default_factory=dict, repr=False, compare=False)
     _live: Dict[Tuple[str, int], Tuple[torch.Tensor, ...]] = \
         dataclasses.field(default_factory=dict, repr=False, compare=False)
+    # per-device lists of a cout-sharded walk (local_worklist), by (device,
+    # devices)
+    _local: Dict[Tuple[int, int], "WorkList"] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
 
     @property
     def num_steps(self) -> int:
@@ -405,6 +409,83 @@ def shard_scaling_efficiency(counts: np.ndarray) -> float:
     if counts.size == 0 or counts.max() == 0:
         return 1.0
     return float(counts.sum() / (counts.size * counts.max()))
+
+
+def _check_contiguous_shards(wl: WorkList, num_shards: int) -> int:
+    """The n-blocks per device of a contiguous equal-count assignment
+    (``shard_of`` non-decreasing, ``nb / D`` blocks each: the packer's
+    fold-legal form), or raise."""
+    if wl.shard_of is None:
+        raise ValueError("worklist has no shard_of — pack with mesh_devices")
+    if wl.nb % num_shards:
+        raise ValueError(f"nb={wl.nb} not divisible by D={num_shards}")
+    nbl = wl.nb // num_shards
+    expect = np.repeat(np.arange(num_shards), nbl)
+    if not np.array_equal(np.asarray(wl.shard_of), expect):
+        raise ValueError("SPMD execution needs the contiguous equal-count "
+                         "shard assignment (the packer's fold-legal form)")
+    return nbl
+
+
+def shard_worklist_args(wl: WorkList, num_shards: int
+                        ) -> Dict[str, np.ndarray]:
+    """Split a sharded flat schedule into per-device padded streams (each
+    device walks only its own n-blocks, n re-indexed to the device-local
+    block range), array-equal to the reference's: only live entries, each
+    stream padded to the longest with entries of ``valid == 0``. Needs the
+    contiguous equal-count assignment. Returns ``n/m/k/j/valid [D, Tmax]``
+    int32."""
+    if wl.shard_of is None:
+        raise ValueError("work list carries no shard assignment")
+    nbl = _check_contiguous_shards(wl, num_shards)
+    live = wl.k >= 0
+    dev = wl.shard_of[wl.n]
+    tmax = max(int(np.max(np.bincount(dev[live], minlength=num_shards),
+                          initial=0)), 1)
+    out = {f: np.zeros((num_shards, tmax), np.int32)
+           for f in ("n", "m", "k", "j", "valid")}
+    for d in range(num_shards):
+        sel = np.nonzero(live & (dev == d))[0]
+        t = sel.size
+        out["n"][d, :t] = wl.n[sel] - d * nbl
+        out["m"][d, :t] = wl.m[sel]
+        out["k"][d, :t] = wl.k[sel]
+        out["j"][d, :t] = wl.j[sel]
+        out["valid"][d, :t] = 1
+    return out
+
+
+def local_worklist(wl: WorkList, device_index: int,
+                   num_shards: int) -> WorkList:
+    """Device ``device_index``'s own work list: the schedule of its n-blocks
+    with ``n`` re-indexed from 0, flush-only steps kept, what the walker
+    kernel walks for one device of a cout-sharded layer. The flat list is
+    pair-major with n outermost, so a device's entries are one contiguous
+    run; this is ``build_worklist`` over the index rows of those blocks
+    with the same occupancy and ``mb_per_img``. Cached on ``wl`` (with its
+    own device copy, made once), so a call copies no schedule."""
+    key = (int(device_index), int(num_shards))
+    loc = wl._local.get(key)
+    if loc is None:
+        nbl = _check_contiguous_shards(wl, num_shards)
+        d = key[0]
+        if not 0 <= d < num_shards:
+            raise ValueError(f"device {d} not in [0, {num_shards})")
+        ptr = wl.pair_ptr()
+        lo, hi = int(ptr[d * nbl * wl.mb]), int(ptr[(d + 1) * nbl * wl.mb])
+        cut = slice(lo, hi)
+        blocks = slice(d * nbl, (d + 1) * nbl)
+        steps = wl.steps_per_pair[blocks]
+        width = max(int(steps.max(initial=0)), 1)
+        loc = WorkList(
+            (wl.n[cut] - d * nbl).astype(np.int32), wl.m[cut], wl.k[cut],
+            wl.j[cut], wl.first[cut], wl.last[cut],
+            np.ascontiguousarray(wl.ragged_idx[blocks, :, :width]), steps,
+            nbl, wl.mb, wl.max_nz,
+            k2=None if wl.k2 is None else wl.k2[cut],
+            mb_per_img=wl.mb_per_img)
+        wl._local[key] = loc
+    return loc
 
 
 # ---------------------------------------------------------------------------
@@ -720,3 +801,74 @@ def worklist_spmm(patches: torch.Tensor, vals: torch.Tensor, wl: WorkList, *,
                                bm_rows=bm_rows, sub_m=sub_m,
                                mb_per_img=mb_per_img, ncolors=ncolors,
                                act=act, emit_occupancy=emit_occupancy)
+
+
+def worklist_spmm_padded_plain(patches: torch.Tensor, vals: torch.Tensor,
+                               wl_n: torch.Tensor, wl_m: torch.Tensor,
+                               wl_k: torch.Tensor, wl_j: torch.Tensor,
+                               valid: torch.Tensor, *, bk: int, bn: int,
+                               bm_rows: int, nb_local: int, mb: int,
+                               act: Optional[str] = None) -> torch.Tensor:
+    """Plain version of one device's walk of its padded stream (from
+    :func:`shard_worklist_args`): the reference's ``worklist_spmm_padded``.
+    Padding entries (``valid == 0``) gather a clamped but real tile pair and
+    send its product to a discard segment past the pair grid, so they never
+    touch the output; each real pair sums its live chunks in ascending-j
+    order as :func:`worklist_spmm_plain` does (one ``index_add_`` per slot
+    rank), so the slab is bitwise that function's matching column block.
+    ``vals`` holds the device's ``nb_local`` row blocks. Returns
+    ``[M, nb_local * bn]``."""
+    M, K = patches.shape
+    kb = K // bk
+    nc = wl_n.long().clamp(0, nb_local - 1)
+    mc = wl_m.long().clamp(0, mb - 1)
+    kc = wl_k.long().clamp(0, kb - 1)
+    jc = wl_j.long().clamp_min(0)
+    x4 = patches.reshape(mb, bm_rows, kb, bk)
+    prod = torch.bmm(x4[mc, :, kc, :].float(), vals[nc, jc].float())
+    pair = torch.where(valid > 0, nc * mb + mc,
+                       torch.full_like(nc, nb_local * mb))
+    acc = torch.zeros((nb_local * mb + 1, bm_rows, bn), dtype=torch.float32,
+                      device=patches.device)
+    # live entries are pair-major and the padding sits last: non-decreasing
+    rank = torch.arange(pair.numel(), device=pair.device) \
+        - torch.searchsorted(pair, pair)
+    for r in range(int(rank.max()) + 1 if rank.numel() else 0):
+        sel = rank == r
+        acc.index_add_(0, pair[sel], prod[sel])
+    out = activate(acc[:-1], None, act).to(patches.dtype)
+    return _tile_output(out, nb_local, mb, bm_rows, bn, bm_rows, False)[0]
+
+
+def worklist_spmm_padded(patches: torch.Tensor, vals: torch.Tensor,
+                         wl: WorkList, device_index: int, num_shards: int, *,
+                         bk: int = LANE, bn: int = LANE,
+                         bm_rows: int = DEFAULT_BM,
+                         sub_m: Optional[int] = None,
+                         mb_per_img: Optional[int] = None, ncolors: int = 1,
+                         act: Optional[str] = None,
+                         emit_occupancy: bool = False):
+    """One device's walk of a cout-sharded layer: ``patches [M, K]`` against
+    ``vals``, the device's own ``nb / D`` row blocks of the packed weights,
+    over its share of ``wl`` (which must carry the contiguous equal-count
+    ``shard_of``). Returns ``(slab [M, nb/D * bn][, occupancy [M / sub_m,
+    nb/D]])``, the matching column blocks of :func:`worklist_spmm` over the
+    whole list, bitwise.
+
+    It walks the device's local work list (:func:`local_worklist`: its own
+    steps, flush-only ones included, every pair written, built once and
+    cached on ``wl``) through :func:`worklist_spmm`: the walker kernel on a
+    CUDA tensor, its plain version on a CPU tensor. The reference's padded
+    stream walk is :func:`worklist_spmm_padded_plain`, which the tests hold
+    this against."""
+    if wl.k2 is not None:
+        raise ValueError("a cout-sharded walk takes a one-stream work list")
+    nbl = _check_contiguous_shards(wl, num_shards)
+    if tuple(vals.shape[:2]) != (nbl, wl.max_nz):
+        raise ValueError(f"vals {tuple(vals.shape)} are not device "
+                         f"{device_index}'s {nbl} row blocks of "
+                         f"{wl.max_nz} slots")
+    loc = local_worklist(wl, device_index, num_shards)
+    return worklist_spmm(patches, vals, loc, bk=bk, bn=bn, bm_rows=bm_rows,
+                         sub_m=sub_m, mb_per_img=mb_per_img, ncolors=ncolors,
+                         act=act, emit_occupancy=emit_occupancy)

@@ -9,7 +9,7 @@
 with ``--device cpu``). A full config trains on one card where it fits:
 Qwen3-4B's 4.02 B parameters take 12 bytes each in bf16 with their
 gradients and AdamW's fp32 moments (~48 GB). ``--device`` defaults to
-``cuda``; ``--mesh`` and ``--fsdp`` wait for the mesh port (A8). The
+``cuda``; ``--mesh`` and ``--fsdp`` wait for the mesh port (A8b). The
 step is captured as one CUDA graph and replayed (the reference jits it);
 ``--eager`` runs it op by op. ``--layers`` cuts the depth. At the end it
 prints the median step time (host clock, the steps after the first two:
@@ -42,7 +42,7 @@ def main(argv=None) -> Dict[str, float]:
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--mesh", default=None,
-                    help="data,model extents (needs the mesh port, A8)")
+                    help="data,model extents (needs the mesh port, A8b)")
     ap.add_argument("--fsdp", action="store_true")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--lr", type=float, default=3e-4)
@@ -55,7 +55,7 @@ def main(argv=None) -> Dict[str, float]:
     args = ap.parse_args(argv)
     if args.mesh or args.fsdp:
         raise NotImplementedError("--mesh and --fsdp need the mesh port "
-                                  "(A8)")
+                                  "(A8b)")
 
     cfg = load_smoke(args.arch) if args.smoke else load_config(args.arch)
     if args.layers is not None:

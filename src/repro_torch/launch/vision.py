@@ -6,6 +6,10 @@
     PYTHONPATH=src python -m repro_torch.launch.vision --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.vision --smoke --pattern \
         chunk --autotune --device cpu
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 2 -m repro_torch.launch.vision --smoke --device cpu \
+        --mesh 2
+    PYTHONPATH=src python -m repro_torch.launch.vision --mesh 1
 
 Builds a pruned network for one of the Table-1 benchmarks, checks the first
 image against the dense oracle through the instrumented dense-grid kernel,
@@ -14,11 +18,18 @@ staggered image requests through the round-robin engine (the work-list
 walker). ``--autotune`` tunes every layer's tile config first (the
 deterministic cost model of :mod:`repro_torch.kernels.autotune`) and the
 engine runs the tuned configs. ``--device`` defaults to ``cuda``;
-wall-clock numbers from any other device are not the card's.
+wall-clock numbers from any other device are not the card's. ``--mesh N``
+data-shards the engine's slot batch over an N-rank ``("data",)`` mesh (N
+divides ``--slots``; bitwise the unsharded engine's outputs): one process a
+rank under ``torch.distributed.run`` (each on ``cuda:<local rank>`` over
+NCCL, or on the CPU over gloo), or ``--mesh 1`` in one process; every rank
+prints, and the packing balances each layer over N clusters
+(``mesh_devices``).
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 import torch
@@ -79,15 +90,26 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device the network runs on (default cuda)")
+    ap.add_argument("--mesh", type=int, default=None, metavar="N",
+                    help="data-shard the engine batch over an N-rank mesh "
+                         "(N must divide --slots; bitwise identical to "
+                         "solo); N > 1 runs under torch.distributed.run")
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)
+    mesh = None
+    if args.mesh is not None:
+        from repro_torch.vision.mesh import data_mesh
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        mesh = data_mesh(args.mesh, device=device)
     layers = 2 if args.smoke and args.layers is None else args.layers
     size = args.image_size if args.image_size is not None else \
         (16 if args.smoke else 32)
     model = build_vision_model(args.bench, density=args.density,
                                num_layers=layers, seed=args.seed,
-                               pattern=args.pattern, device=device)
+                               pattern=args.pattern, mesh_devices=args.mesh,
+                               device=device)
     if args.autotune:
         for i, r in autotune_model(model, size).items():
             c = r.config
@@ -113,7 +135,7 @@ def main(argv=None) -> None:
     print(f"measured network densities: filters {fd:.3f}, maps {md_meas:.3f}")
 
     eng = VisionEngine(model, num_slots=args.slots,
-                       use_tuned=args.autotune)
+                       use_tuned=args.autotune, mesh=mesh)
     reqs = [ImageRequest(rid=i, image=imgs[i], arrival=i * args.stagger)
             for i in range(args.requests)]
     produced = eng.run(reqs)
@@ -123,9 +145,18 @@ def main(argv=None) -> None:
           f"({st.img_per_s:.2f} img/s steady, first-call set-up "
           f"{st.compile_s:.2f}s, util {st.slot_utilization:.2f}, "
           f"device {device})")
+    if mesh is not None:
+        sc = eng.schedule_counters()
+        print(f"mesh: {sc['num_devices']} devices, per-device steps "
+              f"{sc['per_device_steps']}, imbalance "
+              f"{sc['step_imbalance']:.3f}, scaling efficiency "
+              f"{sc['step_scaling_efficiency']:.3f}")
     if not np.allclose(produced[0], out0[0].cpu().numpy(), atol=1e-5):
         raise SystemExit("engine output must match the solo forward")
     print("engine output matches solo forward")
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -47,8 +47,8 @@ def init(params) -> OptState:
 
 def opt_shardings(mesh, param_shardings) -> OptState:
     """The OptState's placement on a mesh: waits for the port of ``dist``
-    (ROADMAP A8)."""
-    raise NotImplementedError("opt_shardings needs the mesh port (A8)")
+    (ROADMAP A8b)."""
+    raise NotImplementedError("opt_shardings needs the mesh port (A8b)")
 
 
 def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:

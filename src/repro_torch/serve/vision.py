@@ -28,8 +28,11 @@ The open-loop counterpart of :class:`repro_torch.vision.engine.VisionEngine`:
 accounting. ``verify_artifacts`` (on by default) verifies the packed
 chain at construction, and ``compiled`` (on by default) replays each
 bucket's forward from a CUDA graph captured at its warm-up, as
-:class:`~repro_torch.vision.engine.VisionEngine` does; ``mesh`` is not
-ported yet and raises ``NotImplementedError``.
+:class:`~repro_torch.vision.engine.VisionEngine` does. ``mesh``
+data-shards each bucket's slot batch over the ranks of a ``DeviceMesh``
+(``num_slots / D`` lanes a rank, every output on every rank); the ranks
+take each admission decision of the mesh's first rank, so a wall clock
+that reads differently on each rank cannot split them.
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ from repro_torch.core.telescope import combine_schedule_requests
 from repro_torch.kernels.worklist_core import schedule_counters
 from repro_torch.vision import model as VM
 from repro_torch.vision.engine import ImageRequest
+from repro_torch.vision.mesh import agree, split_slots
 
 
 # ---------------------------------------------------------------------------
@@ -184,8 +188,6 @@ class VisionServer:
                 verify_model(model, f"serve/{model.name}",
                              check_values=False),
                 "VisionServer admission")
-        if mesh is not None:
-            raise NotImplementedError("mesh serving is not ported yet")
         if not buckets:
             raise ValueError("need at least one shape bucket")
         self.model = model
@@ -212,9 +214,13 @@ class VisionServer:
                 raise ValueError(f"step_cost_s missing buckets {missing}")
         self._ewma = ewma
         self.compiled = compiled
+        # mesh: data-shard every bucket's slot batch; the work lists (and
+        # the schedule counters' cache keys) are those of the local width
+        self.mesh = mesh
+        self.num_devices, self._local_slots = split_slots(num_slots, mesh)
         self._fwd = (VM.graphed_forward if compiled else VM.compile_forward)(
             model, sub_m=sub_m, two_sided=two_sided, schedule=schedule,
-            im2col=im2col, use_tuned=use_tuned)
+            im2col=im2col, use_tuned=use_tuned, mesh=mesh)
         self._channels = model.layers[0].conv.cin
         self._est: Dict[int, float] = dict(self._fixed_cost or {})
         self._warm: set = set()
@@ -336,6 +342,16 @@ class VisionServer:
         to the next arrival. Returns False when drained."""
         now = self.clock.now()
         sel = self._select_batch(now)
+        if self.mesh is not None and self.mesh.size() > 1:
+            # one decision for the mesh: its first rank's (the requests
+            # and the queue are the same on every rank, the clocks not)
+            plan = agree(None if sel is None else
+                         (sel[0], [p.rid for p in sel[1]]), self.mesh)
+            if plan is not None:
+                by_rid = {p.rid: p for p in self.queue}
+                sel = plan[0], [by_rid[r] for r in plan[1]]
+            else:
+                sel = None
         if sel is None:
             if not self.queue:
                 return False
@@ -404,7 +420,12 @@ class VisionServer:
         bucket: each warmed bucket's layers cached one static work list per
         batch row-block count (``PackedConv.wl_cache``), which the static
         geometry walk (:func:`~repro_torch.vision.model.layer_geometry`)
-        attributes to its bucket. ``None`` before any bucket warmed."""
+        attributes to its bucket. ``None`` before any bucket warmed.
+
+        Under a mesh the cache key is the per-device width ``num_slots /
+        D``; ``per_bucket`` records are keyed ``"dev<d>/<bucket>"``, the
+        totals sum over every (device, bucket) pair, and the record adds
+        ``num_devices``."""
         sum_keys = ("scheduled_steps", "live_chunk_steps",
                     "flush_only_steps", "dense_grid_steps",
                     "filter_chunk_requests", "per_image_filter_fetches",
@@ -416,7 +437,8 @@ class VisionServer:
                                     use_tuned=self.use_tuned)
             records = []
             for layer, g in zip(self.model.layers, geo):
-                wl = layer.conv.wl_cache.get(self.num_slots * g["mb_per_img"])
+                wl = layer.conv.wl_cache.get(
+                    self._local_slots * g["mb_per_img"])
                 if wl is not None:
                     records.append(schedule_counters(
                         wl, combine=True, mb_per_img=g["mb_per_img"]))
@@ -431,9 +453,17 @@ class VisionServer:
                 rec["cross_request_combine_factor"] = (
                     rec["per_image_filter_fetches"]
                     / max(rec["combined_filter_fetches"], 1.0))
-                per_bucket[str(bucket)] = rec
+                if self.num_devices > 1:
+                    # each device walks the same local schedule over its
+                    # own lanes: one record per (device, bucket)
+                    for d in range(self.num_devices):
+                        per_bucket[f"dev{d}/{bucket}"] = dict(rec)
+                else:
+                    per_bucket[str(bucket)] = rec
         if not per_bucket:
             return None
+        requests *= self.num_devices
+        fetches *= self.num_devices
         tot: Dict[str, float] = {
             k: float(sum(r[k] for r in per_bucket.values()))
             for k in sum_keys}
@@ -447,5 +477,7 @@ class VisionServer:
         tot["schedule_requests"] = requests
         tot["schedule_fetches"] = fetches
         tot["combine_factor"] = requests / max(fetches, 1e-9)
+        if self.num_devices > 1:
+            tot["num_devices"] = self.num_devices
         tot["per_bucket"] = dict(per_bucket)
         return tot

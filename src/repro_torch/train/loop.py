@@ -40,7 +40,7 @@ class TrainState:
 def _no_mesh(mesh, fsdp: bool = False) -> None:
     if mesh is not None or fsdp:
         raise NotImplementedError("sharded training (mesh=, fsdp) needs the "
-                                  "mesh port (A8)")
+                                  "mesh port (A8b)")
 
 
 def init_state(cfg: ModelConfig, mesh=None, *, fsdp: bool = False,

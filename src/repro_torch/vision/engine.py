@@ -21,6 +21,7 @@ from repro_torch.core.balance import round_robin_permutation
 from repro_torch.core.telescope import combine_schedule_requests
 from repro_torch.kernels.worklist_core import schedule_counters
 from repro_torch.vision import model as VM
+from repro_torch.vision.mesh import data_counters, split_slots
 
 
 @dataclasses.dataclass
@@ -65,8 +66,15 @@ class VisionEngine:
     the reference jits its forward) replays the forward captured per batch
     shape (:func:`~repro_torch.vision.model.graphed_forward`; the warm-up
     captures it, each step copies the host batch into the graph's input),
-    ``compiled=False`` runs the eager forward; ``mesh`` is not ported
-    yet."""
+    ``compiled=False`` runs the eager forward.
+
+    ``mesh`` (a ``DeviceMesh`` with a ``data`` dim; every rank runs the
+    same engine on the same requests) data-shards the slot batch:
+    ``num_slots`` divides over the data extent ``D``, each rank runs the
+    forward on its ``num_slots / D`` lanes and every rank receives every
+    lane's output (:func:`repro_torch.vision.mesh.shard_forward`), bitwise
+    the unsharded engine's. Admission is a function of the engine's step
+    clock, so the ranks admit alike without talking."""
 
     def __init__(self, model: VM.VisionModel, *, num_slots: int = 4,
                  sub_m: int = 8, two_sided: bool = True,
@@ -83,17 +91,17 @@ class VisionEngine:
                 verify_model(model, f"engine/{model.name}",
                              check_values=False),
                 "VisionEngine admission")
-        if mesh is not None:
-            raise NotImplementedError("mesh serving is not ported yet")
         self.model = model
         self.device = model.device
         self.num_slots = num_slots
         self.sub_m = sub_m
         self.two_sided = two_sided
         self.compiled = compiled
+        self.mesh = mesh
+        self.num_devices, self._local_slots = split_slots(num_slots, mesh)
         self._fwd = (VM.graphed_forward if compiled else VM.compile_forward)(
             model, sub_m=sub_m, two_sided=two_sided, schedule=schedule,
-            im2col=im2col, use_tuned=use_tuned)
+            im2col=im2col, use_tuned=use_tuned, mesh=mesh)
         self._warm_shapes: set = set()
         self.slot_req = np.full(num_slots, -1, np.int64)
         self._slot_img: List[Optional[np.ndarray]] = [None] * num_slots
@@ -111,13 +119,18 @@ class VisionEngine:
         :func:`repro_torch.kernels.worklist_core.schedule_counters` summed
         over layers), with ``grid_compaction``, the §3.2 combining model
         totals and the exact cross-request dedup counters. ``None`` before
-        the first step (no work lists built yet)."""
+        the first step (no work lists built yet). Under a mesh the work
+        lists are those of the per-device width ``num_slots / D``, and the
+        record adds ``num_devices``, ``per_device_steps``,
+        ``step_imbalance`` and ``step_scaling_efficiency`` (every rank walks
+        the same local schedule: an exact balance)."""
         wls = [wl for layer in self.model.layers
                for wl in layer.conv.wl_cache.values()]
-        # count only this engine's batch geometry: other engines sharing
-        # the model leave their own widths in the cache
+        # count only this engine's per-device batch geometry: other engines
+        # sharing the model leave their own widths in the cache
         mine = [wl for wl in wls
-                if wl.mb_per_img and wl.mb == self.num_slots * wl.mb_per_img]
+                if wl.mb_per_img
+                and wl.mb == self._local_slots * wl.mb_per_img]
         wls = mine or wls
         if not wls:
             return None
@@ -142,6 +155,8 @@ class VisionEngine:
             sum(c["fetches"] for c in combining))
         tot["combine_factor"] = (tot["schedule_requests"]
                                  / max(tot["schedule_fetches"], 1e-9))
+        if self.mesh is not None:
+            tot.update(data_counters(wls, self.num_devices))
         return tot
 
     # -- queue -------------------------------------------------------------

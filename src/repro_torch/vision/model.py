@@ -230,11 +230,19 @@ def compile_forward(model: VisionModel, *, sub_m: int = 8,
     device once (cached on the work list), so a call launches kernels and
     copies no schedule. ``use_tuned`` runs each layer at its cached autotune
     config; the cache key holds those configs, so re-tuning a layer gets a
-    new closure. ``mesh`` is not ported yet.
+    new closure.
+
+    ``mesh`` (a ``DeviceMesh`` with a ``data`` dim, this process one of its
+    ranks) data-shards the forward (:func:`repro_torch.vision.mesh.
+    shard_forward`): each rank runs the forward on its ``B / D`` rows of
+    the batch and gathers every rank's output, bitwise the unsharded
+    forward's (per-image work lists never cross images).
     """
-    if mesh is not None:
-        raise NotImplementedError("the mesh-sharded forward is not ported yet")
     key = _forward_key(model, sub_m, two_sided, schedule, im2col, use_tuned)
+    if mesh is not None:
+        return _sharded(model, mesh, key, lambda: compile_forward(
+            model, sub_m=sub_m, two_sided=two_sided, schedule=schedule,
+            im2col=im2col, use_tuned=use_tuned))
     fn = model._fwd_cache.get(key)
     if fn is None:
         @torch.no_grad()
@@ -243,6 +251,21 @@ def compile_forward(model: VisionModel, *, sub_m: int = 8,
                                    two_sided=two_sided, schedule=schedule,
                                    im2col=im2col, use_tuned=use_tuned)
         model._fwd_cache[key] = fn
+    return fn
+
+
+def _sharded(model: VisionModel, mesh, key: tuple,
+             local: Callable[[], Callable[[torch.Tensor], torch.Tensor]]):
+    """The forward ``local()`` builds, data-sharded over ``mesh``
+    (:func:`repro_torch.vision.mesh.shard_forward`), cached on the model
+    under ``key`` and the mesh object itself: a new mesh over the same ranks
+    (a world torn down and started again) gets a new closure, and the
+    cached closure holds its mesh, so the id is not reused while cached."""
+    from repro_torch.vision.mesh import shard_forward
+    key = ("mesh", id(mesh)) + key
+    fn = model._fwd_cache.get(key)
+    if fn is None:
+        fn = model._fwd_cache[key] = shard_forward(local(), mesh)
     return fn
 
 
@@ -258,8 +281,8 @@ def _forward_key(model: VisionModel, sub_m: int, two_sided: bool,
 
 def graphed_forward(model: VisionModel, *, sub_m: int = 8,
                     two_sided: bool = True, schedule: str = "compact",
-                    im2col: str = "auto", use_tuned: bool = False
-                    ) -> Callable[[torch.Tensor], torch.Tensor]:
+                    im2col: str = "auto", use_tuned: bool = False,
+                    mesh=None) -> Callable[[torch.Tensor], torch.Tensor]:
     """The whole-net forward of :func:`compile_forward` captured in a CUDA
     graph per input shape: the port's counterpart of the reference's
     jitted ``compile_forward`` (one compiled executable of the whole net).
@@ -276,9 +299,17 @@ def graphed_forward(model: VisionModel, *, sub_m: int = 8,
     shape. On the CPU it is the eager forward. The instrumented
     paths (``forward(collect_stats=True)``, ``oracle_check``) read counters
     to the host and stay eager.
+
+    ``mesh`` data-shards it as :func:`compile_forward` does: each rank
+    replays the forward captured at its local width ``B / D``, and the
+    gather of the ranks' rows runs after the replay, outside the graph.
     """
     key = ("graph",) + _forward_key(model, sub_m, two_sided, schedule,
                                     im2col, use_tuned)
+    if mesh is not None:
+        return _sharded(model, mesh, key, lambda: graphed_forward(
+            model, sub_m=sub_m, two_sided=two_sided, schedule=schedule,
+            im2col=im2col, use_tuned=use_tuned))
     fn = model._fwd_cache.get(key)
     if fn is None:
         body = compile_forward(model, sub_m=sub_m, two_sided=two_sided,

@@ -1605,3 +1605,115 @@ def test_seeded_host_read_in_a_body_raises(cuda):
         g(torch.ones(3, device=cuda))
     assert g.graph is None and len(calls) == 2     # warm-up, capture
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the mesh-sharded vision runtime
+# ---------------------------------------------------------------------------
+def test_cout_sharded_walks_bitwise_whole_list_on_card(rng, cuda):
+    """Each device's walk of VGG16 layer 8 (cout 512, packed for 4
+    clusters: one n-block each) through ``worklist_spmm_padded`` launches K1
+    once over its local work list, and the four slabs and occupancies in
+    ring order are K1 over the whole list, bitwise."""
+    from repro_torch.kernels.worklist_core import worklist_spmm_padded
+    model = build_vision_model("VGGNet", num_layers=9, pattern="chunk",
+                               mesh_devices=4, device=cuda)
+    w = model.layers[7].conv.packed
+    assert list(w.shard_of) == [0, 1, 2, 3]
+    x = np.abs(rng.normal(size=(4 * 128, w.shape[0]))).astype(np.float32)
+    x[rng.random(x.shape) < 0.6] = 0
+    x[:40] = 0
+    flat = torch.as_tensor(x, device=cuda)
+    wl = build_worklist(w.host_indices(), 4, mb_per_img=1,
+                        shard_of=w.shard_of)
+    kw = dict(bk=w.bk, bn=w.bn, bm_rows=128, sub_m=8, mb_per_img=1,
+              ncolors=2, act="relu", emit_occupancy=True)
+    whole, wocc = worklist_spmm(flat, w.vals, wl, **kw)
+    before = WALK.launches
+    slabs = [worklist_spmm_padded(flat, w.vals[d:d + 1], wl, d, 4, **kw)
+             for d in range(4)]
+    assert WALK.launches == before + 4
+    assert torch.equal(torch.cat([s[0] for s in slabs], dim=1), whole)
+    assert torch.equal(torch.cat([s[1] for s in slabs], dim=1), wocc)
+
+
+def test_one_rank_nccl_mesh_bitwise_solo_on_card(rng, cuda):
+    """``data_mesh(1)`` starts a one-rank NCCL world; the sharded forward
+    (eager and replayed) and the mesh engine equal the solo forward
+    bitwise."""
+    import torch.distributed as dist
+    from repro_torch.vision import graphed_forward
+    from repro_torch.vision.mesh import data_mesh
+    model = build_vision_model("VGGNet", num_layers=3, pattern="chunk",
+                               mesh_devices=4, device=cuda)
+    x = torch.as_tensor(np.abs(rng.normal(size=(4, 24, 24, 3))).astype(
+        np.float32), device=cuda)
+    solo = compile_forward(model)(x)
+    started = not dist.is_initialized()
+    mesh = data_mesh(1)
+    try:
+        assert dist.get_backend() == "nccl"
+        assert torch.equal(compile_forward(model, mesh=mesh)(x), solo)
+        g = graphed_forward(model, mesh=mesh)
+        assert all(torch.equal(g(x), solo) for _ in range(3))
+        reqs = [ImageRequest(rid=i, image=x[i].cpu().numpy())
+                for i in range(4)]
+        out = VisionEngine(model, num_slots=2, mesh=mesh).run(reqs)
+        for i in range(4):
+            np.testing.assert_array_equal(out[i], solo[i].cpu().numpy())
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _nccl_ring_rank(rank, world, store, out_dir):
+    """One rank of the two-rank NCCL ring test."""
+    import datetime
+    import os
+    import torch.distributed as dist
+    from repro_torch.kernels.worklist_core import (build_worklist as bw,
+                                                   worklist_spmm as ws)
+    from repro_torch.vision.mesh import (cout_sharded_spmm, data_mesh,
+                                         device_mesh)
+    torch.cuda.set_device(rank)
+    dev = torch.device("cuda", rank)
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        model = build_vision_model("VGGNet", num_layers=9, pattern="chunk",
+                                   mesh_devices=world, device=dev)
+        w = model.layers[7].conv.packed
+        g = np.random.default_rng(0)
+        x = torch.as_tensor(np.abs(g.normal(size=(256, w.shape[0]))).astype(
+            np.float32), device=dev)
+        wl = bw(w.host_indices(), 2, shard_of=w.shard_of)
+        mesh = device_mesh((world,), ("model",), device=dev)
+        full, occ = cout_sharded_spmm(x, w.vals, wl, mesh, bk=w.bk,
+                                      bn=w.bn, bm_rows=128, occupancy=True)
+        whole, wocc = ws(x, w.vals, wl, bk=w.bk, bn=w.bn, bm_rows=128,
+                         sub_m=128, emit_occupancy=True)
+        imgs = torch.as_tensor(np.abs(g.normal(size=(4, 24, 24, 3))).astype(
+            np.float32), device=dev)
+        sharded = compile_forward(model, mesh=data_mesh(world, device=dev))(
+            imgs)
+        ok = torch.equal(full, whole) and torch.equal(occ, wocc) and \
+            torch.equal(sharded, compile_forward(model)(imgs))
+        with open(os.path.join(out_dir, f"rank{rank}"), "w") as f:
+            f.write("ok" if ok else "differs")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_two_rank_nccl_ring_on_cards(cuda, tmp_path):
+    """Two ranks, one card each, over NCCL: the cout-sharded layer's ring
+    (slabs and occupancy) and the data-parallel forward bitwise equal to
+    one card's walk and forward."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("an NCCL ring of two ranks needs two CUDA devices; "
+                    f"this machine has {torch.cuda.device_count()}")
+    import torch.multiprocessing as mp
+    mp.spawn(_nccl_ring_rank, args=(2, str(tmp_path / "store"),
+                                    str(tmp_path)), nprocs=2, join=True)
+    for rank in range(2):
+        assert (tmp_path / f"rank{rank}").read_text() == "ok", rank

@@ -31,7 +31,7 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 34          # every submodule was imported
+    assert int(count) >= 40          # every submodule was imported
     assert bad == "[]", bad
 
 
@@ -86,6 +86,42 @@ def test_lm_entry_points_default_to_the_card():
         M.init_cache(cfg, 1, 4)
     with pytest.raises((AssertionError, RuntimeError)):
         main(["--arch", "qwen3_4b", "--smoke", "--sparse", "--continuous"])
+
+
+MESH_MODULES = ("repro_torch.dist", "repro_torch.dist.elastic",
+                "repro_torch.dist.partitioning",
+                "repro_torch.dist.collective_matmul",
+                "repro_torch.dist.compression", "repro_torch.vision.mesh")
+
+
+def test_mesh_modules_import_no_jax_and_no_reference():
+    """The distribution substrate and the mesh-sharded vision runtime,
+    imported alone in a fresh process, load neither JAX nor ``repro``."""
+    probe = (f"import importlib, sys\nfor m in {MESH_MODULES!r}:\n"
+             "    importlib.import_module(m)\n"
+             "print(sorted(m for m in sys.modules if m == 'jax' or "
+             "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro'))")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_mesh_entry_points_default_to_the_card():
+    """A mesh is NCCL on the card unless the caller names the CPU: without
+    a card the default mesh raises (nothing falls back to gloo)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device works")
+    probe = ("from repro_torch.vision.mesh import data_mesh\n"
+             "try:\n    data_mesh(1)\nexcept (AssertionError, RuntimeError,"
+             " ValueError) as e:\n    print('refused', type(e).__name__)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    for k in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(k, None)
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.startswith("refused"), out.stdout + out.stderr
 
 
 TRAIN_MODULES = ("repro_torch.optim.adamw", "repro_torch.ckpt.checkpoint",

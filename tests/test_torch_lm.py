@@ -290,7 +290,7 @@ def test_slot_hygiene_and_queue_checks():
 
 
 def test_unported_paths_raise():
-    """The mesh stack is still not ported (ROADMAP A8); training, the
+    """The LM mesh stack is still not ported (ROADMAP A8b); training, the
     optimizer, checkpoints and the data pipeline are (``tests/
     test_torch_train.py``, ``test_torch_ckpt.py``), and so are flash
     attention, MoE, Mamba, prefix and encoder-decoder models
@@ -304,7 +304,12 @@ def test_unported_paths_raise():
     sparse = sparsify_model(params, tcfg, strict=True)
     assert "ffn_sparse" in sparse["blocks"][0]["p0"]
     Scheduler(tcfg, sparse, num_slots=1, max_len=8)
-    assert importlib.util.find_spec("repro_torch.dist") is None
+    # the vision half of the mesh port is in (A8a); the LM half is not
+    assert importlib.util.find_spec("repro_torch.dist") is not None
+    assert importlib.util.find_spec("repro_torch.dist.act_sharding") is None
+    from repro_torch.optim import adamw
+    with pytest.raises(NotImplementedError):
+        adamw.opt_shardings(None, None)
     for mod in ("train", "optim", "ckpt", "data"):
         assert importlib.util.find_spec(f"repro_torch.{mod}") is not None
     flash, _ = M.forward(params, torch.tensor([[1, 2, 3]]), tcfg,

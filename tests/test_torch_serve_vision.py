@@ -138,12 +138,13 @@ def test_virtual_clock_requires_step_cost(models):
 
 
 def test_unported_options_raise(models):
-    """The mesh still raises; the artifact verifier is ported and on by
-    default (``tests/test_torch_analysis.py``): a clean model is
+    """The mesh is ported (``tests/test_torch_dist_vision.py``): what is
+    not a mesh (no dim names) is refused; the artifact verifier is ported
+    and on by default (``tests/test_torch_analysis.py``): a clean model is
     admitted."""
     VisionServer(models[1], buckets=(8,), step_cost_s=1.0,
                  clock=VirtualClock(), verify_artifacts=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="dim names"):
         VisionServer(models[1], buckets=(8,), step_cost_s=1.0,
                      clock=VirtualClock(), mesh=object())
 

@@ -208,15 +208,16 @@ def test_engine_round_robin_spreads_lanes(rng, models):
 
 
 def test_not_ported_options_raise(models):
-    """The mesh still raises; the artifact verifier is ported and on by
-    default (``tests/test_torch_analysis.py``): a clean model is admitted;
-    ``use_tuned`` is ported (``tests/test_torch_autotune.py``): on layers
-    without a tuning record it keeps the global knobs."""
+    """The mesh is ported (``tests/test_torch_dist_vision.py``): what is
+    not a mesh (no dim names) is refused; the artifact verifier is ported
+    and on by default (``tests/test_torch_analysis.py``): a clean model is
+    admitted; ``use_tuned`` is ported (``tests/test_torch_autotune.py``): on
+    layers without a tuning record it keeps the global knobs."""
     _, t = models
     VisionEngine(t, verify_artifacts=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="dim names"):
         VisionEngine(t, mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="dim names"):
         compile_forward(t, mesh=object())
     assert all(layer.conv.tuned is None for layer in t.layers)
     assert layer_geometry(t, 24, use_tuned=True) == layer_geometry(t, 24)
