@@ -200,15 +200,32 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    ``graphed_forward(mesh=)`` on 4 images, ``VisionEngine(mesh=)`` on 8
    requests and ``VisionServer(mesh=)`` on 6, each bitwise equal to the
    solo eager forward, the walker's launches counted from zero and held
-   exactly, the process group destroyed at the end; (c) the replayed
+   exactly; (c) the replayed
    forward at local widths 8, 4, 2 and 1 (one rank's share of a batch of
    8 over D = 1, 2, 4, 8): ms and ``t(8) / t(8 / D)`` beside the
    step-count speed-up. One card: no traffic between cards, no speed-up
-   claimed.
+   claimed. The one-rank world stays up for phase 22.
 
-Phases 13-19 run between phases 10 and 11, phase 21 between 11 and the
-VGG16 half of 12, phase 20 last; K3's and K4's ``launches_by_path`` gain
-the paths of 13, 14, 17, 18 and 20, K1's those of 11 and 21.
+22. sharded LM training (``repro_torch.launch.mesh``, DTensor params and
+   moments) in phase 21's one-rank NCCL world, destroyed after it:
+   Qwen3-4B at full width, LM_LAYERS layers, bf16, seq TRAIN_SEQ x batch
+   TRAIN_BATCH, remat on, on ``make_debug_mesh(1, 1)`` with FSDP: (a)
+   one eager sharded step bitwise equal to the solo step from the same
+   params and batch, every leaf in its ``param_shardings`` /
+   ``opt_shardings`` placements; (b) the captured sharded step over
+   GRAPH_STEPS steps bitwise equal to the eager sharded step; (c) step
+   ms, sharded against solo, graph and eager (CUDA events), with the
+   card's idle share from one traced step each; (d) the mesh's state
+   saved and restored solo bitwise, a solo save of its params the same
+   bytes and restored onto the mesh bitwise (seconds, bytes); (e) the
+   launcher under ``torch.distributed.run --nproc-per-node 1`` with
+   ``--mesh 1,1 --fsdp`` (4 steps, its finish line). No kernel of the
+   four runs on this path (the reference trains the dense model).
+
+Phases 13-19 run between phases 10 and 11, phases 21 and 22 between 11
+and the VGG16 half of 12, phase 20 last; K3's and K4's
+``launches_by_path`` gain the paths of 13, 14, 17, 18 and 20, K1's those
+of 11 and 21.
 
 The serving and training paths run compiled, as the reference's
 ``jax.jit`` does: the LM decode step under ``Scheduler`` and ``generate``
@@ -298,6 +315,8 @@ GRAPH_STEPS = 3                  # captured train step against eager
 # tried in turn if one does not fit the card
 FULL_DEPTHS, FULL_STEPS = (36, 30, 24, 18), 5
 FP64_BATCH, FP64_SEQ = 2, 64                 # one full-width layer, fp32
+# phase 22, sharded training on a one-rank mesh (phase 20's shape)
+MESH_TIMED_STEPS = 6
 
 
 class SmokeFailure(RuntimeError):
@@ -2874,70 +2893,67 @@ def one_rank_mesh(model, imgs, card: str):
     dev = model.device
     mesh = data_mesh(1, device=dev)
     backend = "nccl" if dev.type == "cuda" else "gloo"
-    try:
-        require(dist.get_backend() == backend and
-                dist.get_world_size() == 1,
-                f"the one-rank world is not {backend} of size 1")
-        solo = compile_forward(model)
-        x4 = torch.as_tensor(imgs[:4], device=dev)
-        want = solo(x4)
-        layers = model.num_layers
-        WALK.launches = 0
-        fwd = graphed_forward(model, mesh=mesh)
-        got = [fwd(x4) for _ in range(3)]           # eager + capture, replays
-        torch.cuda.synchronize()
-        fwd_launches = WALK.launches
-        require(all(torch.equal(g, want) for g in got),
-                "graphed_forward(mesh=) != the solo forward bitwise")
-        require(fwd_launches == 3 * layers,
-                f"graphed_forward(mesh=) launched the walker {fwd_launches} "
-                f"times, expected {3 * layers}")
-        reqs = [ImageRequest(rid=i, image=imgs[i], arrival=i // 3)
-                for i in range(8)]
-        WALK.launches = 0
-        eng = VisionEngine(model, num_slots=4, mesh=mesh)
-        produced = eng.run(reqs)
-        torch.cuda.synchronize()
-        eng_launches = WALK.launches
-        forwards = eng.stats.engine_steps + 1
-        require(eng_launches == forwards * layers,
-                f"the mesh engine launched the walker {eng_launches} times, "
-                f"expected {forwards * layers}")
-        for r in reqs:
-            one = solo(torch.as_tensor(r.image[None], device=dev))[0]
-            require(np.array_equal(produced[r.rid], one.cpu().numpy()),
-                    f"mesh engine request {r.rid} != the solo forward")
-        sc = eng.schedule_counters()
-        require(sc["num_devices"] == 1 and sc["step_imbalance"] == 0.0,
-                f"mesh engine counters {sc}")
-        sreqs = [ImageRequest(rid=i, image=imgs[i], arrival_s=0.004 * i,
-                              deadline_s=0.004 * i + 0.5) for i in range(6)]
-        srv = VisionServer(model, num_slots=4, buckets=(SIZE,),
-                           clock=VirtualClock(), step_cost_s=0.03, mesh=mesh)
-        srv.warmup()
-        WALK.launches = 0
-        served = srv.run(sreqs)
-        torch.cuda.synchronize()
-        srv_launches = WALK.launches
-        require(srv_launches == srv.stats.engine_steps * layers and
-                srv.stats.sla_misses == 0,
-                f"the mesh server launched the walker {srv_launches} times "
-                f"in {srv.stats.engine_steps} steps, "
-                f"{srv.stats.sla_misses} SLA misses")
-        for r in sreqs:
-            one = solo(torch.as_tensor(r.image[None], device=dev))[0]
-            require(np.array_equal(served[r.rid], one.cpu().numpy()),
-                    f"mesh server request {r.rid} != the solo forward")
-        print(f"one-rank NCCL data mesh: graphed_forward(mesh=) on 4 images "
-              f"(3 calls, {fwd_launches} walker launches), VisionEngine("
-              f"mesh=) 8 requests in {eng.stats.engine_steps} steps "
-              f"({eng_launches} launches, per-device steps "
-              f"{sc['per_device_steps']}), VisionServer(mesh=) 6 requests "
-              f"in {srv.stats.engine_steps} steps ({srv_launches} launches):"
-              f" every output bitwise equal to the solo eager forward "
-              f"[{card}]")
-    finally:
-        dist.destroy_process_group()
+    require(dist.get_backend() == backend and
+            dist.get_world_size() == 1,
+            f"the one-rank world is not {backend} of size 1")
+    solo = compile_forward(model)
+    x4 = torch.as_tensor(imgs[:4], device=dev)
+    want = solo(x4)
+    layers = model.num_layers
+    WALK.launches = 0
+    fwd = graphed_forward(model, mesh=mesh)
+    got = [fwd(x4) for _ in range(3)]           # eager + capture, replays
+    torch.cuda.synchronize()
+    fwd_launches = WALK.launches
+    require(all(torch.equal(g, want) for g in got),
+            "graphed_forward(mesh=) != the solo forward bitwise")
+    require(fwd_launches == 3 * layers,
+            f"graphed_forward(mesh=) launched the walker {fwd_launches} "
+            f"times, expected {3 * layers}")
+    reqs = [ImageRequest(rid=i, image=imgs[i], arrival=i // 3)
+            for i in range(8)]
+    WALK.launches = 0
+    eng = VisionEngine(model, num_slots=4, mesh=mesh)
+    produced = eng.run(reqs)
+    torch.cuda.synchronize()
+    eng_launches = WALK.launches
+    forwards = eng.stats.engine_steps + 1
+    require(eng_launches == forwards * layers,
+            f"the mesh engine launched the walker {eng_launches} times, "
+            f"expected {forwards * layers}")
+    for r in reqs:
+        one = solo(torch.as_tensor(r.image[None], device=dev))[0]
+        require(np.array_equal(produced[r.rid], one.cpu().numpy()),
+                f"mesh engine request {r.rid} != the solo forward")
+    sc = eng.schedule_counters()
+    require(sc["num_devices"] == 1 and sc["step_imbalance"] == 0.0,
+            f"mesh engine counters {sc}")
+    sreqs = [ImageRequest(rid=i, image=imgs[i], arrival_s=0.004 * i,
+                          deadline_s=0.004 * i + 0.5) for i in range(6)]
+    srv = VisionServer(model, num_slots=4, buckets=(SIZE,),
+                       clock=VirtualClock(), step_cost_s=0.03, mesh=mesh)
+    srv.warmup()
+    WALK.launches = 0
+    served = srv.run(sreqs)
+    torch.cuda.synchronize()
+    srv_launches = WALK.launches
+    require(srv_launches == srv.stats.engine_steps * layers and
+            srv.stats.sla_misses == 0,
+            f"the mesh server launched the walker {srv_launches} times "
+            f"in {srv.stats.engine_steps} steps, "
+            f"{srv.stats.sla_misses} SLA misses")
+    for r in sreqs:
+        one = solo(torch.as_tensor(r.image[None], device=dev))[0]
+        require(np.array_equal(served[r.rid], one.cpu().numpy()),
+                f"mesh server request {r.rid} != the solo forward")
+    print(f"one-rank NCCL data mesh: graphed_forward(mesh=) on 4 images "
+          f"(3 calls, {fwd_launches} walker launches), VisionEngine("
+          f"mesh=) 8 requests in {eng.stats.engine_steps} steps "
+          f"({eng_launches} launches, per-device steps "
+          f"{sc['per_device_steps']}), VisionServer(mesh=) 6 requests "
+          f"in {srv.stats.engine_steps} steps ({srv_launches} launches):"
+          f" every output bitwise equal to the solo eager forward "
+          f"[{card}]")
     return fwd_launches + eng_launches + srv_launches
 
 
@@ -3443,6 +3459,264 @@ def full_depth_train(dev, card):
     raise SmokeFailure(f"full-depth train: no depth of {FULL_DEPTHS} fits")
 
 
+# phase 22: sharded LM training on a one-rank DeviceMesh
+def local_tree(tree):
+    """Each DTensor leaf's local tensor (plain leaves as they are)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models import model as M
+    return M.map_tree(lambda t: t.to_local() if isinstance(t, DTensor)
+                      else t, tree)
+
+
+def placements_off(tree, shardings) -> list:
+    """Keys of the DTensor leaves whose placements are not their
+    sharding's."""
+    from repro_torch.models import model as M
+    fa, fs = M.flatten_tree(tree), M.flatten_tree(shardings)
+    return [k for k, t in fa.items()
+            if tuple(getattr(t, "placements", ())) != fs[k].placements]
+
+
+def step_times(name, make_state, make_step, batch, card):
+    """MESH_TIMED_STEPS steps of ``make_step()`` from ``make_state()`` on
+    one batch, each timed by CUDA events (median after the first two: the
+    eager warm-up with the capture, and the first replay), then one step
+    traced: the card's busy ms and idle share of the median."""
+    import torch
+    params, opt = make_state()
+    step = make_step()
+    ms = []
+    for _ in range(MESH_TIMED_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, m = step(params, opt, batch)
+        end.record()
+        torch_sync()
+        ms.append(start.elapsed_time(end))
+    med = float(np.median(ms[2:]))
+    loss = float(m["loss"])                # before the trace's replays
+    kernels = trace_kernels(lambda: step(params, opt, batch))
+    busy = sum(t for _, t in kernels)
+    rec = {"ms": ms, "median_ms": med, "kernels": len(kernels),
+           "busy_ms": busy, "idle_share": (med - busy) / med
+           if kernels else None, "loss": loss}
+    idle = (f"one traced step {len(kernels)} kernels, busy {busy:.4f} ms, "
+            f"idle {rec['idle_share']:.1%} of the median") if kernels \
+        else "the profiler saw no kernel (idle share not measured)"
+    print(f"  {name}: median {med:.4f} ms by CUDA events over steps 3-"
+          f"{MESH_TIMED_STEPS} (range {min(ms[2:]):.4f}-{max(ms[2:]):.4f};"
+          f" the first {ms[0]:.4f}); {idle} [{card}]")
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_mesh_phase(dev, card):
+    """Phase 22: Qwen3-4B at full width (LM_LAYERS layers, bf16, seq
+    TRAIN_SEQ x batch TRAIN_BATCH, remat on) trained sharded on
+    ``make_debug_mesh(1, 1)`` with FSDP, in the one-rank NCCL world of
+    phase 21 (joined, or started when run alone).
+
+    (a) one eager sharded step against the solo step from the same params
+    and batch: params, moments and metrics bitwise equal, every leaf in
+    the placements ``param_shardings`` / ``opt_shardings`` give it; (b)
+    the captured sharded step (``GraphedTrainStep`` on the DTensors) over
+    GRAPH_STEPS steps bitwise equal to the eager sharded donated step; (c)
+    step ms, sharded against solo, graph and eager (CUDA events), with the
+    card's idle share from one traced step each; (d) the mesh's state
+    saved and restored solo bitwise, and a solo save of its params (the
+    same bytes) restored onto the mesh bitwise (seconds and bytes); (e) the launcher under
+    ``torch.distributed.run --nproc-per-node 1`` with ``--mesh 1,1
+    --fsdp``, 4 steps at LM_LAYERS layers, its finish line. No kernel of
+    the four runs here. Returns the record."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import ShapeConfig, load_config
+    from repro_torch.data.pipeline import batch_for
+    from repro_torch.dist import partitioning as part
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import init_state, shardings
+    from repro_torch.train.train_step import GraphedTrainStep, \
+        make_train_step
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(load_config(LM_ARCH), n_layers=LM_LAYERS)
+    shape = ShapeConfig("phase22", TRAIN_SEQ, TRAIN_BATCH, "train")
+    opt_cfg = adamw.AdamWConfig(warmup_steps=2, total_steps=16)
+    mesh = make_debug_mesh(1, 1, device=dev)
+    require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+            "phase 22 runs in a one-rank NCCL world")
+    p_sh, o_sh = shardings(cfg, mesh, fsdp=True)
+    place = part.NamedSharding.of(mesh, part.batch_spec(mesh))
+
+    def on_mesh(batch):
+        return {k: part.distribute(v, place) for k, v in batch.items()}
+    rec = {"mesh": "(data=1, model=1)", "fsdp": True}
+    ffn_counts(reset=True)
+
+    # (a) one eager sharded step against the solo step
+    params = M.init_params(cfg, seed=SEED, device=dev)
+    batch = batch_for(cfg, shape, 0, seed=SEED, device=dev)
+    solo = make_train_step(cfg, opt_cfg)(params, adamw.init(params), batch)
+    sp = part.distribute_tree(params, p_sh)
+    so = adamw.init(sp)
+    t0 = time.perf_counter()
+    got = make_train_step(cfg, opt_cfg)(sp, so, on_mesh(batch))
+    torch_sync()
+    first_s = time.perf_counter() - t0
+    diff = leaves_bitwise(local_tree(got), solo)
+    off = placements_off(got[0], p_sh) + placements_off(got[1], o_sh)
+    require(not diff, f"sharded step != solo: {diff[:6]}")
+    require(not off, f"leaves off their shardings: {off[:6]}")
+    shown = {k: str(v.placements) for k, v in list(M.flatten_tree(
+        p_sh).items())[:3]}
+    print(f"phase 22: {cfg.name} at full width, {cfg.n_layers} layers, "
+          f"bf16, seq {TRAIN_SEQ} x batch {TRAIN_BATCH}, remat on, on "
+          f"make_debug_mesh(1, 1) with FSDP: one eager sharded step "
+          f"({first_s:.2f} s with DTensor's first dispatches) bitwise equal "
+          f"to the solo step ({len(M.flatten_tree(solo))} leaves: params, "
+          f"moments, counter, metrics); every leaf in its "
+          f"param_shardings / opt_shardings placements ({shown}) [{card}]")
+    del solo, got, sp, so
+    torch.cuda.empty_cache()
+
+    # (b) the captured sharded step against the eager sharded step
+    ep = part.distribute_tree(params, p_sh)
+    eo = adamw.init(ep)
+    gp = part.distribute_tree(params, p_sh)
+    go = adamw.init(gp)
+    estep = make_train_step(cfg, opt_cfg, donate=True)
+    gstep = GraphedTrainStep(cfg, opt_cfg)
+    for i in range(GRAPH_STEPS):
+        b = on_mesh(batch_for(cfg, shape, i, seed=SEED, device=dev))
+        ep, eo, em = estep(ep, eo, b)
+        gp, go, gm = gstep(gp, go, b)
+        diff = leaves_bitwise(local_tree((gp, go, gm)),
+                              local_tree((ep, eo, em)))
+        require(not diff, f"captured sharded step {i + 1} != eager: "
+                          f"{diff[:6]}")
+    g, = gstep.graphs.values()
+    require(g.replays == GRAPH_STEPS - 1,
+            "the sharded step did not replay its graph")
+    require(not placements_off(gp, p_sh), "the graph's params left their "
+                                          "placements")
+    rec["capture_s"], rec["pool_gib"] = g.capture_s, g.pool_bytes / 2**30
+    print(f"  captured sharded step (GraphedTrainStep on the DTensors): "
+          f"{GRAPH_STEPS} steps bitwise equal to the eager sharded donated "
+          f"step (the first eager, then {g.replays} replays), capture "
+          f"{g.capture_s:.3f} s, pool {g.pool_bytes / 2**30:.3f} GiB "
+          f"[{card}]")
+    del ep, eo, gp, go, gstep, g, estep
+    torch.cuda.empty_cache()
+
+    # (c) step ms: sharded against solo, graph and eager, each run from a
+    # copy of one draw
+    mb = on_mesh(batch)
+
+    def solo_state():
+        p = M.map_tree(torch.clone, params)
+        return p, adamw.init(p)
+
+    def mesh_state():
+        p = part.distribute_tree(params, p_sh)
+        return p, adamw.init(p)
+    timed = {}
+    for name, make_state, b in (("solo", solo_state, batch),
+                                ("sharded", mesh_state, mb)):
+        for mode in ("eager", "graph"):
+            make = (lambda: GraphedTrainStep(cfg, opt_cfg)) \
+                if mode == "graph" else \
+                (lambda: make_train_step(cfg, opt_cfg, donate=True))
+            timed[f"{name} {mode}"] = step_times(
+                f"train step, {name} {mode}", make_state, make, b, card)
+    losses = {k: v["loss"] for k, v in timed.items()}
+    require(len(set(losses.values())) == 1,
+            f"the four timed runs' last losses differ: {losses}")
+    for mode in ("eager", "graph"):
+        r = timed[f"sharded {mode}"]["median_ms"] / \
+            timed[f"solo {mode}"]["median_ms"]
+        rec[f"sharded_over_solo_{mode}"] = r
+        print(f"  sharded {mode} / solo {mode}: {r:.4f}x [{card}]")
+    rec["timed"] = timed
+
+    # (d) checkpoints across the mesh and solo: the mesh's state restored
+    # solo; a solo save of its params (the same bytes) onto the mesh
+    (ROOT / "build").mkdir(exist_ok=True)
+    ck = tempfile.mkdtemp(prefix="phase22_ckpt_", dir=ROOT / "build")
+    try:
+        sp, so = mesh_state()
+        sp, so, _ = make_train_step(cfg, opt_cfg, donate=True)(sp, so, mb)
+        del params
+        abs_p = M.abstract_params(cfg)
+        abs_o = adamw.init(abs_p)
+        t0 = time.perf_counter()
+        ckpt.save(ck, 1, sp, so)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in
+                     (Path(ck) / "step_00000001").iterdir())
+        t0 = time.perf_counter()
+        p1, o1, _ = ckpt.restore(ck, 1, abs_p, abs_o, device=dev)
+        torch_sync()
+        solo_s = time.perf_counter() - t0
+        diff = leaves_bitwise((p1, o1), local_tree((sp, so)))
+        require(not diff, f"mesh checkpoint restored solo: {diff[:6]}")
+        del o1, so
+        ckpt.save(ck, 2, p1)
+        t0 = time.perf_counter()
+        p2, _, _ = ckpt.restore(ck, 2, abs_p, device=dev, shardings=p_sh)
+        torch_sync()
+        mesh_s = time.perf_counter() - t0
+        diff = leaves_bitwise(local_tree(p2), p1)
+        require(not diff and not placements_off(p2, p_sh),
+                f"solo checkpoint restored onto the mesh: {diff[:6]}")
+        same = (Path(ck) / "step_00000001" / "params.bin").read_bytes() == \
+            (Path(ck) / "step_00000002" / "params.bin").read_bytes()
+        require(same, "the mesh save's params.bin != the solo save's")
+        rec["ckpt"] = {"bytes": nbytes, "save_s": save_s,
+                       "restore_solo_s": solo_s, "restore_mesh_s": mesh_s}
+        print(f"  checkpoints: the mesh's state saved {save_s:.2f} s "
+              f"({nbytes / 1e9:.3f} GB, params and moments), restored solo "
+              f"{solo_s:.2f} s bitwise; a solo save of its params "
+              f"byte-identical, restored onto the mesh {mesh_s:.2f} s "
+              f"bitwise, in its placements [{card}]")
+        del sp, p1, p2
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    torch.cuda.empty_cache()
+    require(ffn_counts() == {"k3": 0, "k4": 0},
+            "the sharded training launched FFN kernels")
+
+    # (e) the launcher under torch.distributed.run
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", "1", "-m", "repro_torch.launch.train",
+            "--arch", LM_ARCH, "--layers", str(LM_LAYERS), "--steps", "4",
+            "--seq", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH),
+            "--mesh", "1,1", "--fsdp"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    run = subprocess.run(argv, env=env, capture_output=True, text=True,
+                         timeout=300, cwd=ROOT)
+    launch_s = time.perf_counter() - t0
+    fin = [ln for ln in run.stdout.splitlines()
+           if ln.startswith("finished at step 4")]
+    require(run.returncode == 0 and fin, f"the mesh launcher failed "
+            f"({run.returncode}): {run.stdout[-1500:]} {run.stderr[-3000:]}")
+    rec["launcher_s"] = launch_s
+    print(f"  torch.distributed.run --nproc-per-node 1 -m repro_torch."
+          f"launch.train --mesh 1,1 --fsdp "
+          f"({LM_LAYERS} layers, 4 steps): {fin[0]} ({launch_s:.1f} s in "
+          f"all) [{card}]")
+    print(f"  phase 22 {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3517,6 +3791,12 @@ def main() -> int:
     slab_recs, slab_launches = lazy_phase(card)    # phase 11
     torch.cuda.empty_cache()
     mesh_rec, mesh_launches = mesh_phase(dev, card)   # phase 21
+    torch.cuda.empty_cache()
+    try:
+        lm_mesh_phase(dev, card)                  # phase 22, phase 21's world
+    finally:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     torch.cuda.empty_cache()
     vision_admission_phase(card, dev)              # phase 12 (VGG16)
     launches["qwen3_4b_trained_serving"] = train_phase(dev, card)   # 20

@@ -6,10 +6,16 @@
   the next layer's input axis (offline, amortized over all inferences).
 * :func:`round_robin_permutation` — rotated lane scan order (§3.3.2), used
   for serving slot admission.
+* :func:`rotate_assignment` — static against round-robin lane imbalance
+  over a run of inputs (the simulator's intra-filter model).
+* :func:`expert_placement` — experts to devices, the MoE analogue of
+  inter-filter balancing, rotated by step.
 * :func:`balance_cost` — max/mean per-shard density of a placement (the
   MoE expert balancer's measure, ``sparsity.expert_balance``).
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 
@@ -74,3 +80,38 @@ def round_robin_assignment(num_subchunks: int, lanes: int,
 def round_robin_permutation(num_subchunks: int, step: int) -> np.ndarray:
     """Rotated scan order over ``num_subchunks`` lanes (one per lane)."""
     return round_robin_assignment(num_subchunks, num_subchunks, step)
+
+
+def rotate_assignment(work: np.ndarray, lanes: int,
+                      steps: int) -> Tuple[float, float]:
+    """(static, round-robin) lane imbalance, max-lane / mean-lane
+    aggregate work, of ``work`` [steps, num_subchunks] (per-input-chunk
+    densities): static keeps the step-0 :func:`round_robin_assignment`,
+    round-robin rotates it every input. ``steps`` is read from ``work``,
+    as the reference does."""
+    work = np.asarray(work, np.float64)
+    steps_n, ns = work.shape
+    per_lane_static = np.zeros(lanes)
+    per_lane_rr = np.zeros(lanes)
+    static = round_robin_assignment(ns, lanes, 0)
+    for t in range(steps_n):
+        np.add.at(per_lane_static, static, work[t])
+        np.add.at(per_lane_rr, round_robin_assignment(ns, lanes, t), work[t])
+    mean = work.sum() / lanes
+    return (float(per_lane_static.max() / max(mean, 1e-12)),
+            float(per_lane_rr.max() / max(mean, 1e-12)))
+
+
+def expert_placement(expert_load: np.ndarray, num_devices: int,
+                     step: int = 0) -> np.ndarray:
+    """``device_of_expert`` [num_experts]: experts sorted by load and dealt
+    serpentine over devices (:func:`greedy_balance`, direction by
+    ``step``), the deal rotated by ``step`` so a persistently hot expert
+    does not pin one device for the whole run."""
+    num_experts = expert_load.shape[0]
+    perm = greedy_balance(np.asarray(expert_load, np.float64), num_devices,
+                          direction=step)
+    device_of_expert = np.empty(num_experts, np.int64)
+    for slot, e in enumerate(perm):
+        device_of_expert[e] = (slot + step) % num_devices
+    return device_of_expert

@@ -19,7 +19,20 @@ These read only a mesh's dim names and extents (``mesh_dim_names`` and
 ``shape`` mapping), so a stub serves as well as a live mesh. The port's
 params carry one dict entry per period, not the reference's stacked
 leading axis, so a block leaf's spec is the reference's without its
-leading ``None``. Binding specs to a live mesh waits for a later slice.
+leading ``None``.
+
+The bound half ties specs to a live ``DeviceMesh``:
+
+* :func:`placements` — one DTensor placement per mesh dim for a spec
+  (``Shard(d)`` where tensor dim ``d`` names the dim, ``Replicate()``
+  elsewhere), refusing what DTensor would silently lay out otherwise.
+* :class:`NamedSharding` — the record ``(mesh, spec, placements)``, the
+  port's counterpart of ``jax.sharding.NamedSharding``.
+* :func:`param_shardings` / :func:`cache_shardings` — those records for a
+  params tree and a decode cache.
+* :func:`distribute_tree` / :func:`gather_tree` — each rank keeps its own
+  slice as a ``DTensor`` (nothing crosses the wire), and back to full
+  tensors.
 """
 from __future__ import annotations
 
@@ -27,7 +40,12 @@ import dataclasses
 import math
 from typing import Mapping, Optional, Sequence, Tuple
 
-from repro_torch.models.model import map_tree_with_path
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+# a module import: models.model imports dist.act_sharding, which imports
+# this module
+from repro_torch.models import model as _model
 
 # leaf names sharded column-parallel (output-feature dim on TP axes)
 _COL = {"wq", "wk", "wv", "w_in", "w_gate", "in_proj",
@@ -84,7 +102,8 @@ def axis_names(mesh) -> Tuple[str, ...]:
     return tuple(names)
 
 
-def _axis_sizes(mesh) -> Mapping[str, int]:
+def axis_sizes(mesh) -> Mapping[str, int]:
+    """Mesh dim name -> extent."""
     names = axis_names(mesh)
     shape = mesh.shape                   # a tuple, or name -> extent
     if isinstance(shape, Mapping):
@@ -104,7 +123,7 @@ def tp_axes(mesh) -> Tuple[str, ...]:
 
 def dp_extent(mesh) -> int:
     """Product of the data-parallel extents (1 without data axes)."""
-    sizes = _axis_sizes(mesh)
+    sizes = axis_sizes(mesh)
     return math.prod(sizes[a] for a in dp_axes(mesh))
 
 
@@ -113,7 +132,7 @@ def make_rules(mesh, n_heads: int, n_kv_heads: int) -> Rules:
     attention tensors shard on the largest axis prefix whose product
     divides the head count; one unfactored ``model`` axis is the
     baseline (everything shards on it)."""
-    sizes = _axis_sizes(mesh)
+    sizes = axis_sizes(mesh)
     tp = tp_axes(mesh)
     if len(tp) <= 1:
         return Rules(tp=tp, q_axes=tp, kv_axes=tp, sizes=sizes)
@@ -227,7 +246,7 @@ def param_specs(abs_params, fsdp: int = 0, rules: Optional[Rules] = None):
             spec = P(*spec[1:])
         return spec
 
-    return map_tree_with_path(one, abs_params)
+    return _model.map_tree_with_path(one, abs_params)
 
 
 # ---------------------------------------------------------------------------
@@ -264,7 +283,175 @@ def cache_spec(mesh, max_len: int, name: str, ndim: int,
                 entries[3] = tuple(rules.kv_axes)
         else:
             tp = tp_axes(mesh)
-            sizes = _axis_sizes(mesh)
+            sizes = axis_sizes(mesh)
             if len(tp) == 1 and max_len % sizes[tp[0]] == 0:
                 entries[2] = tp[0]
     return P(*entries)
+
+
+def cache_shardings(mesh, abs_cache, batch: int,
+                    rules: Optional[Rules] = None):
+    """:class:`NamedSharding` tree for a decode cache (the port's layout,
+    ``M.init_cache``: one entry per period, leaves without the reference's
+    leading periods axis). Each leaf gets :func:`cache_spec` of its
+    reference shape, less the periods entry; the batch dim is checked
+    against the declared runtime ``batch``, the rest against the leaf's
+    shape, and any entry that does not divide falls back to replicated."""
+    sizes = axis_sizes(mesh)
+
+    def one(path, leaf):
+        shape = (1,) + tuple(leaf.shape)             # the reference's layout
+        max_len = shape[2] if len(shape) >= 3 else 0
+        spec = cache_spec(mesh, max_len, str(path[-1]), len(shape), rules)
+        entries = list(spec)[1:]
+        for i, e in enumerate(entries):
+            if e is None:
+                continue
+            extent = batch if i == 0 else shape[i + 1]
+            if extent % math.prod(sizes[a] for a in _axes(e)):
+                entries[i] = None
+        return NamedSharding.of(mesh, P(*entries), leaf.shape)
+
+    return _model.map_tree_with_path(one, abs_cache)
+
+
+# ---------------------------------------------------------------------------
+# the bound half: specs on a live DeviceMesh
+# ---------------------------------------------------------------------------
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def placements(mesh, spec: PartitionSpec, shape: Optional[Sequence[int]]
+               = None) -> tuple:
+    """One DTensor placement per dim of ``mesh`` for ``spec``:
+    ``Shard(d)`` on each mesh dim that tensor dim ``d``'s entry names,
+    ``Replicate()`` on the rest.
+
+    DTensor nests a tensor dim's shards in mesh-dim order, so an entry
+    naming several axes must list them in that order (else it would be
+    another layout): refused, as is an axis named twice. Given the tensor's
+    ``shape``, a dim that its axes do not divide is refused too (DTensor
+    would shard it unevenly; the rules never shard one)."""
+    names = axis_names(mesh)
+    sizes = axis_sizes(mesh)
+    out: list = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        axes = _axes(entry)
+        for a in axes:
+            if a not in names:
+                raise ValueError(f"{spec}: the mesh has no dim {a!r} "
+                                 f"(dims {names})")
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"{spec}: entry {entry} lists mesh dims out of "
+                             f"the mesh's order {names}")
+        for i in idx:
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"{spec}: mesh dim {names[i]!r} named "
+                                 "twice")
+            out[i] = Shard(d)
+        if shape is not None and axes:
+            n = math.prod(sizes[a] for a in axes)
+            if d >= len(shape) or shape[d] % n:
+                raise ValueError(
+                    f"{spec}: dim {d} of {tuple(shape)} does not divide "
+                    f"over {axes} ({n} ranks)")
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec bound to a mesh: ``(mesh, spec, placements)``, the port's
+    ``jax.sharding.NamedSharding``."""
+    mesh: object
+    spec: PartitionSpec
+    placements: tuple
+
+    @classmethod
+    def of(cls, mesh, spec: PartitionSpec,
+           shape: Optional[Sequence[int]] = None) -> "NamedSharding":
+        return cls(mesh, spec, placements(mesh, spec, shape))
+
+
+def replicated(mesh) -> NamedSharding:
+    """Every mesh dim replicated."""
+    return NamedSharding.of(mesh, P())
+
+
+def param_shardings(mesh, abs_params, fsdp: bool = False,
+                    rules: Optional[Rules] = None):
+    """:class:`NamedSharding` tree for ``abs_params`` on ``mesh``.
+
+    Without ``rules`` the baseline rules of the mesh's dim names, with
+    exact divisibility against its extents (given ``rules`` get the sizes
+    when they lack them). Truthy ``fsdp`` shards one free dim of every
+    matrix over the full ``data`` extent (no partial factor)."""
+    sizes = axis_sizes(mesh)
+    if rules is None:
+        tp = tp_axes(mesh)
+        rules = Rules(tp=tp, q_axes=tp, kv_axes=tp, sizes=sizes)
+    elif rules.sizes is None:
+        rules = dataclasses.replace(rules, sizes=sizes)
+    fsdp_n = sizes.get("data", 1) if fsdp else 0
+    specs = param_specs(abs_params, fsdp=fsdp_n, rules=rules)
+    # the params drive the walk, so each spec (a tuple) arrives whole
+    return _model.map_tree(
+        lambda leaf, spec: NamedSharding.of(mesh, spec, leaf.shape),
+        abs_params, specs)
+
+
+def local_slices(mesh, placements_: Sequence, shape: Sequence[int]
+                 ) -> Tuple[slice, ...]:
+    """This rank's block of a tensor of global ``shape`` under
+    ``placements_`` on ``mesh``, as one slice per dim: the mesh dims split
+    a tensor dim in mesh-dim order, as DTensor nests its shards (even
+    splits only, :func:`placements` refuses the rest)."""
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError("this rank is not part of the mesh")
+    start = [0] * len(shape)
+    length = list(shape)
+    for i, pl in enumerate(placements_):
+        if isinstance(pl, Shard):
+            n = mesh.size(i)
+            if length[pl.dim] % n:
+                raise ValueError(f"dim {pl.dim} of {tuple(shape)} does not "
+                                 f"divide over {n} ranks")
+            length[pl.dim] //= n
+            start[pl.dim] += coord[i] * length[pl.dim]
+    return tuple(slice(s, s + n) for s, n in zip(start, length))
+
+
+def distribute(t: torch.Tensor, sharding: NamedSharding) -> DTensor:
+    """``t`` (the same full tensor on every rank) as a DTensor of
+    ``sharding``: this rank keeps a copy of its own block, bit for bit;
+    no collective runs."""
+    local = t[local_slices(sharding.mesh, sharding.placements, t.shape)]
+    return DTensor.from_local(local.clone(), sharding.mesh,
+                              sharding.placements, run_check=False)
+
+
+def distribute_tree(tree, shardings):
+    """:func:`distribute` leaf by leaf (``shardings`` a tree of
+    :class:`NamedSharding` shaped as ``tree``)."""
+    return _model.map_tree(distribute, tree, shardings)
+
+
+def replicate(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor made replicated on every mesh dim (partial sums reduced,
+    shards gathered); a plain tensor unchanged."""
+    if not isinstance(x, DTensor):
+        return x
+    rep = (Replicate(),) * x.device_mesh.ndim
+    return x if tuple(x.placements) == rep else x.redistribute(
+        x.device_mesh, rep)
+
+
+def gather_tree(tree):
+    """Every DTensor leaf as its full tensor (an all-gather where it is
+    sharded, a sum where it is partial); other leaves as they are."""
+    return _model.map_tree(lambda t: t.full_tensor()
+                           if isinstance(t, DTensor) else t, tree)

@@ -18,12 +18,17 @@ over chunks where the reference scans.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
+# a module import: dist.partitioning imports models.model, which imports
+# this module
+from repro_torch.dist import partitioning
 from repro_torch.kernels.worklist_core import activate
 from repro_torch.sparsity import sparse_ffn as sf
 
@@ -90,11 +95,19 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
 
 def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig, positions, *,
          use_rope: bool = True):
-    B, S, _ = x.shape
+    return _heads(p, x @ p["wq"], x @ p["wk"], x @ p["wv"], cfg, positions,
+                  use_rope=use_rope)
+
+
+def _heads(p: Params, q, k, v, cfg: ModelConfig, positions, *,
+           use_rope: bool = True):
+    """Projections [B, S, heads * dh] (all heads, or a rank's) -> [B, S,
+    heads, dh] with qk-norm (``p["q_norm"]``, ``p["k_norm"]``) and RoPE."""
+    B, S, _ = q.shape
     dh = cfg.d_head
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, dh)
-    k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, dh)
-    v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, dh)
+    q = q.reshape(B, S, -1, dh)
+    k = k.reshape(B, S, -1, dh)
+    v = v.reshape(B, S, -1, dh)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -207,7 +220,17 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     causal self-attention to the online-softmax path in ``flash_chunk``-key
     tiles (``mask`` is then not read). ``return_kv`` also returns the
     (RoPE'd) K/V, so a cache-writing prefill fills the decode cache in the
-    same pass."""
+    same pass.
+
+    DTensor weights (a mesh) take :func:`_attention_mesh` (self-attention
+    without ``kv`` or ``return_kv``: the training forward)."""
+    if isinstance(p["wq"], DTensor):
+        if kv is not None or return_kv:
+            raise NotImplementedError("sharded cross-attention and cache "
+                                      "writes: only self-attention runs "
+                                      "on a mesh")
+        return _attention_mesh(p, x, cfg, positions, mask, use_rope,
+                               flash_chunk)
     q, k, v = _qkv(p, x, cfg, positions, use_rope=use_rope)
     if kv is not None:
         k, v = kv
@@ -221,6 +244,65 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     if return_kv:
         return out, k, v
     return out
+
+
+def _head_placements(mesh, batch: int, cfg: ModelConfig) -> tuple:
+    """Placements of a [B, S, heads * dh] projection for attention by
+    rank: the batch over the data-parallel dims (when they divide it), the
+    heads over the longest prefix of the model dims whose product divides
+    both head counts (so a rank's query heads read its own KV heads), the
+    rest replicated."""
+    names = partitioning.axis_names(mesh)
+    out = [Replicate()] * mesh.ndim
+    dp = [names.index(a) for a in partitioning.dp_axes(mesh)]
+    if batch % math.prod(mesh.size(i) for i in dp) == 0:
+        for i in dp:
+            out[i] = Shard(0)
+    n = 1
+    for a in partitioning.tp_axes(mesh):
+        i = names.index(a)
+        n *= mesh.size(i)
+        if cfg.n_heads % n or cfg.n_kv_heads % n:
+            break
+        out[i] = Shard(2)
+    return tuple(out)
+
+
+def _attention_mesh(p: Params, x, cfg: ModelConfig, positions, mask,
+                    use_rope: bool, flash_chunk: Optional[int]):
+    """Self-attention with DTensor weights: the projections and ``wo`` as
+    DTensor matmuls, and between them each rank attends over its own batch
+    rows and heads (:func:`_head_placements`) on local tensors, the solo
+    code on its share. DTensor's sharding rules for the attention's
+    grouped einsums differ between torch releases; attention by head needs
+    none. The qk-norm weights' gradients are partial sums over the dims
+    that split the work. A mesh of one rank computes the solo values bit
+    for bit."""
+    mesh = p["wq"].device_mesh
+    B, S, _ = x.shape
+    place = _head_placements(mesh, B, cfg)
+    rep = (Replicate(),) * mesh.ndim
+    split = tuple(Partial() if isinstance(pl, Shard) else pl
+                  for pl in place)
+    q, k, v = ((x @ p[w]).redistribute(mesh, place).to_local()
+               for w in ("wq", "wk", "wv"))
+    norms = {w: p[w].redistribute(mesh, rep).to_local(grad_placements=split)
+             for w in ("q_norm", "k_norm") if w in p}
+    shape = (B, S, cfg.n_heads * cfg.d_head)
+    rows = partitioning.local_slices(mesh, place, shape)[0]
+    if positions is not None and positions.shape[0] == B:
+        positions = positions[rows]
+    if mask is not None and mask.shape[0] == B:
+        mask = mask[rows]
+    q, k, v = _heads(norms, q, k, v, cfg, positions, use_rope=use_rope)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    if flash_chunk is not None:
+        out = _flash_sdpa(q, k, v, n_rep, window=cfg.window,
+                          kv_chunk=flash_chunk)
+    else:
+        out = _sdpa(q, k, v, mask, n_rep)
+    out = DTensor.from_local(out, mesh, place, run_check=False)
+    return out @ p["wo"]
 
 
 def attention_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -342,18 +424,40 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig,
     the combine sums each token's K gated expert outputs in the order
     k = 0 .. K-1, the reference's sequential scatter order, instead of an
     atomic scatter-add.
+
+    With ``DTensor`` expert banks (expert parallelism on a mesh) see
+    :func:`_moe_ffn_mesh`.
     """
-    mc = cfg.moe
+    if isinstance(p["w_in"], DTensor):
+        return _moe_ffn_mesh(p, x, cfg, expert_perm)
     B, S, D = x.shape
-    T, E, K = B * S, mc.num_experts, mc.top_k
-    xt = x.reshape(T, D)
+    xt = x.reshape(B * S, D)
+    out, aux = _moe_tokens(p, xt, xt, cfg, expert_perm, slice(None),
+                           lambda eout: eout)
+    if "shared" in p:
+        out = out + ffn(p["shared"], x.reshape(B * S, D), cfg)
+    return out.reshape(B, S, D), aux
+
+
+def _moe_tokens(p: Params, xt: torch.Tensor, xd: torch.Tensor,
+                cfg: ModelConfig, expert_perm, experts: slice,
+                gather: Callable) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The routed part of :func:`moe_ffn` on all tokens: route ``xt`` [T,
+    D], dispatch ``xd`` (the same values; a second handle so a mesh can
+    give its gradient other placements), run the expert banks
+    ``p["w_in"]`` (``w_gate``, ``w_out``) on the capacity buffers of
+    ``experts`` (those the banks hold), ``gather`` the [E_local, cap, D]
+    outputs into all E, combine -> (out [T, D], aux)."""
+    mc = cfg.moe
+    T, D = xt.shape
+    E, K = mc.num_experts, mc.top_k
     probs, gates, ids = moe_route(p, xt, cfg, expert_perm)
 
     # aux load-balance loss (Switch); tokens per expert counted into a
     # fixed [E] (bincount reads the largest id back to the host to size its
     # output, which a CUDA graph cannot capture); integer counts, exact
     flat_e = ids.reshape(-1)                                   # [T*K]
-    per_expert = torch.zeros((E,), dtype=torch.long, device=x.device) \
+    per_expert = torch.zeros((E,), dtype=torch.long, device=xt.device) \
         .scatter_add_(0, flat_e, torch.ones_like(flat_e))
     ce = per_expert.float() / (T * K)
     aux = E * torch.sum(probs.mean(0) * ce)
@@ -362,31 +466,92 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig,
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
     seg_start = torch.searchsorted(sorted_e,
-                                   torch.arange(E, device=x.device))
+                                   torch.arange(E, device=xt.device))
     rank = torch.empty_like(flat_e)
-    rank[order] = torch.arange(T * K, device=x.device) - seg_start[sorted_e]
+    rank[order] = torch.arange(T * K, device=xt.device) - seg_start[sorted_e]
     keep = rank < cap
     slot = torch.where(keep, rank, cap)                  # cap: the spare
 
     # dispatch: [E, cap + 1, D], the spare slot cut off
-    buf = torch.zeros((E, cap + 1, D), dtype=x.dtype, device=x.device)
-    buf[flat_e, slot] = xt[:, None].expand(T, K, D).reshape(T * K, D)
-    buf = buf[:, :cap]
+    buf = torch.zeros((E, cap + 1, D), dtype=xt.dtype, device=xt.device)
+    buf[flat_e, slot] = xd[:, None].expand(T, K, D).reshape(T * K, D)
+    buf = buf[experts, :cap]
     h = torch.bmm(buf, p["w_in"])
     g = torch.bmm(buf, p["w_gate"]) if "w_gate" in p else None
-    eout = torch.bmm(activate(h, g, cfg.act), p["w_out"])     # [E, cap, D]
+    eout = gather(torch.bmm(activate(h, g, cfg.act), p["w_out"]))
 
     # combine: gather back, scale by the gates, sum k = 0 .. K-1 per token
     gathered = eout[flat_e, torch.where(keep, rank, cap - 1)]
     contrib = torch.where(keep[:, None],
-                          gathered * gates.reshape(-1, 1).to(x.dtype), 0.0)
-    contrib = contrib.to(x.dtype).view(T, K, D)
-    out = torch.zeros((T, D), dtype=x.dtype, device=x.device)
+                          gathered * gates.reshape(-1, 1).to(xt.dtype), 0.0)
+    contrib = contrib.to(xt.dtype).view(T, K, D)
+    out = torch.zeros((T, D), dtype=xt.dtype, device=xt.device)
     for k in range(K):
         out = out + contrib[:, k]
+    return out, aux
+
+
+def _moe_ffn_mesh(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                  expert_perm) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`moe_ffn` with expert banks sharded over the mesh dims that
+    split their expert dim (expert parallelism).
+
+    DTensor has no sharding rule for the dispatch's scatter and the
+    combine's gather, so the routed part runs per rank on local tensors:
+    every rank routes all ``B * S`` tokens (the capacity and the drops are
+    those of the whole batch, as solo; the tokens are all-gathered over the
+    data dims, the banks over any FSDP dim), runs its own experts' buffers,
+    and the expert outputs are all-gathered over the expert-parallel dims
+    before the combine. The routing, the dispatch and the combine are
+    replicated work. Each local result is that of the solo path on the
+    same values (a mesh of one rank is bitwise solo), and the gradients
+    come back through DTensor: the output's all-gathered, the banks' for
+    their own experts."""
+    mesh = p["w_in"].device_mesh
+    n = mesh.ndim
+    rep = (Replicate(),) * n
+    ep = tuple(Shard(0) if isinstance(pl, Shard) and pl.dim == 0
+               else Replicate() for pl in p["w_in"].placements)
+    B, S, D = x.shape
+    xd = x if isinstance(x, DTensor) else DTensor.from_local(
+        x, mesh, rep, run_check=False)
+    banks = {k: v.redistribute(mesh, ep).to_local()
+             for k, v in p.items() if k in ("w_in", "w_gate", "w_out")}
+    lp = dict(banks, router=_replicated(p["router"], mesh).to_local())
+    perm = None if expert_perm is None else \
+        _replicated(expert_perm, mesh).to_local()
+    experts = partitioning.local_slices(mesh, ep, p["w_in"].shape)[0]
+
+    def gather(eout: torch.Tensor) -> torch.Tensor:
+        return DTensor.from_local(eout, mesh, ep, run_check=False) \
+            .redistribute(mesh, rep).to_local()
+
+    # the routing reads every token on every rank (its gradient is
+    # replicated); the dispatch feeds only this rank's experts, so its
+    # gradient is a partial sum over the expert-parallel dims
+    whole = xd.redistribute(mesh, rep)
+    xt = whole.to_local().reshape(B * S, D)
+    part = tuple(Partial() if isinstance(pl, Shard) else pl for pl in ep)
+    xdl = whole.to_local(grad_placements=part).reshape(B * S, D)
+    out, aux = _moe_tokens(lp, xt, xdl, cfg, perm, experts, gather)
+    out = DTensor.from_local(out, mesh, rep, run_check=False)
+    aux = DTensor.from_local(aux, mesh, rep, run_check=False)
     if "shared" in p:
-        out = out + ffn(p["shared"], xt, cfg)
-    return out.reshape(B, S, D), aux
+        out = out + ffn(p["shared"], xd.reshape(B * S, D), cfg)
+    # back to the stream's layout (a pending partial sum of the stream is
+    # reduced, so the output is replicated there)
+    back = tuple(Replicate() if isinstance(pl, Partial) else pl
+                 for pl in xd.placements)
+    return out.reshape(B, S, D).redistribute(mesh, back), aux
+
+
+def _replicated(t: torch.Tensor, mesh) -> DTensor:
+    """``t`` as a DTensor replicated over every dim of ``mesh`` (a plain
+    tensor is taken as the same on every rank)."""
+    rep = (Replicate(),) * mesh.ndim
+    if isinstance(t, DTensor):
+        return t.redistribute(mesh, rep)
+    return DTensor.from_local(t, mesh, rep, run_check=False)
 
 
 # ---------------------------------------------------------------------------

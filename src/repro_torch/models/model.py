@@ -20,10 +20,13 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.overrides import TorchFunctionMode
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+# module imports (dist.partitioning imports this module)
+from repro_torch.dist import act_sharding, partitioning
 from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
@@ -191,6 +194,45 @@ def _sparse_of(bp: Params, cfg: ModelConfig,
     return bp.get(key)
 
 
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``embed[tokens]``; a DTensor ``embed`` (vocab-sharded) by
+    :func:`_embed_mesh`."""
+    if isinstance(embed, DTensor):
+        return _embed_mesh(embed, tokens)
+    return embed[tokens]
+
+
+def _embed_mesh(embed: DTensor, tokens: torch.Tensor) -> DTensor:
+    """The vocab-parallel lookup (Megatron's): each rank gathers the rows
+    of its own vocab block for its own batch rows, zeros for tokens outside
+    the block, and the partial rows are summed over the vocab dims. Done on
+    local tensors: DTensor's rule for the gradient of an index into a
+    sharded table fails on some torch releases. The table's gradient is a
+    partial sum over the dims that split the batch. A mesh of one rank
+    computes ``embed[tokens]`` and its gradient bit for bit."""
+    mesh = embed.device_mesh
+    vocab = tuple(Shard(0) if isinstance(pl, Shard) and pl.dim == 0
+                  else Replicate() for pl in embed.placements)
+    tok_place = tuple(tokens.placements) if isinstance(tokens, DTensor) \
+        else (Replicate(),) * mesh.ndim
+    tok = tokens.to_local() if isinstance(tokens, DTensor) else tokens
+    grad = tuple(v if isinstance(v, Shard) else
+                 Partial() if isinstance(t, Shard) else Replicate()
+                 for v, t in zip(vocab, tok_place))
+    table = embed.redistribute(mesh, vocab).to_local(grad_placements=grad)
+    first = partitioning.local_slices(mesh, vocab, embed.shape)[0].start
+    idx = tok - first
+    inside = (idx >= 0) & (idx < table.shape[0])
+    rows = table[torch.where(inside, idx, 0)]
+    if any(isinstance(v, Shard) for v in vocab):
+        rows = torch.where(inside[..., None], rows, 0)
+    out_place = tuple(Partial() if isinstance(v, Shard) else t
+                      for v, t in zip(vocab, tok_place))
+    out = DTensor.from_local(rows, mesh, out_place, run_check=False)
+    return out.redistribute(mesh, tuple(
+        Replicate() if isinstance(pl, Partial) else pl for pl in out_place))
+
+
 def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     head = params["lm_head"] if not cfg.tie_embeddings else params["embed"].t()
     return (x @ head.to(cfg.torch_dtype)).float()
@@ -308,7 +350,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     dtype = cfg.torch_dtype
     B, S_text = tokens.shape
     dev = tokens.device
-    x = params["embed"][tokens].to(dtype)
+    x = embed_lookup(params["embed"], tokens).to(dtype)
     prefix = 0
     if prefix_embeds is not None:
         prefix = prefix_embeds.shape[1]
@@ -337,6 +379,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
                     mask=mask, expert_perm=expert_perm, enc_out=enc_out,
                     ssm_chunk=ssm_chunk,
                     flash_chunk=flash_chunk if use_flash else None)
+                # sequence-parallel between blocks under act_sharding
+                x = act_sharding.constrain_residual(x)
                 if a is not None:
                     aux = aux + a
         return x, aux

@@ -4,6 +4,12 @@ fp32 beside each param; the update is cast back to the param's dtype;
 integer leaves (``expert_perm``) pass through. Written out as the reference
 writes it, not ``torch.optim.AdamW``, whose bias correction and eps sit
 elsewhere.
+
+On a mesh the params are ``DTensor`` leaves: the moments take each
+param's placements, the step counter is replicated (:func:`opt_shardings`),
+and :func:`apply` first reduces each gradient to its param's placements
+(a data-parallel gradient arrives as a partial sum, and the moments are
+not linear in it).
 """
 from __future__ import annotations
 
@@ -12,7 +18,9 @@ import math
 from typing import Any, NamedTuple, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
+from repro_torch.dist.partitioning import replicate, replicated
 from repro_torch.models.model import (flatten_tree, map_tree,
                                       map_tree_with_path)
 
@@ -36,19 +44,44 @@ class OptState(NamedTuple):
     nu: Any
 
 
+def zeros_like(p: torch.Tensor) -> torch.Tensor:
+    """fp32 zeros shaped as ``p`` (a DTensor's with its placements)."""
+    if isinstance(p, DTensor):
+        return torch.zeros_like(p, dtype=torch.float32)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
 def init(params) -> OptState:
-    """Zero moments (fp32, every leaf, the integer ones too) and step 0."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
-                                  device=p.device)
-    device = next(iter(flatten_tree(params).values())).device
-    return OptState(torch.zeros((), dtype=torch.int32, device=device),
-                    map_tree(zeros, params), map_tree(zeros, params))
+    """Zero moments (fp32, every leaf, the integer ones too) and step 0
+    (DTensor params: moments of their placements, a replicated step)."""
+    first = next(iter(flatten_tree(params).values()))
+    step = torch.zeros((), dtype=torch.int32, device=first.device)
+    if isinstance(first, DTensor):
+        mesh = first.device_mesh
+        step = DTensor.from_local(
+            torch.zeros((), dtype=torch.int32,
+                        device=first.to_local().device),
+            mesh, (Replicate(),) * mesh.ndim, run_check=False)
+    return OptState(step, map_tree(zeros_like, params), map_tree(zeros_like, params))
 
 
 def opt_shardings(mesh, param_shardings) -> OptState:
-    """The OptState's placement on a mesh: waits for the port of ``dist``
-    (ROADMAP A8b)."""
-    raise NotImplementedError("opt_shardings needs the mesh port (A8b)")
+    """The OptState's shardings on ``mesh``: the moments are elementwise,
+    so they take the params' (``dist.partitioning.param_shardings``); the
+    step counter is replicated."""
+    return OptState(replicated(mesh), param_shardings, param_shardings)
+
+
+def reduce_grads(params, grads):
+    """Each DTensor gradient redistributed to its param's placements (a
+    partial sum over the data dims is all-reduced, a shard moved);
+    plain and ``None`` leaves as they are."""
+    def one(p, g):
+        if not isinstance(g, DTensor) or tuple(g.placements) == \
+                tuple(p.placements):
+            return g
+        return g.redistribute(p.device_mesh, p.placements)
+    return map_tree(one, params, grads)
 
 
 def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
@@ -65,9 +98,12 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every floating leaf, in fp32; ``None``
-    leaves (an integer param's missing gradient) are skipped."""
+    leaves (an integer param's missing gradient) are skipped. DTensor
+    leaves sum to one replicated scalar."""
     sq = []
-    map_tree(lambda g: sq.append(torch.sum(torch.square(g.float())))
+    # a DTensor leaf's sum over its shard is partial: reduced to every rank
+    map_tree(lambda g: sq.append(replicate(torch.sum(torch.square(
+        g.float()))))
              if g is not None and g.is_floating_point() else None, tree)
     return torch.sqrt(sum(sq))
 
@@ -90,9 +126,14 @@ def apply(cfg: AdamWConfig, params, grads, state: OptState, *,
     ``donate_argnums``), and the step counter is advanced in place; the
     given trees are then the results. ``lr`` and the bias corrections stay
     device tensors computed from the counter, so a captured step (a CUDA
-    graph replayed on the same buffers) reads each step's own values."""
+    graph replayed on the same buffers) reads each step's own values.
+
+    DTensor params: each gradient is first brought to its param's
+    placements (:func:`reduce_grads`); the in-place updates keep every
+    leaf's placements."""
+    grads = reduce_grads(params, grads)
     gnorm = global_norm(grads)
-    scale = torch.ones((), dtype=torch.float32, device=gnorm.device)
+    scale = torch.ones_like(gnorm)
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     step = state.step.add_(1) if donate else state.step + 1

@@ -1,7 +1,11 @@
 """Checkpointed training loop with restart (port of
 ``repro.train.loop``): the deterministic data pipeline, the train step,
 atomic async checkpoints (one save in flight at a time) and resuming from
-the newest complete checkpoint. The loop only sequences the step.
+the newest complete checkpoint, on one device or sharded on a
+``DeviceMesh`` (params and moments as ``DTensor`` leaves of
+``dist.partitioning.param_shardings`` / ``adamw.opt_shardings``, every
+batch placed by ``batch_spec``; a checkpoint restores onto any mesh). The
+loop only sequences the step.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ from typing import Any, Callable, Dict, Optional
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.data.pipeline import batch_for
+from repro_torch.dist import partitioning as part
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 from repro_torch.train.train_step import GraphedTrainStep, make_train_step
@@ -37,17 +42,23 @@ class TrainState:
     step: int
 
 
-def _no_mesh(mesh, fsdp: bool = False) -> None:
-    if mesh is not None or fsdp:
-        raise NotImplementedError("sharded training (mesh=, fsdp) needs the "
-                                  "mesh port (A8b)")
+def shardings(cfg: ModelConfig, mesh, fsdp: bool = False):
+    """(param shardings, optimizer shardings) of ``cfg`` on ``mesh``."""
+    p_sh = part.param_shardings(mesh, M.abstract_params(cfg), fsdp=fsdp)
+    return p_sh, adamw.opt_shardings(mesh, p_sh)
 
 
 def init_state(cfg: ModelConfig, mesh=None, *, fsdp: bool = False,
                seed: int = 0, device="cuda") -> TrainState:
-    """Fresh params from ``seed`` on ``device`` and a zero optimizer."""
-    _no_mesh(mesh, fsdp)
+    """Fresh params from ``seed`` on ``device`` and a zero optimizer. On
+    ``mesh`` every rank draws the same values as solo, then keeps its own
+    slice of each leaf (``param_shardings``, FSDP with ``fsdp``)."""
+    if fsdp and mesh is None:
+        raise ValueError("fsdp shards over a mesh's data dim: give mesh=")
     params = M.init_params(cfg, seed=seed, device=device)
+    if mesh is not None:
+        params = part.distribute_tree(params, shardings(cfg, mesh,
+                                                        fsdp)[0])
     return TrainState(params, adamw.init(params), 0)
 
 
@@ -55,15 +66,22 @@ def restore_or_init(cfg: ModelConfig, loop_cfg: TrainLoopConfig,
                     mesh=None, device="cuda") -> TrainState:
     """Resume from the newest complete checkpoint in ``loop_cfg.ckpt_dir``
     if there is one, else :func:`init_state`. A resume never draws a fresh
-    init: the templates are ``abstract_params`` (meta tensors)."""
-    _no_mesh(mesh, loop_cfg.fsdp)
+    init: the templates are ``abstract_params`` (meta tensors). On
+    ``mesh`` each rank reads its own slices (``param_shardings`` /
+    ``opt_shardings``), whatever mesh saved the checkpoint (the elastic
+    restart)."""
     last = ckpt.latest_step(loop_cfg.ckpt_dir) if loop_cfg.ckpt_dir \
         else None
     if last is None:
-        return init_state(cfg, seed=loop_cfg.seed, device=device)
+        return init_state(cfg, mesh, fsdp=loop_cfg.fsdp, seed=loop_cfg.seed,
+                          device=device)
     abs_p = M.abstract_params(cfg)
+    p_sh = o_sh = None
+    if mesh is not None:
+        p_sh, o_sh = shardings(cfg, mesh, loop_cfg.fsdp)
     params, opt, man = ckpt.restore(loop_cfg.ckpt_dir, last, abs_p,
-                                    adamw.init(abs_p), device=device)
+                                    adamw.init(abs_p), device=device,
+                                    shardings=p_sh, opt_shardings=o_sh)
     return TrainState(params, opt, int(man["step"]))
 
 
@@ -92,8 +110,16 @@ def train(cfg: ModelConfig, shape: ShapeConfig,
     capture; the state's tensors are its buffers, a resumed state's its
     own graph's); ``compiled=False`` runs the same donated step eagerly.
     On the CPU both run the step directly.
+
+    ``mesh`` (a ``DeviceMesh`` this process is a rank of; ``device`` its
+    own device): the state is sharded (``loop_cfg.fsdp`` adds FSDP) and
+    every batch is placed by ``batch_spec``; the metrics are replicated,
+    the checkpoints are gathered and written by the mesh's first rank.
     """
     state = restore_or_init(cfg, loop_cfg, mesh, device=device)
+    place = None
+    if mesh is not None:
+        place = part.NamedSharding.of(mesh, part.batch_spec(mesh))
     # the state is donated: each step updates its params and moments in
     # place (as the reference jits its step with donate_argnums), so a
     # step holds one copy of them
@@ -105,6 +131,8 @@ def train(cfg: ModelConfig, shape: ShapeConfig,
     while state.step < loop_cfg.steps:
         batch = batch_for(cfg, shape, state.step, seed=loop_cfg.seed,
                           device=device)
+        if place is not None:
+            batch = {k: part.distribute(v, place) for k, v in batch.items()}
         t0 = time.perf_counter()
         params, opt, metrics = step_fn(state.params, state.opt, batch)
         # the metrics are the graph's outputs: read before the next replay

@@ -10,6 +10,13 @@ is given unchanged unless asked to update it in place (``donate``).
 counterpart of the reference's ``jax.jit(step, donate_argnums=(0, 1))``.
 Nothing in either launches a kernel of this package: the reference trains
 the dense forward too.
+
+On a mesh the params (and the optimizer state) are ``DTensor`` leaves of
+``dist.partitioning.param_shardings`` and the batch is placed by
+``batch_spec``: the same step then runs sharded, DTensor propagating the
+placements through every op (:func:`loss_and_grads` runs under
+``implicit_replication``, so the plain tensors the forward builds, its
+positions, masks and RoPE tables, count as replicated).
 """
 from __future__ import annotations
 
@@ -17,10 +24,13 @@ import contextlib
 from typing import Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.overrides import TorchFunctionMode
 
 from repro_torch import graphs
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.partitioning import local_slices, replicate
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 
@@ -30,11 +40,26 @@ Z_LOSS_WEIGHT = 1e-4
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(mean CE over tokens, mean z-loss ``logsumexp**2``), in fp32."""
-    logits = logits.float()
+    """(mean CE over tokens, mean z-loss ``logsumexp**2``), in fp32.
+    Vocab-sharded ``DTensor`` logits (a sharded head) are gathered over
+    the vocab first: the loss takes whole rows."""
+    logits = _whole_rows(logits.float())
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return torch.mean(lse - gold), torch.mean(lse * lse)
+
+
+def _whole_rows(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor with its last dim whole on every rank: shards of the last
+    dim gathered and partial sums reduced (shards of other dims kept); a
+    plain tensor unchanged."""
+    if not isinstance(x, DTensor):
+        return x
+    last = x.ndim - 1
+    want = tuple(pl if isinstance(pl, Shard) and pl.dim % x.ndim != last
+                 else Replicate() for pl in x.placements)
+    return x if want == tuple(x.placements) else x.redistribute(
+        x.device_mesh, want)
 
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -52,19 +77,33 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     return loss, {"ce": ce, "moe_aux": aux}
 
 
+def sharded(params):
+    """The context a step on ``params`` runs in: ``implicit_replication``
+    when they are DTensors (a plain tensor built in the forward or its
+    recompute is taken as replicated), else nothing."""
+    if isinstance(params["embed"], DTensor):
+        return implicit_replication()
+    return contextlib.nullcontext()
+
+
 def loss_and_grads(params, batch, cfg: ModelConfig, **loss_kw):
     """(loss, {"ce", "moe_aux"}, grads) of :func:`loss_fn`: the gradient of
     every floating leaf (``torch.autograd.grad``; the params are not
-    modified), ``None`` at integer leaves (``expert_perm``)."""
+    modified), ``None`` at integer leaves (``expert_perm``). DTensor params
+    give a replicated loss and aux and DTensor gradients in whatever
+    placements the backward left them (partial sums over the data dims;
+    ``adamw.reduce_grads`` brings them to the params')."""
     live = M.map_tree(lambda p: p.detach().requires_grad_(True)
                       if p.is_floating_point() else p, params)
     leaves = [p for p in M.flatten_tree(live).values() if p.requires_grad]
-    with torch.enable_grad():
+    with torch.enable_grad(), sharded(params):
         loss, aux = loss_fn(live, batch, cfg, **loss_kw)
+        loss = replicate(loss)
         grads = iter(torch.autograd.grad(loss, leaves))
     grads = M.map_tree(lambda p: next(grads) if p.requires_grad else None,
                        live)
-    return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
+    return loss.detach(), {k: replicate(v.detach()) for k, v in aux.items()}, \
+        grads
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
@@ -86,37 +125,47 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
             loss, aux_m, grads = loss_and_grads(params, batch, cfg,
                                                 **loss_kw)
         else:
-            def split(x, i):
-                b = x.shape[0]
-                if b % microbatches:
-                    raise ValueError(f"batch {b} does not split into "
-                                     f"{microbatches} microbatches")
-                return x.reshape(microbatches, b // microbatches,
-                                 *x.shape[1:])[i]
-
             # gradient accumulation, one microbatch after another: each
             # microbatch's gradients land in fp32 buffers (the reference's
-            # BARISTA "colored output buffer")
-            grads = M.map_tree(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device)
-                if p.is_floating_point() else None, params)
+            # BARISTA "colored output buffer"), in the params' placements
+            grads = M.map_tree(lambda p: adamw.zeros_like(p)
+                               if p.is_floating_point() else None, params)
             loss = 0.0
             for i in range(microbatches):
-                mb = {k: split(v, i) for k, v in batch.items()}
+                mb = {k: microbatch(v, i, microbatches)
+                      for k, v in batch.items()}
                 l_i, _, g_i = loss_and_grads(params, mb, cfg, **loss_kw)
+                g_i = adamw.reduce_grads(params, g_i)
                 grads = M.map_tree(lambda a, g: None if g is None
                                    else a + g.float() / microbatches,
                                    grads, g_i)
                 loss = loss + l_i / microbatches
             # as the reference: "ce" is the total loss and "moe_aux" 0
             # when accumulating
-            aux_m = {"ce": loss, "moe_aux": torch.zeros(
-                (), dtype=torch.float32, device=loss.device)}
+            aux_m = {"ce": loss, "moe_aux": torch.zeros_like(loss)}
         new_params, new_opt, om = adamw.apply(opt_cfg, params, grads,
                                               opt_state, donate=donate)
         return new_params, new_opt, {"loss": loss, **aux_m, **om}
 
     return step
+
+
+def microbatch(x: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``n`` of a batch tensor: its rows ``[i * b / n,
+    (i + 1) * b / n)``. A batch DTensor gives the same rows as solo (a MoE's
+    capacity depends on which tokens share a microbatch), placed as the
+    batch is: the (small, integer) batch is gathered and each rank keeps
+    its share of the microbatch's rows."""
+    b = x.shape[0]
+    if b % n:
+        raise ValueError(f"batch {b} does not split into {n} microbatches")
+    if isinstance(x, DTensor):
+        rows = microbatch(x.full_tensor(), i, n)
+        mesh, place = x.device_mesh, tuple(x.placements)
+        return DTensor.from_local(
+            rows[local_slices(mesh, place, rows.shape)].contiguous(), mesh,
+            place, run_check=False)
+    return x.reshape(n, b // n, *x.shape[1:])[i]
 
 
 def _mask_in_place(params, masks) -> None:
@@ -203,9 +252,9 @@ def make_eval_step(cfg: ModelConfig):
     """``step(params, batch) -> {"loss", "ce", "moe_aux"}`` without
     gradients or remat."""
     def step(params, batch):
-        with torch.no_grad():
+        with torch.no_grad(), sharded(params):
             loss, aux = loss_fn(params, batch, cfg, remat=False)
-        return {"loss": loss, **aux}
+        return {k: replicate(v) for k, v in {"loss": loss, **aux}.items()}
     return step
 
 

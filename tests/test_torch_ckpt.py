@@ -4,6 +4,7 @@ from the newest complete checkpoint (6 steps then 9 bitwise equal to 9 in
 one run), and a restored pruned model served as the in-memory one is.
 The reference's own checkpoint tests (``tests/test_ckpt_serve.py``) are
 the model: the same saves, restores and ``latest_step`` cases."""
+import contextlib
 import dataclasses
 import json
 import os
@@ -11,9 +12,12 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.configs.base import ShapeConfig, load_smoke
+from repro_torch.dist import partitioning as part
+from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 from repro_torch.serve import Request, Scheduler
@@ -168,11 +172,34 @@ def test_loop_post_step_and_refusals(tmp_path, capsys):
                post_step=post, device=CPU)
     assert st.step == 2 and [s for s, _ in calls] == [1, 2]
     assert "step     2 loss" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError):
+    # sharded training exists (A8b): what is not a mesh is refused, and
+    # FSDP needs one; on a one-rank mesh, with checkpoints, it is solo's
+    with pytest.raises(ValueError):
         train(cfg, SHAPE, TrainLoopConfig(steps=1), mesh=object(),
               device=CPU)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="mesh"):
         init_state(cfg, fsdp=True, device=CPU)
+    with one_rank_world():
+        mesh = make_debug_mesh(1, 1, device="cpu")
+        d = str(tmp_path / "mesh")
+        lc = TrainLoopConfig(steps=2, ckpt_every=1, ckpt_dir=d, fsdp=True,
+                             log_every=100)
+        sharded = train(cfg, SHAPE, lc, mesh=mesh, device=CPU)
+        assert ckpt.latest_step(d) == 2
+        full = part.gather_tree((sharded.params, sharded.opt))
+    _bitwise(full[0], st.params)
+    _bitwise(full[1], st.opt)
+
+
+@contextlib.contextmanager
+def one_rank_world():
+    """A gloo world of this process alone, destroyed on the way out."""
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def test_restored_pruned_model_serves_as_in_memory(tmp_path):

@@ -1717,3 +1717,108 @@ def test_two_rank_nccl_ring_on_cards(cuda, tmp_path):
                                     str(tmp_path)), nprocs=2, join=True)
     for rank in range(2):
         assert (tmp_path / f"rank{rank}").read_text() == "ok", rank
+
+
+def _local(tree):
+    """Each DTensor leaf's local tensor (plain leaves as they are)."""
+    from torch.distributed.tensor import DTensor
+    return M.map_tree(lambda t: t.to_local() if isinstance(t, DTensor)
+                      else t, tree)
+
+
+@pytest.mark.parametrize("arch", ["qwen3_4b", "moonshot_v1_16b_a3b"])
+def test_one_rank_sharded_train_step_bitwise_solo_on_card(cuda, arch):
+    """``make_debug_mesh(1, 1)`` (a one-rank NCCL world) with FSDP, bf16:
+    one eager sharded step bitwise equal to the solo step (params,
+    moments, counter, metrics), every leaf in its ``param_shardings``
+    placements; the captured sharded step over 3 steps bitwise equal to
+    the eager sharded donated step; no FFN kernel launched."""
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import batch_for
+    from repro_torch.dist import partitioning as part
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import shardings
+    from repro_torch.train.train_step import GraphedTrainStep, \
+        make_train_step
+    cfg, params, _ = _train_setup(cuda, arch, "bfloat16")
+    shape = ShapeConfig("t", 64, 4, "train")
+    started = not dist.is_initialized()
+    mesh = make_debug_mesh(1, 1)
+    try:
+        assert dist.get_backend() == "nccl"
+        p_sh, _ = shardings(cfg, mesh, fsdp=True)
+        place = part.NamedSharding.of(mesh, part.batch_spec(mesh))
+        batches = [batch_for(cfg, shape, i, device=cuda) for i in range(3)]
+        on_mesh = [{k: part.distribute(v, place) for k, v in b.items()}
+                   for b in batches]
+        opt_cfg = adamw.AdamWConfig(warmup_steps=2)
+        before = (BITMASK_SPMM.launches, FUSED_FFN.launches)
+        solo = make_train_step(cfg, opt_cfg)(params, adamw.init(params),
+                                             batches[0])
+        sp = part.distribute_tree(params, p_sh)
+        got = make_train_step(cfg, opt_cfg)(sp, adamw.init(sp), on_mesh[0])
+        torch.cuda.synchronize()
+        assert _bitwise_trees(_local(got), solo)
+        flat = M.flatten_tree(p_sh)
+        assert all(tuple(v.placements) == flat[k].placements
+                   for k, v in M.flatten_tree(got[0]).items())
+        eager = make_train_step(cfg, opt_cfg, donate=True)
+        graphed = GraphedTrainStep(cfg, opt_cfg)
+        ep = part.distribute_tree(params, p_sh)
+        eo = adamw.init(ep)
+        gp = part.distribute_tree(params, p_sh)
+        go = adamw.init(gp)
+        for b in on_mesh:
+            ep, eo, em = eager(ep, eo, b)
+            gp, go, gm = graphed(gp, go, b)
+            torch.cuda.synchronize()
+            assert _bitwise_trees(_local((gp, go, gm)), _local((ep, eo, em)))
+        g, = graphed.graphs.values()
+        assert g.replays == 2
+        assert (BITMASK_SPMM.launches, FUSED_FFN.launches) == before
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def test_mesh_and_solo_checkpoints_restart_bitwise_on_card(cuda, tmp_path):
+    """A checkpoint saved from the one-rank NCCL mesh restores solo
+    bitwise, and a solo save of the same values (the same bytes) restores
+    onto the mesh bitwise, in its placements."""
+    import torch.distributed as dist
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import TrainLoopConfig, shardings, train
+    cfg, _, _ = _train_setup(cuda, "qwen3_4b", "bfloat16")
+    shape = ShapeConfig("t", 64, 4, "train")
+    started = not dist.is_initialized()
+    mesh = make_debug_mesh(1, 1)
+    try:
+        d = str(tmp_path / "mesh")
+        st = train(cfg, shape, TrainLoopConfig(
+            steps=2, ckpt_every=2, ckpt_dir=d, fsdp=True, log_every=100),
+            mesh=mesh, device=cuda)
+        abs_p = M.abstract_params(cfg)
+        abs_o = adamw.init(abs_p)
+        p, o, man = ckpt.restore(d, 2, abs_p, abs_o, device=cuda)
+        assert man["step"] == 2
+        assert _bitwise_trees((p, o), _local((st.params, st.opt)))
+        s = str(tmp_path / "solo")
+        ckpt.save(s, 2, p, o)
+        for f in ("params.bin", "opt.bin"):
+            assert open(f"{d}/step_00000002/{f}", "rb").read() == \
+                open(f"{s}/step_00000002/{f}", "rb").read()
+        p_sh, o_sh = shardings(cfg, mesh, fsdp=True)
+        mp, mo, _ = ckpt.restore(s, 2, abs_p, abs_o, device=cuda,
+                                 shardings=p_sh, opt_shardings=o_sh)
+        assert _bitwise_trees(_local((mp, mo)), (p, o))
+        flat = M.flatten_tree(p_sh)
+        assert all(tuple(v.placements) == flat[k].placements
+                   for k, v in M.flatten_tree(mp).items())
+    finally:
+        if started:
+            dist.destroy_process_group()

@@ -168,3 +168,37 @@ def test_training_entry_points_default_to_the_card(tmp_path):
                                "--steps", "1"])):
         with pytest.raises((AssertionError, RuntimeError)):
             call()
+
+
+LM_MESH_MODULES = ("repro_torch.dist.act_sharding", "repro_torch.launch.mesh",
+                   "repro_torch.dist.partitioning",
+                   "repro_torch.models.model",
+                   "repro_torch.train.train_step")
+
+
+@pytest.mark.parametrize("first", LM_MESH_MODULES)
+def test_lm_mesh_modules_import_alone_no_jax(first):
+    """The LM mesh modules (A8b), each imported first in a fresh process
+    (``models.model``, ``dist.partitioning`` and ``dist.act_sharding``
+    import one another), load neither JAX nor ``repro``; without a card
+    the default debug mesh raises (NCCL, nothing falls back to gloo)."""
+    probe = (f"import importlib, sys\nimportlib.import_module({first!r})\n"
+             f"for m in {LM_MESH_MODULES!r}:\n"
+             "    importlib.import_module(m)\n"
+             "print(sorted(m for m in sys.modules if m == 'jax' or "
+             "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro'))\n"
+             "import torch\n"
+             "from repro_torch.launch.mesh import make_debug_mesh\n"
+             "if not torch.cuda.is_available():\n"
+             "    try:\n        make_debug_mesh()\n"
+             "    except RuntimeError as e:\n        print('refused')\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    for k in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(k, None)
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert lines[0] == "[]", out.stdout
+    if not torch.cuda.is_available():
+        assert lines[1:] == ["refused"], out.stdout

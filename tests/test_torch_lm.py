@@ -290,11 +290,12 @@ def test_slot_hygiene_and_queue_checks():
 
 
 def test_unported_paths_raise():
-    """The LM mesh stack is still not ported (ROADMAP A8b); training, the
-    optimizer, checkpoints and the data pipeline are (``tests/
-    test_torch_train.py``, ``test_torch_ckpt.py``), and so are flash
-    attention, MoE, Mamba, prefix and encoder-decoder models
-    (``tests/test_torch_families.py``). The
+    """The LM mesh stack is ported (ROADMAP A8b, ``tests/
+    test_torch_dist_lm.py``): ``dist.act_sharding`` and ``launch.mesh``
+    exist and the optimizer state has shardings; training, the optimizer,
+    checkpoints and the data pipeline are (``tests/test_torch_train.py``,
+    ``test_torch_ckpt.py``), and so are flash attention, MoE, Mamba, prefix
+    and encoder-decoder models (``tests/test_torch_families.py``). The
     artifact verifier is ported (``tests/test_torch_analysis.py``): strict
     packing and the scheduler's admission gate, on by default, pass clean
     leaves."""
@@ -304,12 +305,21 @@ def test_unported_paths_raise():
     sparse = sparsify_model(params, tcfg, strict=True)
     assert "ffn_sparse" in sparse["blocks"][0]["p0"]
     Scheduler(tcfg, sparse, num_slots=1, max_len=8)
-    # the vision half of the mesh port is in (A8a); the LM half is not
+    # both halves of the mesh port are in: vision (A8a) and LM (A8b)
     assert importlib.util.find_spec("repro_torch.dist") is not None
-    assert importlib.util.find_spec("repro_torch.dist.act_sharding") is None
+    assert importlib.util.find_spec("repro_torch.dist.act_sharding") \
+        is not None
+    assert importlib.util.find_spec("repro_torch.launch.mesh") is not None
+    from types import SimpleNamespace
+    from torch.distributed.tensor import Replicate
+    from repro_torch.dist.partitioning import param_shardings
     from repro_torch.optim import adamw
-    with pytest.raises(NotImplementedError):
-        adamw.opt_shardings(None, None)
+    stub = SimpleNamespace(axis_names=("data", "model"),
+                           shape={"data": 2, "model": 2})
+    p_sh = param_shardings(stub, M.abstract_params(tcfg))
+    opt_sh = adamw.opt_shardings(stub, p_sh)
+    assert opt_sh.mu is p_sh and opt_sh.nu is p_sh
+    assert opt_sh.step.placements == (Replicate(), Replicate())
     for mod in ("train", "optim", "ckpt", "data"):
         assert importlib.util.find_spec(f"repro_torch.{mod}") is not None
     flash, _ = M.forward(params, torch.tensor([[1, 2, 3]]), tcfg,

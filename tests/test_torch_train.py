@@ -365,8 +365,19 @@ def test_train_launcher_on_the_cpu(tmp_path, capsys):
     assert "finished at step 2" in capsys.readouterr().out
     assert sorted(p.name for p in tmp_path.iterdir()) == \
         ["step_00000001", "step_00000002"]
-    with pytest.raises(NotImplementedError):
+    # --mesh (A8b): a mesh of more than one rank needs a world of
+    # processes (torchrun), --fsdp needs --mesh, and a 1 x 1 mesh starts a
+    # one-rank world of its own and ends it
+    with pytest.raises(RuntimeError, match="world of processes"):
         t_launch.main(["--arch", "qwen3_4b", "--smoke", "--mesh", "2,2",
                        "--device", "cpu"])
-    with pytest.raises(NotImplementedError):
-        A.opt_shardings(None, None)
+    with pytest.raises(SystemExit):
+        t_launch.main(["--arch", "qwen3_4b", "--smoke", "--fsdp",
+                       "--device", "cpu"])
+    capsys.readouterr()
+    out = t_launch.main(["--arch", "qwen3_4b", "--smoke", "--steps", "2",
+                         "--seq", "16", "--batch", "2", "--device", "cpu",
+                         "--mesh", "1,1", "--fsdp"])
+    assert out["steps"] == 2
+    assert "mesh=(data=1, model=1) fsdp" in capsys.readouterr().out
+    assert not torch.distributed.is_initialized()
