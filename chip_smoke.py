@@ -222,7 +222,24 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    ``--mesh 1,1 --fsdp`` (4 steps, its finish line). No kernel of the
    four runs on this path (the reference trains the dense model).
 
-Phases 13-19 run between phases 10 and 11, phases 21 and 22 between 11
+23. the sharded serve steps (the reference's dry-run serve step:
+   ``make_prefill_fn`` and ``make_serve_step`` on DTensor params and a
+   cache placed by ``cache_shardings``) in the same one-rank NCCL world,
+   before it is destroyed: Qwen3-4B at full width (LM_LAYERS layers,
+   bf16, dense) prefill of MESH_BATCH x LM_PROMPT (last logits, then the
+   cache-writing prefill) and DECODE_STEPS greedy steps, eager and
+   captured (``GraphedServeStep`` on the DTensors), tokens, logits and
+   every cache leaf bitwise equal to solo, in their placements; decode
+   step ms, sharded against solo, eager and graph, by CUDA events, with
+   the idle share of one traced step each; RWKV6-3B (LM_LAYERS layers)
+   and one full-width Jamba Mamba block, the sharded forward and
+   FAMILY_STEPS decode steps bitwise equal to solo; one dry-run cell
+   (``python -m repro_torch.launch.dryrun``, DRYRUN_CELL, on meta in a
+   fake world of 256 ranks) on the card's host. None of the four kernels
+   launches (``sharded_serve_steps_mesh``: 0 in each kernel's
+   ``launches_by_path``).
+
+Phases 13-19 run between phases 10 and 11, phases 21 to 23 between 11
 and the VGG16 half of 12, phase 20 last; K3's and K4's
 ``launches_by_path`` gain the paths of 13, 14, 17, 18 and 20, K1's those
 of 11 and 21.
@@ -317,6 +334,11 @@ FULL_DEPTHS, FULL_STEPS = (36, 30, 24, 18), 5
 FP64_BATCH, FP64_SEQ = 2, 64                 # one full-width layer, fp32
 # phase 22, sharded training on a one-rank mesh (phase 20's shape)
 MESH_TIMED_STEPS = 6
+# phase 23, the sharded serve steps on a one-rank mesh: Qwen3-4B (LM_LAYERS
+# layers) prefill of MESH_BATCH x LM_PROMPT, then DECODE_STEPS steps;
+# RWKV6-3B and a Jamba Mamba block, FAMILY_STEPS decode steps each
+MESH_BATCH, FAMILY_STEPS, MAMBA_MESH_TOKENS = 4, 4, 64
+DRYRUN_CELL = ("qwen3_4b", "decode_32k")
 
 
 class SmokeFailure(RuntimeError):
@@ -3717,6 +3739,252 @@ def lm_mesh_phase(dev, card):
     return rec
 
 
+# phase 23: the sharded serve steps on a one-rank DeviceMesh
+def kernel_counts() -> dict:
+    """The four kernels' launch counters."""
+    from repro_torch.kernels.sparse_conv import CONV_GRID
+    from repro_torch.kernels.worklist_core import WALK
+    return {"k1": WALK.launches, "k2": CONV_GRID.launches, **ffn_counts()}
+
+
+def per_step_ms(run, steps: int) -> float:
+    """Median ms of ``steps`` calls of ``run(i)`` by CUDA events (after
+    the first call: the eager warm-up, or a graph's capture)."""
+    import torch
+    run(0)
+    ms = []
+    for i in range(1, steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run(i)
+        end.record()
+        torch_sync()
+        ms.append(start.elapsed_time(end))
+    return float(np.median(ms))
+
+
+def serve_mesh_phase(dev, card):
+    """Phase 23: the sharded serve steps (the reference's dry-run serve
+    step: ``make_prefill_fn`` and ``make_serve_step`` on DTensor params and
+    a cache placed by ``cache_shardings``) on ``make_debug_mesh(1, 1)`` in
+    phase 21's one-rank NCCL world, each bitwise equal to solo:
+
+    (a) Qwen3-4B at full width (LM_LAYERS layers, bf16, dense): the
+    last-position prefill logits of MESH_BATCH x LM_PROMPT tokens, the
+    cache-writing prefill into a placed cache (``init_cache_on``), then
+    DECODE_STEPS greedy steps eager (tokens, logits, cache) and captured
+    (``GraphedServeStep`` on the DTensors: tokens, logits, cache); step ms
+    by CUDA events, sharded against solo, eager and graph, with the card's
+    idle share of one traced step each;
+    (b) RWKV6-3B (LM_LAYERS layers) and one full-width Jamba Mamba block:
+    the sharded forward (logits; the block's output and decode handoff)
+    and FAMILY_STEPS decode steps;
+    (c) one dry-run cell (``python -m repro_torch.launch.dryrun``, on meta
+    in a fake world of 256 ranks) run on the card's host.
+
+    None of the four kernels runs (the dense model, as the reference's dry
+    run lowers it). Returns the record."""
+    import dataclasses
+    import os
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import load_config
+    from repro_torch.dist import partitioning as part
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import (GraphedServeStep, init_cache_on,
+                                          make_prefill_fn, make_serve_step)
+    t_phase = time.perf_counter()
+    before = kernel_counts()
+    mesh = make_debug_mesh(1, 1, device=dev)
+    require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+            "phase 23 runs in a one-rank NCCL world")
+    tok_sh = part.NamedSharding.of(mesh, part.batch_spec(mesh))
+    rng = np.random.default_rng(SEED)
+    rec = {"mesh": "(data=1, model=1)"}
+
+    def same(a, b, what):
+        diff = leaves_bitwise(local_tree(a), local_tree(b))
+        require(not diff, f"{what}: sharded != solo at {diff[:6]}")
+
+    def family(arch):
+        cfg = dataclasses.replace(load_config(arch), n_layers=LM_LAYERS)
+        params = M.init_params(cfg, seed=SEED, device=dev)
+        sp = part.distribute_tree(params, part.param_shardings(
+            mesh, M.abstract_params(cfg)))
+        return cfg, params, sp
+
+    def serve(cfg, params, sp, steps):
+        """Prefill and ``steps`` eager steps, solo and sharded, bitwise;
+        returns (the prompt, both prefilled caches and the first token)."""
+        B, S = MESH_BATCH, LM_PROMPT
+        toks = torch.as_tensor(rng.integers(1, cfg.vocab, (B, S)),
+                               device=dev)
+        dtoks = part.distribute(toks, tok_sh)
+        pf = make_prefill_fn(cfg)
+        with torch.no_grad():
+            same(pf(sp, dtoks), pf(params, toks), f"{cfg.name} prefill")
+            solo_c = M.init_cache(cfg, B, S + steps, device=dev)
+            mesh_c, c_sh = init_cache_on(mesh, cfg, B, S + steps,
+                                         device=dev)
+            ls, solo_c = pf(params, toks, solo_c)
+            lm, mesh_c = pf(sp, dtoks, mesh_c)
+            same((lm, mesh_c), (ls, solo_c), f"{cfg.name} cache prefill")
+            require(not placements_off(mesh_c, c_sh),
+                    f"{cfg.name}: the prefilled cache left its placements")
+            first = torch.argmax(ls, -1)[:, None]
+            out = (toks, M.map_tree(torch.clone, solo_c),
+                   M.map_tree(torch.clone, mesh_c), first)
+            step = make_serve_step(cfg)
+            ts, tm = first, part.distribute(first, tok_sh)
+            for i in range(steps):
+                pos = torch.full((B,), S + i, device=dev)
+                lgs, _ = M.decode_step(params, cfg, ts, solo_c, pos)
+                lgm, _ = M.decode_step(sp, cfg, tm, mesh_c, pos)
+                ts, solo_c = step(params, solo_c, ts, pos)
+                tm, mesh_c = step(sp, mesh_c, tm, pos)
+                same((tm, lgm, mesh_c), (ts, lgs, solo_c),
+                     f"{cfg.name} decode step {i + 1}")
+            require(not placements_off(mesh_c, c_sh),
+                    f"{cfg.name}: the decoded cache left its placements")
+        return out
+
+    # (a) Qwen3-4B: prefill, eager and captured decode, times
+    cfg, params, sp = family(LM_ARCH)
+    toks, solo0, mesh0, first = serve(cfg, params, sp, DECODE_STEPS)
+    B, S = toks.shape
+    pos = [torch.full((B,), S + i, device=dev) for i in range(DECODE_STEPS)]
+    eager = make_serve_step(cfg)
+    gstep = GraphedServeStep(cfg)
+    c_e, c_g = M.map_tree(torch.clone, mesh0), M.map_tree(torch.clone, mesh0)
+    t_e = t_g = part.distribute(first, tok_sh)
+    with torch.no_grad():
+        for i in range(DECODE_STEPS):
+            lg, _ = M.decode_step(sp, cfg, t_e, c_e, pos[i])
+            t_e, c_e = eager(sp, c_e, t_e, pos[i])
+            t_g, c_g = gstep(sp, c_g, t_g, pos[i])
+            same((t_g, gstep.last_logits, c_g), (t_e, lg[:, 0], c_e),
+                 f"captured sharded step {i + 1}")
+    g, = gstep.graphs.values()
+    require(g.replays == DECODE_STEPS - 1,
+            "the sharded serve step did not replay its graph")
+    print(f"phase 23: {cfg.name} at full width, {cfg.n_layers} layers, "
+          f"bf16, on make_debug_mesh(1, 1): the sharded prefill ({B} x {S}; "
+          f"last logits, and the cache-writing prefill into a cache placed "
+          f"by cache_shardings) and {DECODE_STEPS} greedy make_serve_step "
+          f"steps bitwise equal to solo (tokens, logits, every cache leaf, "
+          f"in its placements); the captured sharded step (GraphedServeStep"
+          f" on the DTensors, {g.replays} replays) bitwise equal to the "
+          f"eager sharded step, capture {g.capture_s:.3f} s [{card}]")
+    del c_e, c_g
+
+    def timed(name, p, cache0, tok0, graphed):
+        with torch.no_grad():
+            stepper = GraphedServeStep(cfg) if graphed else eager
+            state = {"c": M.map_tree(torch.clone, cache0), "t": tok0}
+
+            def run(i):
+                state["t"], state["c"] = stepper(p, state["c"], state["t"],
+                                                 pos[i % DECODE_STEPS])
+            ms = per_step_ms(run, DECODE_STEPS)
+            kernels = trace_kernels(lambda: run(0))
+        busy = sum(t for _, t in kernels)
+        idle = (ms - busy) / ms if kernels else None
+        print(f"  decode step, {name}: median {ms:.4f} ms by CUDA events "
+              f"over steps 2-{DECODE_STEPS}; one traced step "
+              f"{len(kernels)} kernels, busy {busy:.4f} ms, idle "
+              + (f"{idle:.1%}" if idle is not None else "not measured")
+              + f" [{card}]")
+        return {"ms": ms, "busy_ms": busy, "kernels": len(kernels),
+                "idle_share": idle}
+    times = {}
+    for graphed in (False, True):
+        mode = "graph" if graphed else "eager"
+        times[f"solo {mode}"] = timed(f"solo {mode}", params, solo0, first,
+                                      graphed)
+        times[f"sharded {mode}"] = timed(f"sharded {mode}", sp, mesh0,
+                                         part.distribute(first, tok_sh),
+                                         graphed)
+    for mode in ("eager", "graph"):
+        r = times[f"sharded {mode}"]["ms"] / times[f"solo {mode}"]["ms"]
+        rec[f"sharded_over_solo_{mode}"] = r
+        print(f"  sharded {mode} / solo {mode}: {r:.4f}x [{card}]")
+    rec["times"] = times
+    del params, sp, solo0, mesh0, gstep, g
+    torch.cuda.empty_cache()
+
+    # (b) RWKV6-3B, then one Jamba Mamba block
+    rcfg, rparams, rsp = family(RWKV_ARCH)
+    serve(rcfg, rparams, rsp, FAMILY_STEPS)
+    del rparams, rsp
+    torch.cuda.empty_cache()
+    jcfg = load_config(MAMBA_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    p = L.init_mamba(gen, jcfg, jcfg.torch_dtype)
+    tree = {"blocks": [{"p1": {"mamba": p}}]}
+    sp = part.distribute_tree(tree, part.param_shardings(
+        mesh, M.map_tree(lambda t: torch.empty_like(t, device="meta"),
+                         tree)))["blocks"][0]["p1"]["mamba"]
+    T = MAMBA_MESH_TOKENS
+    x = torch.randn((MESH_BATCH, T + FAMILY_STEPS, jcfg.d_model),
+                    generator=gen, device=dev).to(jcfg.torch_dtype)
+    xd = part.distribute(x, part.NamedSharding.of(
+        mesh, part.P(tuple(part.dp_axes(mesh)), None, None)))
+    with torch.no_grad(), implicit_replication():
+        same(L.mamba_block(sp, xd[:, :T], jcfg, return_state=True),
+             L.mamba_block(p, x[:, :T], jcfg, return_state=True),
+             "the Mamba block's forward and handoff")
+        _, conv_m, h_m = L.mamba_block(sp, xd[:, :T], jcfg, return_state=True)
+        _, conv_s, h_s = L.mamba_block(p, x[:, :T], jcfg, return_state=True)
+        for t in range(T, T + FAMILY_STEPS):
+            ym, conv_m, h_m = L.mamba_decode(sp, xd[:, t:t + 1], jcfg,
+                                             conv_m, h_m)
+            ys, conv_s, h_s = L.mamba_decode(p, x[:, t:t + 1], jcfg, conv_s,
+                                             h_s)
+            same((ym, conv_m, h_m), (ys, conv_s, h_s),
+                 f"Mamba decode step {t - T + 1}")
+    print(f"  {rcfg.name} ({rcfg.n_layers} layers, bf16) prefill, cache "
+          f"prefill and {FAMILY_STEPS} decode steps; one {jcfg.name} Mamba "
+          f"block (din {jcfg.mamba.expand * jcfg.d_model}, bf16): forward "
+          f"over {T} tokens with its handoff and {FAMILY_STEPS} decode steps:"
+          f" sharded bitwise equal to solo [{card}]")
+    del p, sp, x, xd
+    torch.cuda.empty_cache()
+
+    # (c) one dry-run cell on the card's host
+    (ROOT / "build").mkdir(exist_ok=True)
+    out = tempfile.mkdtemp(prefix="phase23_dryrun_", dir=ROOT / "build")
+    arch, shape = DRYRUN_CELL
+    argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+            arch, "--shape", shape, "--mesh", "single", "--out", out]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    run = subprocess.run(argv, env=env, capture_output=True, text=True,
+                         timeout=300, cwd=ROOT)
+    dry_s = time.perf_counter() - t0
+    ok = [ln for ln in run.stdout.splitlines() if ln.startswith("[ok]")]
+    require(run.returncode == 0 and ok, f"the dry run failed "
+            f"({run.returncode}): {run.stdout[-1500:]} {run.stderr[-3000:]}")
+    with open(Path(out) / f"{arch}_{shape}_single.json") as f:
+        cell = json.load(f)
+    require(cell["per_device"]["flops"] > 0, "the dry-run cell counted no "
+            "FLOPs on this host's torch")
+    rec["dryrun"] = cell
+    print(f"  python -m repro_torch.launch.dryrun --arch {arch} --shape "
+          f"{shape} --mesh single (torch {torch.__version__}, on meta in a "
+          f"fake world of 256 ranks, {dry_s:.1f} s in all): {ok[0]}")
+    require(kernel_counts() == before,
+            "the sharded serve steps launched a kernel")
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 23 {rec['seconds']:.1f} s, none of the four kernels "
+          f"launched [{card}]")
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3794,6 +4062,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     try:
         lm_mesh_phase(dev, card)                  # phase 22, phase 21's world
+        serve_mesh_phase(dev, card)               # phase 23, the same world
     finally:
         import torch.distributed as dist
         dist.destroy_process_group()
@@ -3817,7 +4086,12 @@ def main() -> int:
         "vgg16_engine": walker["launches"],
         "qwen3_4b_ffn_compact": k1_qwen,
         "rwkv6_3b_channel_mix_compact": k1_rwkv, **slab_launches,
-        **mesh_launches}
+        **mesh_launches, "sharded_serve_steps_mesh": 0}
+    # phase 23 (the dense sharded serve steps) launches none of the four
+    kernels[1].setdefault("launches_by_path", {
+        "vgg16_oracle_check": kernels[1]["launches"]})[
+        "sharded_serve_steps_mesh"] = 0
+    launches["sharded_serve_steps_mesh"] = {"k3": 0, "k4": 0}
     walker["vgg16_mesh"] = mesh_rec
     walker["launches"] = sum(walker["launches_by_path"].values())
     for key in ("max_abs_err", "max_rel_err"):

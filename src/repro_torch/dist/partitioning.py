@@ -425,6 +425,19 @@ def local_slices(mesh, placements_: Sequence, shape: Sequence[int]
     return tuple(slice(s, s + n) for s, n in zip(start, length))
 
 
+def local_shape(mesh, placements_: Sequence, shape: Sequence[int]
+                ) -> Tuple[int, ...]:
+    """Each rank's block shape of a tensor of global ``shape`` under
+    ``placements_`` (even splits, as :func:`placements` allows), from the
+    mesh's extents alone: a stub mesh serves."""
+    sizes = list(axis_sizes(mesh).values())
+    out = list(shape)
+    for i, pl in enumerate(placements_):
+        if isinstance(pl, Shard):
+            out[pl.dim] //= sizes[i]
+    return tuple(out)
+
+
 def distribute(t: torch.Tensor, sharding: NamedSharding) -> DTensor:
     """``t`` (the same full tensor on every rank) as a DTensor of
     ``sharding``: this rank keeps a copy of its own block, bit for bit;
@@ -432,6 +445,17 @@ def distribute(t: torch.Tensor, sharding: NamedSharding) -> DTensor:
     local = t[local_slices(sharding.mesh, sharding.placements, t.shape)]
     return DTensor.from_local(local.clone(), sharding.mesh,
                               sharding.placements, run_check=False)
+
+
+def placed_zeros(sharding: NamedSharding, shape: Sequence[int],
+                 dtype: torch.dtype, device) -> DTensor:
+    """A zeroed DTensor of global ``shape`` in ``sharding``: each rank
+    allocates only its own block (nothing on the meta device)."""
+    block = local_slices(sharding.mesh, sharding.placements, shape)
+    local = torch.zeros([s.stop - s.start for s in block], dtype=dtype,
+                        device=device)
+    return DTensor.from_local(local, sharding.mesh, sharding.placements,
+                              run_check=False)
 
 
 def distribute_tree(tree, shardings):

@@ -222,15 +222,10 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     (RoPE'd) K/V, so a cache-writing prefill fills the decode cache in the
     same pass.
 
-    DTensor weights (a mesh) take :func:`_attention_mesh` (self-attention
-    without ``kv`` or ``return_kv``: the training forward)."""
+    DTensor weights (a mesh) take :func:`_attention_mesh`."""
     if isinstance(p["wq"], DTensor):
-        if kv is not None or return_kv:
-            raise NotImplementedError("sharded cross-attention and cache "
-                                      "writes: only self-attention runs "
-                                      "on a mesh")
         return _attention_mesh(p, x, cfg, positions, mask, use_rope,
-                               flash_chunk)
+                               flash_chunk, kv=kv, return_kv=return_kv)
     q, k, v = _qkv(p, x, cfg, positions, use_rope=use_rope)
     if kv is not None:
         k, v = kv
@@ -246,12 +241,13 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     return out
 
 
-def _head_placements(mesh, batch: int, cfg: ModelConfig) -> tuple:
-    """Placements of a [B, S, heads * dh] projection for attention by
-    rank: the batch over the data-parallel dims (when they divide it), the
-    heads over the longest prefix of the model dims whose product divides
-    both head counts (so a rank's query heads read its own KV heads), the
-    rest replicated."""
+def _work_placements(mesh, batch: int, counts: Tuple[int, ...],
+                     dim: int) -> tuple:
+    """Placements of an activation whose work a rank does on its share:
+    the batch (dim 0) over the data-parallel dims when they divide it, and
+    tensor dim ``dim`` (heads or channels) over the longest prefix of the
+    model dims whose product divides every one of ``counts`` (none when
+    ``counts`` is empty); the rest replicated."""
     names = partitioning.axis_names(mesh)
     out = [Replicate()] * mesh.ndim
     dp = [names.index(a) for a in partitioning.dp_axes(mesh)]
@@ -259,50 +255,174 @@ def _head_placements(mesh, batch: int, cfg: ModelConfig) -> tuple:
         for i in dp:
             out[i] = Shard(0)
     n = 1
-    for a in partitioning.tp_axes(mesh):
+    for a in partitioning.tp_axes(mesh) if counts else ():
         i = names.index(a)
         n *= mesh.size(i)
-        if cfg.n_heads % n or cfg.n_kv_heads % n:
+        if any(c % n for c in counts):
             break
-        out[i] = Shard(2)
+        out[i] = Shard(dim)
     return tuple(out)
 
 
+def _head_placements(mesh, batch: int, cfg: ModelConfig) -> tuple:
+    """Placements of a [B, S, heads * dh] projection (or [B, S, heads, dh]
+    K/V) for attention by rank: the heads over the longest prefix of the
+    model dims whose product divides both head counts, so a rank's query
+    heads read its own KV heads (:func:`_work_placements`)."""
+    return _work_placements(mesh, batch, (cfg.n_heads, cfg.n_kv_heads), 2)
+
+
+def _weight_grads(place: tuple) -> tuple:
+    """Gradient placements of a replicated weight read on local tensors
+    split as ``place``: a partial sum over every dim that splits the
+    work."""
+    return tuple(Partial() if isinstance(pl, Shard) else pl for pl in place)
+
+
+def _local_weight(t: torch.Tensor, mesh, place: tuple) -> torch.Tensor:
+    """The whole of weight ``t`` on this rank (FSDP shards gathered) for
+    work split as ``place``; its gradient comes back as
+    :func:`_weight_grads`."""
+    return _replicated(t, mesh).to_local(grad_placements=_weight_grads(place))
+
+
+def _to_placements(x: torch.Tensor, mesh, place: tuple) -> DTensor:
+    """``x`` as a DTensor of ``place`` (a plain tensor is taken as the same
+    on every rank)."""
+    x = x if isinstance(x, DTensor) else _replicated(x, mesh)
+    return x if tuple(x.placements) == place else x.redistribute(mesh, place)
+
+
+def _local_state(state: torch.Tensor, mesh, place: tuple) -> torch.Tensor:
+    """This rank's block of a decode-state tensor under ``place``."""
+    return _to_placements(state, mesh, place).to_local()
+
+
+def placed_like(new: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A new decode-state tensor in the placements of the state ``like``
+    it replaces: a placed cache leaf stays in its ``cache_shardings``
+    placements; one given as a plain tensor comes back whole."""
+    if not isinstance(new, DTensor):
+        return new
+    if not isinstance(like, DTensor):
+        return new.full_tensor()
+    if tuple(new.placements) == tuple(like.placements):
+        return new
+    out = new.redistribute(like.device_mesh, like.placements)
+    local = out.to_local()
+    if local.untyped_storage().nbytes() > local.numel() * \
+            local.element_size():
+        # a block cut from a gathered buffer (the CPU process group's
+        # all-to-all is an all-gather and a slice): a state leaf must not
+        # pin the whole buffer
+        out = DTensor.from_local(local.clone(), out.device_mesh,
+                                 out.placements, run_check=False)
+    return out
+
+
+def _state_like(local: torch.Tensor, mesh, place: tuple,
+                like: torch.Tensor) -> torch.Tensor:
+    """:func:`placed_like` of this rank's block ``local``, laid out as
+    ``place``."""
+    return placed_like(DTensor.from_local(local, mesh, place,
+                                          run_check=False), like)
+
+
+def positions_whole(x: torch.Tensor) -> torch.Tensor:
+    """``x`` [B, S, ...] with its positions (dim 1) whole on every rank: a
+    DTensor sharded over the sequence (the SP residual) gathered over the
+    dims that split it; other tensors unchanged."""
+    if not isinstance(x, DTensor) or not any(
+            isinstance(pl, Shard) and pl.dim == 1 for pl in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if isinstance(pl, Shard) and pl.dim == 1 else pl
+        for pl in x.placements))
+
+
 def _attention_mesh(p: Params, x, cfg: ModelConfig, positions, mask,
-                    use_rope: bool, flash_chunk: Optional[int]):
-    """Self-attention with DTensor weights: the projections and ``wo`` as
+                    use_rope: bool, flash_chunk: Optional[int], *,
+                    kv=None, return_kv: bool = False):
+    """Attention with DTensor weights: the projections and ``wo`` as
     DTensor matmuls, and between them each rank attends over its own batch
     rows and heads (:func:`_head_placements`) on local tensors, the solo
     code on its share. DTensor's sharding rules for the attention's
     grouped einsums differ between torch releases; attention by head needs
     none. The qk-norm weights' gradients are partial sums over the dims
-    that split the work. A mesh of one rank computes the solo values bit
-    for bit."""
+    that split the work. ``kv`` (cross-attention: DTensor or plain [B,
+    S_kv, Hkv, dh], the encoder's or a placed cache's) is moved to the
+    same placements; ``return_kv`` returns this layer's K/V as DTensors
+    [B, S, Hkv, dh] in them. A mesh of one rank computes the solo values
+    bit for bit. A sequence-sharded stream (SP) is gathered first, as
+    Megatron's SP gathers before the QKV projections: DTensor mis-sizes
+    the local view of a matmul whose weight shards over fewer model dims
+    than the stream (the rules' head axes, e.g. PaliGemma's 8 heads on
+    (8, 2))."""
     mesh = p["wq"].device_mesh
+    x = positions_whole(x)
     B, S, _ = x.shape
     place = _head_placements(mesh, B, cfg)
-    rep = (Replicate(),) * mesh.ndim
-    split = tuple(Partial() if isinstance(pl, Shard) else pl
-                  for pl in place)
-    q, k, v = ((x @ p[w]).redistribute(mesh, place).to_local()
-               for w in ("wq", "wk", "wv"))
-    norms = {w: p[w].redistribute(mesh, rep).to_local(grad_placements=split)
+    norms = {w: _local_weight(p[w], mesh, place)
              for w in ("q_norm", "k_norm") if w in p}
-    shape = (B, S, cfg.n_heads * cfg.d_head)
-    rows = partitioning.local_slices(mesh, place, shape)[0]
+    rows = partitioning.local_slices(
+        mesh, place, (B, S, cfg.n_heads * cfg.d_head))[0]
     if positions is not None and positions.shape[0] == B:
         positions = positions[rows]
     if mask is not None and mask.shape[0] == B:
         mask = mask[rows]
-    q, k, v = _heads(norms, q, k, v, cfg, positions, use_rope=use_rope)
+    if kv is None:
+        q, k, v = ((x @ p[w]).redistribute(mesh, place).to_local()
+                   for w in ("wq", "wk", "wv"))
+        q, k, v = _heads(norms, q, k, v, cfg, positions, use_rope=use_rope)
+    else:
+        q = (x @ p["wq"]).redistribute(mesh, place).to_local()
+        q = _heads(norms, q, q, q, cfg, positions, use_rope=use_rope)[0]
+        k, v = (_to_placements(t, mesh, place).to_local() for t in kv)
     n_rep = cfg.n_heads // cfg.n_kv_heads
-    if flash_chunk is not None:
+    if flash_chunk is not None and kv is None:
         out = _flash_sdpa(q, k, v, n_rep, window=cfg.window,
                           kv_chunk=flash_chunk)
     else:
         out = _sdpa(q, k, v, mask, n_rep)
-    out = DTensor.from_local(out, mesh, place, run_check=False)
-    return out @ p["wo"]
+    out = DTensor.from_local(out, mesh, place, run_check=False) @ p["wo"]
+    if return_kv:
+        return out, *(DTensor.from_local(t, mesh, place, run_check=False)
+                      for t in (k, v))
+    return out
+
+
+def cross_kv(p: Params, enc_out: torch.Tensor, cfg: ModelConfig):
+    """Cross-attention K/V [B, S_enc, Hkv, dh] of the encoder output (no
+    RoPE). DTensor weights give DTensors in :func:`_head_placements`."""
+    B, S, _ = enc_out.shape
+    shape = (B, S, cfg.n_kv_heads, cfg.d_head)
+    if not isinstance(p["wk"], DTensor):
+        return tuple((enc_out @ p[w]).reshape(shape) for w in ("wk", "wv"))
+    mesh = p["wk"].device_mesh
+    place = _head_placements(mesh, B, cfg)
+    enc_out = positions_whole(enc_out)
+    out = []
+    for w in ("wk", "wv"):
+        local = (enc_out @ p[w]).redistribute(mesh, place).to_local()
+        out.append(DTensor.from_local(
+            local.reshape(*local.shape[:2], -1, cfg.d_head), mesh, place,
+            run_check=False))
+    return tuple(out)
+
+
+def write_rows(cache: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """A copy of ``cache`` [B, S_max, ...] with rows [0, S) replaced by
+    ``new`` [B, S, ...] (a prefill's K/V). A DTensor ``new`` (a mesh) is
+    written on each rank's block in its placements, and the cache comes
+    back in its own."""
+    if not isinstance(new, DTensor):
+        out = cache.clone()
+        out[:, :new.shape[1]] = new.to(out.dtype)
+        return out
+    mesh, place = new.device_mesh, tuple(new.placements)
+    local = _local_state(cache, mesh, place).clone()
+    local[:, :new.shape[1]] = new.to_local().to(local.dtype)
+    return _state_like(local, mesh, place, cache)
 
 
 def attention_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -314,22 +434,59 @@ def attention_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     x [B, 1, D]; cache_k/v [B, S_max, Hkv, dh]; pos int [B] (per-slot
     positions: lane b writes and attends at its own position). Returns
     (out [B,1,D], new_cache_k, new_cache_v); the given cache is not
-    modified.
+    modified. DTensor weights take :func:`_attention_decode_mesh`.
     """
-    B = x.shape[0]
+    if isinstance(p["wq"], DTensor):
+        return _attention_decode_mesh(p, x, cfg, cache_k, cache_v, pos)
     q, k, v = _qkv(p, x, cfg, pos[:, None])
-    lanes = torch.arange(B, device=x.device)
+    return _decode_attend(q, k, v, cache_k, cache_v, pos, cfg, p["wo"])
+
+
+def _decode_attend(q, k, v, cache_k, cache_v, pos, cfg: ModelConfig, wo):
+    """The decode step after the projections: lane b's K/V written at row
+    pos[b] of copies of the caches, attention over its valid rows, then
+    ``@ wo`` (None: the heads' output itself)."""
+    B = q.shape[0]
+    lanes = torch.arange(B, device=q.device)
     cache_k = cache_k.clone()
     cache_v = cache_v.clone()
     cache_k[lanes, pos] = k[:, 0].to(cache_k.dtype)
     cache_v[lanes, pos] = v[:, 0].to(cache_v.dtype)
-    ki = torch.arange(cache_k.shape[1], device=x.device)[None, :]
+    ki = torch.arange(cache_k.shape[1], device=q.device)[None, :]
     valid = ki <= pos[:, None]                                # [B, S]
     if cfg.window is not None:
         valid &= ki > (pos[:, None] - cfg.window)
     out = _sdpa(q, cache_k, cache_v, valid[:, None, None],
                 cfg.n_heads // cfg.n_kv_heads)
-    return out @ p["wo"], cache_k, cache_v
+    return (out if wo is None else out @ wo), cache_k, cache_v
+
+
+def _attention_decode_mesh(p: Params, x, cfg: ModelConfig, cache_k, cache_v,
+                           pos):
+    """:func:`attention_decode` with DTensor weights and a placed cache.
+    Each rank takes its batch rows and heads (:func:`_head_placements`):
+    the projections as DTensor matmuls, the caches moved to those
+    placements (the baseline's sequence shards over ``model`` gathered, the
+    rules' head shards kept), the row written and attended on local
+    tensors as solo, the caches moved back to their own placements and the
+    output through ``wo`` as a DTensor matmul. A mesh of one rank computes
+    the solo values bit for bit."""
+    mesh = p["wq"].device_mesh
+    B = x.shape[0]
+    place = _head_placements(mesh, B, cfg)
+    norms = {w: _local_weight(p[w], mesh, place)
+             for w in ("q_norm", "k_norm") if w in p}
+    rows = partitioning.local_slices(
+        mesh, place, (B, 1, cfg.n_heads * cfg.d_head))[0]
+    pos = pos[rows]
+    q, k, v = ((x @ p[w]).redistribute(mesh, place).to_local()
+               for w in ("wq", "wk", "wv"))
+    q, k, v = _heads(norms, q, k, v, cfg, pos[:, None])
+    ck, cv = (_local_state(c, mesh, place) for c in (cache_k, cache_v))
+    out, ck, cv = _decode_attend(q, k, v, ck, cv, pos, cfg, None)
+    out = DTensor.from_local(out, mesh, place, run_check=False) @ p["wo"]
+    return out, _state_like(ck, mesh, place, cache_k), \
+        _state_like(cv, mesh, place, cache_v)
 
 
 # ---------------------------------------------------------------------------
@@ -550,7 +707,10 @@ def _replicated(t: torch.Tensor, mesh) -> DTensor:
     tensor is taken as the same on every rank)."""
     rep = (Replicate(),) * mesh.ndim
     if isinstance(t, DTensor):
-        return t.redistribute(mesh, rep)
+        # no redistribution where there is nothing to move: its backward
+        # would reduce a partial gradient here, and the optimizer's
+        # reduction (adamw.reduce_grads) once more
+        return t if tuple(t.placements) == rep else t.redistribute(mesh, rep)
     return DTensor.from_local(t, mesh, rep, run_check=False)
 
 
@@ -623,16 +783,19 @@ def _ssm_scan_chunked(u, delta, Bm, Cm, A, chunk: int,
     return (y, h0) if return_state else y
 
 
-def _ssm_inputs(p: Params, u: torch.Tensor, cfg: ModelConfig, dtype):
+def _ssm_inputs(p: Params, u: torch.Tensor, cfg: ModelConfig, dtype,
+                chan: slice = slice(None)):
     """The selective SSM's inputs from the conv output ``u`` (model dtype):
-    (u fp32 after SiLU, delta, B, C, A)."""
+    (u fp32 after SiLU, delta, B, C, A). ``chan`` keeps the channels of u,
+    delta and A that a rank scans (B and C read every channel)."""
     m = cfg.mamba
     dt_rank = max(cfg.d_model // 16, 1)
     u = F.silu(u).float()
     xp = (u.to(dtype) @ p["x_proj"]).float()
     dt, Bm, Cm = torch.split(xp, [dt_rank, m.d_state, m.d_state], dim=-1)
-    delta = F.softplus(dt @ p["dt_proj"].float() + p["dt_bias"])
-    return u, delta, Bm, Cm, -torch.exp(p["A_log"])
+    delta = F.softplus(dt @ p["dt_proj"][:, chan].float()
+                       + p["dt_bias"][chan])
+    return u[..., chan], delta, Bm, Cm, -torch.exp(p["A_log"][chan])
 
 
 def mamba_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -640,7 +803,10 @@ def mamba_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """Full-sequence Mamba. With ``return_state`` also returns the decode
     handoff ``(conv_state [B, d_conv-1, din], h [B, din, ds])``: the last
     d_conv-1 pre-conv inputs of the zero-padded stream (zeros ahead of them
-    when L < d_conv-1) and the SSM state after the last token."""
+    when L < d_conv-1) and the SSM state after the last token. DTensor
+    weights take :func:`_mamba_mesh`."""
+    if isinstance(p["in_proj"], DTensor):
+        return _mamba_mesh(p, x, cfg, chunk, return_state)
     m = cfg.mamba
     L = x.shape[1]
     u, z = (x @ p["in_proj"]).chunk(2, dim=-1)
@@ -658,21 +824,107 @@ def mamba_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
     return out
 
 
+def _mamba_local(p: Params, x, cfg: ModelConfig):
+    """The mesh Mamba's set-up: (mesh, rows, chan, local weights, this
+    rank's channels, local in_proj output u and z [B_l, L, din]; [B_l,
+    din] for a decode step's [B, D] input).
+
+    Each rank takes its batch rows (``rows``: the data dims) and a block
+    of ``d_inner`` channels (``chan``: the longest prefix of the model dims
+    dividing it, on dim 2 of [B, L, din]). ``x @ in_proj`` is a DTensor
+    matmul whose output every rank of a batch block receives whole: the
+    conv and ``x_proj`` read every channel (replicated work), the scan and
+    the gate read this rank's, so the gradients of the local output and
+    of the weights are partial sums over the channel dims."""
+    mesh = p["in_proj"].device_mesh
+    B = x.shape[0]
+    din = cfg.mamba.expand * cfg.d_model
+    rows = _work_placements(mesh, B, (), 2)
+    chan = _work_placements(mesh, B, (din,), 2)
+    act_grads = tuple(Partial() if isinstance(c, Shard) and
+                      not isinstance(r, Shard) else r
+                      for r, c in zip(rows, chan))
+    xz = (x @ p["in_proj"]).redistribute(mesh, rows).to_local(
+        grad_placements=act_grads)
+    lp = {k: _local_weight(p[k], mesh, chan)
+          for k in ("conv_w", "x_proj", "dt_proj", "dt_bias", "A_log", "D")}
+    cs = partitioning.local_slices(mesh, chan, (B, 1, din))[2]
+    u, z = xz.chunk(2, dim=-1)
+    return mesh, rows, chan, lp, cs, u, z
+
+
+def _mamba_mesh(p: Params, x, cfg: ModelConfig, chunk: int,
+                return_state: bool):
+    """:func:`mamba_block` with DTensor weights: the scan by batch rows and
+    channel blocks on local tensors (:func:`_mamba_local`), the solo code
+    on its share; the gated output back as a DTensor [B, L, din] sharded
+    by channel into the DTensor matmul with ``out_proj``. The handoff's
+    conv state is this batch block's (every channel), the SSM state its
+    channel block's. A mesh of one rank computes the solo values bit for
+    bit."""
+    m = cfg.mamba
+    L = x.shape[1]
+    mesh, rows, chan, lp, cs, u, z = _mamba_local(p, x, cfg)
+    upad = F.pad(u, (0, 0, m.d_conv - 1, 0))
+    u = sum(upad[:, i:i + L] * lp["conv_w"][i] for i in range(m.d_conv))
+    u, delta, Bm, Cm, A = _ssm_inputs(lp, u, cfg, x.dtype, cs)
+    y, h_last = _ssm_scan_chunked(u, delta, Bm, Cm, A, chunk,
+                                  return_state=True)
+    y = y + u * lp["D"][cs]
+    y = (y * F.silu(z[..., cs].float())).to(x.dtype)
+    out = DTensor.from_local(y, mesh, chan, run_check=False) @ p["out_proj"]
+    if return_state:
+        h_place = _work_placements(mesh, x.shape[0], (m.expand * cfg.d_model,),
+                                   1)
+        return out, DTensor.from_local(upad[:, L:], mesh, rows,
+                                       run_check=False), \
+            DTensor.from_local(h_last, mesh, h_place, run_check=False)
+    return out
+
+
 def mamba_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
                  conv_state: torch.Tensor, h: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Single-token step. x [B,1,D]; conv_state [B,d_conv-1,din]; h
     [B,din,ds] fp32 -> (out [B,1,D], new conv_state, new h); the given
-    state is not modified."""
+    state is not modified. DTensor weights: the step by batch rows and
+    channel blocks as :func:`_mamba_mesh`, the new state in the given
+    state's placements."""
+    if isinstance(p["in_proj"], DTensor):
+        return _mamba_decode_mesh(p, x, cfg, conv_state, h)
     u, z = (x[:, 0] @ p["in_proj"]).chunk(2, dim=-1)
     full = torch.cat([conv_state, u[:, None]], dim=1)        # [B,d_conv,din]
+    y, h = _mamba_step(p, full, z, h, cfg, x.dtype)
+    return (y @ p["out_proj"])[:, None], full[:, 1:], h
+
+
+def _mamba_step(p: Params, full, z, h, cfg: ModelConfig, dtype,
+                chan: slice = slice(None)):
+    """The decode step after the in-projection: the conv over ``full``
+    [B, d_conv, din], the SSM update of ``h`` and the gated output (model
+    dtype), on the channels ``chan`` of the state and the output."""
     u = torch.einsum("bcd,cd->bd", full, p["conv_w"])
-    u, delta, Bm, Cm, A = _ssm_inputs(p, u, cfg, x.dtype)
+    u, delta, Bm, Cm, A = _ssm_inputs(p, u, cfg, dtype, chan)
     dA = torch.exp(delta[..., None] * A)                      # [B,din,ds]
     h = dA * h + delta[..., None] * Bm[:, None, :] * u[..., None]
-    y = torch.einsum("bds,bs->bd", h, Cm) + u * p["D"]
-    y = (y * F.silu(z.float())).to(x.dtype)
-    return (y @ p["out_proj"])[:, None], full[:, 1:], h
+    y = torch.einsum("bds,bs->bd", h, Cm) + u * p["D"][chan]
+    return (y * F.silu(z[..., chan].float())).to(dtype), h
+
+
+def _mamba_decode_mesh(p: Params, x, cfg: ModelConfig, conv_state, h):
+    din = cfg.mamba.expand * cfg.d_model
+    B = x.shape[0]
+    # the solo step's ops on this rank's share: [B, D] rows in, the
+    # output's channels on dim 1 of [B, din]
+    mesh, rows, _, lp, cs, u, z = _mamba_local(p, x[:, 0], cfg)
+    chan = _work_placements(mesh, B, (din,), 1)
+    full = torch.cat([_local_state(conv_state, mesh, rows), u[:, None]],
+                     dim=1)
+    y, h_new = _mamba_step(lp, full, z, _local_state(h, mesh, chan), cfg,
+                           x.dtype, cs)
+    out = DTensor.from_local(y, mesh, chan, run_check=False) @ p["out_proj"]
+    return out[:, None], _state_like(full[:, 1:], mesh, rows, conv_state), \
+        _state_like(h_new, mesh, chan, h)
 
 
 # ---------------------------------------------------------------------------
@@ -782,7 +1034,10 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig,
                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x [B, L, D] -> (out [B, L, D], new state). ``state`` (``shift``
     [B, D], ``wkv`` [B, H, N, N] fp32) continues a sequence; the returned
-    state holds the last token and the WKV state after it."""
+    state holds the last token and the WKV state after it. DTensor weights
+    take :func:`_rwkv_time_mix_mesh`."""
+    if isinstance(p["w_r"], DTensor):
+        return _rwkv_time_mix_mesh(p, x, cfg, chunk, state)
     B, L, D = x.shape
     H, N = cfg.n_heads, cfg.d_head
     prev = state["shift"] if state is not None else None
@@ -798,6 +1053,71 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig,
     return out, new_state
 
 
+def _shift_mesh(x: torch.Tensor, prev: Optional[torch.Tensor], mesh,
+                rows: tuple):
+    """The token shift on a mesh: (x, shifted) as DTensors of ``rows``
+    (batch rows over the data dims, the sequence whole) and the last
+    token [B, D] in them. The shift runs on local tensors; a shifted
+    stream is the same on every rank of a batch block, so its gradient is
+    too."""
+    xr = _to_placements(x, mesh, rows)
+    xl = xr.to_local()
+    pl = None if prev is None else _local_state(prev, mesh, rows)
+    shifted = DTensor.from_local(_token_shift(xl, pl), mesh, rows,
+                                 run_check=False)
+    return xr, shifted, xl[:, -1]
+
+
+def _rwkv_time_mix_mesh(p: Params, x, cfg: ModelConfig, chunk: int,
+                        state: Optional[Dict]):
+    """:func:`rwkv_time_mix` with DTensor weights: the token mix and the
+    five projections as DTensor ops, then the WKV by rank on local tensors
+    over its batch rows (the data dims) and heads (the longest prefix of
+    the model dims dividing ``n_heads``): the solo chunked recurrence on
+    its share, with its block of ``u_bonus``, ``w_decay_base`` and the WKV
+    state. The heads' output is gathered for ``ln_x`` (a norm over every
+    head) and goes through the gate and ``w_o`` as DTensor ops. The bonus
+    and base gradients are partial sums over the dims that split the work.
+    A mesh of one rank computes the solo values bit for bit."""
+    mesh = p["w_r"].device_mesh
+    B, L, _ = x.shape
+    H, N = cfg.n_heads, cfg.d_head
+    rows = _work_placements(mesh, B, (), 2)
+    heads = _work_placements(mesh, B, (H,), 2)
+    xr, shifted, last = _shift_mesh(
+        x, state["shift"] if state is not None else None, mesh, rows)
+
+    def mix(mu):
+        return xr * p[mu] + shifted * (1 - p[mu])
+
+    def proj(mu, w):
+        return (mix(mu) @ p[w]).redistribute(mesh, heads).to_local()
+
+    hs = partitioning.local_slices(mesh, heads, (B, L, H))[2]
+    cols = slice(hs.start * N, hs.stop * N)
+    r, k, v = (proj(mu, w) for mu, w in
+               (("mu_r", "w_r"), ("mu_k", "w_k"), ("mu_v", "w_v")))
+    g = F.silu(mix("mu_w") @ p["w_g"])
+    base = _local_weight(p["w_decay_base"], mesh, heads)[cols]
+    wlog = -torch.exp(base + proj("mu_w", "w_w").float())
+    u = _local_weight(p["u_bonus"], mesh, heads)[hs]
+    s_place = _work_placements(mesh, B, (H,), 1)
+    S0 = None if state is None else _local_state(state["wkv"], mesh,
+                                                 s_place)
+    shape = r.shape[:2] + (-1, N)            # [B_l, L, H_l, N]
+    y, S = _rwkv_chunk(r.reshape(shape), k.reshape(shape), v.reshape(shape),
+                       wlog.reshape(shape), u, S0, chunk)
+    y = DTensor.from_local(y.reshape(r.shape).to(x.dtype), mesh, heads,
+                           run_check=False).redistribute(mesh, rows)
+    y = rmsnorm(y, p["ln_x"], cfg.norm_eps)
+    out = (y * g.to(y.dtype)) @ p["w_o"]
+    new_state = None
+    if state is not None:
+        new_state = {"shift": _state_like(last, mesh, rows, state["shift"]),
+                     "wkv": _state_like(S, mesh, s_place, state["wkv"])}
+    return out, new_state
+
+
 def rwkv_channel_mix(p: Params, x: torch.Tensor, cfg: ModelConfig,
                      state: Optional[Dict] = None,
                      sparse: Optional[Params] = None,
@@ -806,9 +1126,19 @@ def rwkv_channel_mix(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """Squared-ReLU FFN of the token-shifted mix, dense or, with ``sparse``
     (this block's ``channel_mix_sparse`` leaves), through the BARISTA
     kernels with act ``relu2``: the naturally two-sided FFN of the
-    attention-free blocks. ``stats`` collects the probe's counts."""
+    attention-free blocks. ``stats`` collects the probe's counts. DTensor
+    weights (dense): the shift on local tensors (:func:`_shift_mesh`), the
+    FFN as DTensor ops."""
     prev = state["shift"] if state is not None else None
-    shifted = _token_shift(x, prev)
+    if isinstance(p["w_in"], DTensor):
+        mesh = p["w_in"].device_mesh
+        rows = _work_placements(mesh, x.shape[0], (), 2)
+        x, shifted, last = _shift_mesh(x, prev, mesh, rows)
+        new_state = None if state is None else {
+            "shift": _state_like(last, mesh, rows, prev)}
+    else:
+        shifted = _token_shift(x, prev)
+        new_state = {"shift": x[:, -1]} if state is not None else None
     mixed = x * p["mu_in"] + shifted * (1 - p["mu_in"])
     if sparse is not None:
         if stats is not None:
@@ -817,7 +1147,6 @@ def rwkv_channel_mix(p: Params, x: torch.Tensor, cfg: ModelConfig,
     else:
         h = torch.relu(mixed @ p["w_in"])
         out = (h * h) @ p["w_out"]
-    new_state = {"shift": x[:, -1]} if state is not None else None
     return out, new_state
 
 

@@ -17,10 +17,13 @@ is [B, S_max, Hkv, dh] for an attention block (with ``cross_k`` /
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.overrides import TorchFunctionMode
 from torch.utils.checkpoint import checkpoint
 
@@ -219,7 +222,11 @@ def _embed_mesh(embed: DTensor, tokens: torch.Tensor) -> DTensor:
     grad = tuple(v if isinstance(v, Shard) else
                  Partial() if isinstance(t, Shard) else Replicate()
                  for v, t in zip(vocab, tok_place))
-    table = embed.redistribute(mesh, vocab).to_local(grad_placements=grad)
+    # no redistribution where the table is already vocab-sharded: its
+    # backward would reduce this partial gradient, and the optimizer once
+    # more after the head's is added
+    table = (embed if tuple(embed.placements) == vocab else
+             embed.redistribute(mesh, vocab)).to_local(grad_placements=grad)
     first = partitioning.local_slices(mesh, vocab, embed.shape)[0].start
     idx = tok - first
     inside = (idx >= 0) & (idx < table.shape[0])
@@ -233,25 +240,42 @@ def _embed_mesh(embed: DTensor, tokens: torch.Tensor) -> DTensor:
         Replicate() if isinstance(pl, Partial) else pl for pl in out_place))
 
 
+def sharded(params):
+    """The context a step on ``params`` runs in: ``implicit_replication``
+    when they are DTensors (a plain tensor built in the step, its
+    positions, masks and RoPE tables, counts as replicated), else
+    nothing. Inside one already, nothing: leaving the context turns the
+    switch off, so it must not nest."""
+    if isinstance(params["embed"], DTensor) and not getattr(
+            DTensor._op_dispatcher, "_allow_implicit_replication", False):
+        return implicit_replication()
+    return contextlib.nullcontext()
+
+
+def _on_mesh(fn: Callable) -> Callable:
+    """Run ``fn(params, ...)`` in :func:`sharded` of its params."""
+    @functools.wraps(fn)
+    def run(params, *args, **kwargs):
+        with sharded(params):
+            return fn(params, *args, **kwargs)
+    return run
+
+
+# a DTensor's positions gathered (the SP residual), before one is picked
+positions_whole = L.positions_whole
+
+
 def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     head = params["lm_head"] if not cfg.tie_embeddings else params["embed"].t()
     return (x @ head.to(cfg.torch_dtype)).float()
 
 
-def _cross_kv(p: Params, enc_out: torch.Tensor, cfg: ModelConfig):
-    """Cross-attention K/V [B, S_enc, Hkv, dh] of the encoder output (no
-    RoPE)."""
-    B, S, _ = enc_out.shape
-    k = (enc_out @ p["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.d_head)
-    v = (enc_out @ p["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.d_head)
-    return k, v
-
-
 def _cross(bp: Params, x, cfg: ModelConfig, kv):
     """The decoder block's cross-attention residual over encoder K/V."""
     hc = L.rmsnorm(x, bp["ln_cross"], cfg.norm_eps)
-    return x + L.attention(bp["cross"], hc, cfg, positions=None, mask=None,
-                           kv=kv, use_rope=False)
+    return x + act_sharding.settle(L.attention(
+        bp["cross"], hc, cfg, positions=None, mask=None, kv=kv,
+        use_rope=False))
 
 
 def _ffn_part(bp: Params, x, cfg: ModelConfig, expert_perm, stats=None):
@@ -260,9 +284,10 @@ def _ffn_part(bp: Params, x, cfg: ModelConfig, expert_perm, stats=None):
     h2 = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
     if "moe" in bp:
         y, aux = L.moe_ffn(bp["moe"], h2, cfg, expert_perm)
-        return x + y, aux
-    return x + L.ffn(bp["ffn"], h2, cfg, sparse=_sparse_of(bp, cfg),
-                     stats=stats), None
+        return x + act_sharding.settle(y), aux
+    return x + act_sharding.settle(L.ffn(bp["ffn"], h2, cfg,
+                                         sparse=_sparse_of(bp, cfg),
+                                         stats=stats)), None
 
 
 # ---------------------------------------------------------------------------
@@ -277,7 +302,7 @@ def _rwkv_block(bp: Params, entry: Optional[Dict[str, torch.Tensor]], x,
     st = None if entry is None else {"shift": entry["shift_t"],
                                      "wkv": entry["wkv"]}
     y, st = L.rwkv_time_mix(bp["time_mix"], h, cfg, chunk=chunk, state=st)
-    x = x + y
+    x = x + act_sharding.settle(y)
     h2 = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
     y2, st2 = L.rwkv_channel_mix(
         bp["channel_mix"], h2, cfg,
@@ -286,7 +311,7 @@ def _rwkv_block(bp: Params, entry: Optional[Dict[str, torch.Tensor]], x,
     new = None if entry is None else {"wkv": st["wkv"],
                                       "shift_t": st["shift"],
                                       "shift_c": st2["shift"]}
-    return x + y2, new
+    return x + act_sharding.settle(y2), new
 
 
 def _block_fwd(bp: Params, x, cfg: ModelConfig, kind: str, *, positions,
@@ -298,15 +323,17 @@ def _block_fwd(bp: Params, x, cfg: ModelConfig, kind: str, *, positions,
         return _rwkv_block(bp, None, x, cfg, ssm_chunk or 64)[0], None
     h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
     if kind == "attn":
-        x = x + L.attention(bp["attn"], h, cfg, positions=positions,
-                            mask=mask, flash_chunk=flash_chunk)
+        y = L.attention(bp["attn"], h, cfg, positions=positions, mask=mask,
+                        flash_chunk=flash_chunk)
     else:
-        x = x + L.mamba_block(bp["mamba"], h, cfg, chunk=ssm_chunk or 64)
+        y = L.mamba_block(bp["mamba"], h, cfg, chunk=ssm_chunk or 64)
+    x = x + act_sharding.settle(y)
     if enc_out is not None:
-        x = _cross(bp, x, cfg, _cross_kv(bp["cross"], enc_out, cfg))
+        x = _cross(bp, x, cfg, L.cross_kv(bp["cross"], enc_out, cfg))
     return _ffn_part(bp, x, cfg, expert_perm)
 
 
+@_on_mesh
 def encode(params: Params, src_embeds: torch.Tensor,
            cfg: ModelConfig) -> torch.Tensor:
     """Encoder pass of an encoder-decoder: bidirectional self-attention
@@ -321,6 +348,7 @@ def encode(params: Params, src_embeds: torch.Tensor,
     return L.rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
 
+@_on_mesh
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             prefix_embeds: Optional[torch.Tensor] = None,
             src_embeds: Optional[torch.Tensor] = None,
@@ -399,7 +427,9 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
                                 preserve_rng_state=False)
         else:
             x, aux = run(group, x, aux)
-    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)[:, prefix:]
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    if prefix:
+        x = positions_whole(x)[:, prefix:]
     return _head(params, cfg, x), aux
 
 
@@ -439,6 +469,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
             for _ in range(cfg.periods)]
 
 
+@_on_mesh
 def prefill_cache(params: Params, cfg: ModelConfig, cache: Cache,
                   enc_out: torch.Tensor) -> Cache:
     """Encoder-decoder: each decoder attention block's cross K/V of the
@@ -452,9 +483,11 @@ def prefill_cache(params: Params, cfg: ModelConfig, cache: Cache,
             if kind != "attn" or not cfg.encoder_layers:
                 continue
             e = dict(entries[key])
-            k, v = _cross_kv(period[key]["cross"], enc_out, cfg)
-            e["cross_k"] = k.to(e["cross_k"].dtype)
-            e["cross_v"] = v.to(e["cross_v"].dtype)
+            k, v = L.cross_kv(period[key]["cross"], enc_out, cfg)
+            e["cross_k"] = L.placed_like(k.to(e["cross_k"].dtype),
+                                        e["cross_k"])
+            e["cross_v"] = L.placed_like(v.to(e["cross_v"].dtype),
+                                        e["cross_v"])
             entries[key] = e
         new.append(entries)
     return new
@@ -470,17 +503,18 @@ def _block_decode(bp: Params, entry, x, cfg: ModelConfig, kind: str, pos,
         y, new["k"], new["v"] = L.attention_decode(
             bp["attn"], h, cfg, cache_k=entry["k"], cache_v=entry["v"],
             pos=pos)
-        x = x + y
+        x = x + act_sharding.settle(y)
         if "cross_k" in entry:
             x = _cross(bp, x, cfg, (entry["cross_k"], entry["cross_v"]))
     else:
         y, new["conv"], new["h"] = L.mamba_decode(bp["mamba"], h, cfg,
                                                   entry["conv"], entry["h"])
-        x = x + y
+        x = x + act_sharding.settle(y)
     x, _ = _ffn_part(bp, x, cfg, expert_perm, stats=stats)
     return x, new
 
 
+@_on_mesh
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 cache: Cache, pos, *, active: Optional[torch.Tensor] = None,
                 return_ffn_stats: bool = False):
@@ -499,7 +533,7 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     B = token.shape[0]
     dev = token.device
     pos = torch.as_tensor(pos, device=dev).long().expand(B)
-    x = params["embed"][token].to(cfg.torch_dtype)
+    x = embed_lookup(params["embed"], token).to(cfg.torch_dtype)
     expert_perm = params.get("expert_perm")
     stats: Optional[list] = [] if return_ffn_stats else None
     new_cache = []
@@ -512,10 +546,8 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
         new_cache.append(new)
     if active is not None:
         keep = active.to(dev).bool()
-        new_cache = map_tree(
-            lambda n, o: torch.where(
-                keep.reshape((-1,) + (1,) * (n.ndim - 1)), n, o),
-            new_cache, cache)
+        new_cache = map_tree(lambda n, o: _keep_lanes(keep, n, o),
+                             new_cache, cache)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = _head(params, cfg, x)
     if not return_ffn_stats:
@@ -528,6 +560,22 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
         totals = {k: torch.zeros((), dtype=torch.float32, device=dev) for k
                   in ("executed", "weight_tile_macs", "dense_tile_macs")}
     return logits, new_cache, totals
+
+
+def _keep_lanes(keep: torch.Tensor, new: torch.Tensor,
+                old: torch.Tensor) -> torch.Tensor:
+    """``new`` on the lanes ``keep`` [B] marks, ``old`` elsewhere. Placed
+    (DTensor) leaves on each rank's block of lanes, in ``new``'s
+    placements (the leaf's own)."""
+    if not isinstance(new, DTensor):
+        return torch.where(keep.reshape((-1,) + (1,) * (new.ndim - 1)), new,
+                           old)
+    mesh, place = new.device_mesh, tuple(new.placements)
+    rows = partitioning.local_slices(mesh, place, new.shape)[0]
+    local = torch.where(
+        keep[rows].reshape((-1,) + (1,) * (new.ndim - 1)), new.to_local(),
+        L._local_state(old, mesh, place))
+    return DTensor.from_local(local, mesh, place, run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -545,21 +593,22 @@ def _block_prefill(bp: Params, entry, x, cfg: ModelConfig, kind: str, *,
         y, k, v = L.attention(bp["attn"], h, cfg, positions=positions,
                               mask=mask, flash_chunk=flash_chunk,
                               return_kv=True)
-        S = k.shape[1]
-        new["k"], new["v"] = entry["k"].clone(), entry["v"].clone()
-        new["k"][:, :S] = k.to(new["k"].dtype)
-        new["v"][:, :S] = v.to(new["v"].dtype)
-        x = x + y
+        new["k"] = L.write_rows(entry["k"], k)
+        new["v"] = L.write_rows(entry["v"], v)
+        x = x + act_sharding.settle(y)
         if "cross_k" in entry:
             x = _cross(bp, x, cfg, (entry["cross_k"], entry["cross_v"]))
     else:
-        y, new["conv"], new["h"] = L.mamba_block(
+        y, conv, hs = L.mamba_block(
             bp["mamba"], h, cfg, chunk=ssm_chunk or 64, return_state=True)
-        x = x + y
+        new["conv"] = L.placed_like(conv, entry["conv"])
+        new["h"] = L.placed_like(hs, entry["h"])
+        x = x + act_sharding.settle(y)
     x, _ = _ffn_part(bp, x, cfg, expert_perm)
     return x, new
 
 
+@_on_mesh
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             cache: Cache, *, ssm_chunk: Optional[int] = None,
             flash_chunk: Optional[int] = None
@@ -575,7 +624,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """
     B, S = tokens.shape
     dev = tokens.device
-    x = params["embed"][tokens].to(cfg.torch_dtype)
+    x = embed_lookup(params["embed"], tokens).to(cfg.torch_dtype)
     positions = torch.arange(S, device=dev)[None].expand(B, S)
     use_flash = flash_chunk is not None and cfg.n_heads
     mask = L.causal_mask(S, S, cfg.window, device=dev) \
@@ -593,5 +642,6 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 flash_chunk=flash_chunk if use_flash else None)
         new_cache.append(new)
     # project only the last position (the next-token logits serving needs)
-    x = L.rmsnorm(x[:, -1], params["final_norm"], cfg.norm_eps)
+    x = L.rmsnorm(positions_whole(x)[:, -1], params["final_norm"],
+                  cfg.norm_eps)
     return _head(params, cfg, x), new_cache

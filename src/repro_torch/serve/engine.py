@@ -18,6 +18,15 @@ tensor, as the reference's is traced) and the FFN probe
 (:class:`GraphedFfnStats`, ``jitted_ffn_stats``). ``generate`` and the
 scheduler use them by default; ``compiled=False`` runs the eager
 functions.
+
+On a mesh (the reference's sharded serve step, which its dry run lowers
+with ``jax.jit(in_shardings=...)``), :func:`make_prefill_fn` and
+:func:`make_serve_step` take DTensor params
+(``dist.partitioning.param_shardings``) and a decode cache placed by
+``cache_shardings`` (:func:`init_cache_on`); the new cache keeps those
+placements, and the greedy pick runs on each rank's rows with the vocab
+gathered. :class:`GraphedServeStep` captures that step too. The
+scheduler and ``generate`` stay one-device, as the reference's are.
 """
 from __future__ import annotations
 
@@ -25,9 +34,11 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch import graphs
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import partitioning as part
 from repro_torch.models import model as M
 
 
@@ -46,7 +57,7 @@ def make_prefill_fn(cfg: ModelConfig, ssm_chunk: Optional[int] = None,
         if cache is None:
             logits, _ = M.forward(params, tokens, cfg, ssm_chunk=ssm_chunk,
                                   flash_chunk=flash_chunk, **extras)
-            return logits[:, -1]
+            return M.positions_whole(logits)[:, -1]
         return M.prefill(params, cfg, tokens, cache, ssm_chunk=ssm_chunk,
                          flash_chunk=flash_chunk)
     return prefill
@@ -60,12 +71,46 @@ def _pick(logits: torch.Tensor, greedy: bool,
     that function draws one sample (``argmax(p / q)``, ``q ~ Exp(1)`` from
     ``rng``): the same tokens and the same draws from ``rng``, without its
     host-side check of ``p``, which reads the device and so cannot be
-    captured."""
+    captured. DTensor logits (a mesh) are picked greedily on each rank's
+    rows, the vocab gathered first."""
+    if isinstance(logits, DTensor):
+        if not (greedy or rng is None):
+            raise ValueError("a mesh's serve step picks greedily only")
+        return _argmax_mesh(logits)
     if greedy or rng is None:
         return torch.argmax(logits, dim=-1)
     p = torch.softmax(logits, dim=-1)
     q = torch.empty_like(p).exponential_(1, generator=rng)
     return torch.argmax(p / q, dim=-1)
+
+
+def _argmax_mesh(logits: DTensor) -> DTensor:
+    """``argmax(logits, -1)`` of DTensor logits [B, V]: the vocab gathered
+    over the dims that shard it, then each rank's rows on local tensors
+    (the first maximum, as solo); the tokens in the rows' placements."""
+    mesh = logits.device_mesh
+    last = logits.ndim - 1
+    place = tuple(pl if isinstance(pl, Shard) and pl.dim % logits.ndim
+                  != last else Replicate() for pl in logits.placements)
+    local = logits.redistribute(mesh, place).to_local()
+    return DTensor.from_local(torch.argmax(local, dim=-1), mesh, place,
+                              run_check=False)
+
+
+def init_cache_on(mesh, cfg: ModelConfig, batch: int, max_len: int, *,
+                  enc_len: int = 0, rules: Optional[part.Rules] = None,
+                  device="cuda"):
+    """A zeroed decode cache (:func:`repro_torch.models.model.init_cache`)
+    placed on ``mesh`` by ``dist.partitioning.cache_shardings`` (``rules``:
+    the head-sharded layout of ``--opt``): each rank allocates only its
+    own block of each leaf. On the meta device it holds shapes only.
+    Returns (cache, its ``NamedSharding`` tree)."""
+    abs_cache = M.init_cache(cfg, batch, max_len, enc_len=enc_len,
+                             device="meta")
+    sh = part.cache_shardings(mesh, abs_cache, batch, rules=rules)
+    return M.map_tree(lambda t, s: part.placed_zeros(s, t.shape, t.dtype,
+                                                     device),
+                      abs_cache, sh), sh
 
 
 def make_serve_step(cfg: ModelConfig, greedy: bool = True):
@@ -89,7 +134,8 @@ def _copy_into(dst, src):
 def _params_key(params) -> tuple:
     """What a graph bakes in of the params: every leaf's address, shape and
     type (rebinding a leaf needs a new graph)."""
-    return tuple((t.data_ptr(), t.shape, t.dtype)
+    return tuple(((t.to_local() if isinstance(t, DTensor) else t)
+                  .data_ptr(), t.shape, t.dtype)
                  for t in graphs.leaves(params))
 
 
@@ -116,7 +162,10 @@ def _step_body(params, cfg: ModelConfig, greedy: bool,
 def _pack(token, pos, active) -> torch.Tensor:
     """token [B, 1], pos [B] (or a scalar) and active [B] (None: all live)
     as one int64 [3, B]: stacked on the card for tensors there, on the host
-    for numpy arrays and host tensors (one copy to the card a step)."""
+    for numpy arrays and host tensors (one copy to the card a step). A
+    DTensor token (a mesh step's) is taken whole."""
+    if isinstance(token, DTensor):
+        token = token.full_tensor()
     B = token.shape[0]
     if isinstance(token, torch.Tensor) and token.device.type != "cpu":
         dev = token.device

@@ -25,7 +25,6 @@ from typing import Dict, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
-from torch.distributed.tensor.experimental import implicit_replication
 from torch.overrides import TorchFunctionMode
 
 from repro_torch import graphs
@@ -45,8 +44,24 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
     the vocab first: the loss takes whole rows."""
     logits = _whole_rows(logits.float())
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return torch.mean(lse - gold), torch.mean(lse * lse)
+    return torch.mean(lse - _gold(logits, labels)), torch.mean(lse * lse)
+
+
+def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The logit of each label, ``logits [..., V]`` at ``labels [...]``.
+    DTensor logits (whole rows) on each rank's rows: DTensor's gather
+    backward allocates the gradient at the global shape on every rank
+    (``new_zeros``), the whole batch's logits."""
+    if not isinstance(logits, DTensor):
+        return torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    mesh, place = logits.device_mesh, tuple(logits.placements)
+    lab = labels if isinstance(labels, DTensor) else DTensor.from_local(
+        labels, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+    if tuple(lab.placements) != place:
+        lab = lab.redistribute(mesh, place)
+    gold = torch.gather(logits.to_local(), -1,
+                        lab.to_local().long()[..., None])[..., 0]
+    return DTensor.from_local(gold, mesh, place, run_check=False)
 
 
 def _whole_rows(x: torch.Tensor) -> torch.Tensor:
@@ -77,13 +92,9 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     return loss, {"ce": ce, "moe_aux": aux}
 
 
-def sharded(params):
-    """The context a step on ``params`` runs in: ``implicit_replication``
-    when they are DTensors (a plain tensor built in the forward or its
-    recompute is taken as replicated), else nothing."""
-    if isinstance(params["embed"], DTensor):
-        return implicit_replication()
-    return contextlib.nullcontext()
+# the context a step on DTensor params runs in (``implicit_replication``,
+# not nested)
+sharded = M.sharded
 
 
 def loss_and_grads(params, batch, cfg: ModelConfig, **loss_kw):
@@ -155,13 +166,23 @@ def microbatch(x: torch.Tensor, i: int, n: int) -> torch.Tensor:
     (i + 1) * b / n)``. A batch DTensor gives the same rows as solo (a MoE's
     capacity depends on which tokens share a microbatch), placed as the
     batch is: the (small, integer) batch is gathered and each rank keeps
-    its share of the microbatch's rows."""
+    its share of the microbatch's rows. Where the microbatch's rows do not
+    divide over every dim that splits the batch (a multi-pod mesh's 32
+    data ranks, a 16-row microbatch), the dims past the longest prefix
+    that divides them hold its rows whole."""
     b = x.shape[0]
     if b % n:
         raise ValueError(f"batch {b} does not split into {n} microbatches")
     if isinstance(x, DTensor):
         rows = microbatch(x.full_tensor(), i, n)
-        mesh, place = x.device_mesh, tuple(x.placements)
+        mesh, place = x.device_mesh, list(x.placements)
+        k = 1
+        for d, pl in enumerate(place):
+            if isinstance(pl, Shard) and pl.dim == 0:
+                k *= mesh.size(d)
+                if rows.shape[0] % k:
+                    place[d] = Replicate()
+        place = tuple(place)
         return DTensor.from_local(
             rows[local_slices(mesh, place, rows.shape)].contiguous(), mesh,
             place, run_check=False)

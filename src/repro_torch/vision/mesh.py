@@ -48,6 +48,8 @@ from repro_torch.kernels.worklist_core import (WorkList, per_shard_steps,
 
 # how long a rank waits for the others at the world's start
 INIT_TIMEOUT_S = 300
+# the process-group backend of a fake world (no process and no traffic)
+FAKE_BACKEND = "fake"
 
 
 def _backend(device: torch.device) -> str:
@@ -87,13 +89,16 @@ def device_mesh(shape: Sequence[int], names: Sequence[str], *,
     process groups collectively); a rank past the mesh gets a mesh it is
     not part of (:func:`in_mesh` is false there). ``device`` names the
     backend: NCCL for CUDA (the default), gloo for the CPU; a world of the
-    other backend is refused."""
+    other backend is refused. A world of the ``fake`` backend
+    (``torch.testing._internal.distributed.fake_pg.FakeStore``: every rank
+    is this process, collectives move nothing) stands in for either, as
+    the dry run (``repro_torch.launch.dryrun``) uses it."""
     device = torch.device(device)
     shape = tuple(int(s) for s in shape)
     ranks = math.prod(shape)
     if dist.is_initialized():
         backend = str(dist.get_backend()).lower()
-        if backend != _backend(device):
+        if backend not in (_backend(device), FAKE_BACKEND):
             raise ValueError(f"a {device.type} mesh runs over "
                              f"{_backend(device)}, the world is {backend}")
     elif device.type == "cuda" and not torch.cuda.is_available():

@@ -387,8 +387,7 @@ def test_placements_refuses(spec, shape, why):
         part.placements(mesh, part.P(*spec), shape)
 
 
-@pytest.mark.parametrize("arch", ["qwen3_4b", "moonshot_v1_16b_a3b",
-                                  "yi_34b"])
+@pytest.mark.parametrize("arch", t_base.ARCHS)
 @pytest.mark.parametrize("mesh_shape", [((4, 2), ("data", "model")),
                                         ((16, 8, 2),
                                          ("data", "model1", "model2"))])

@@ -1783,6 +1783,74 @@ def test_one_rank_sharded_train_step_bitwise_solo_on_card(cuda, arch):
             dist.destroy_process_group()
 
 
+@pytest.mark.parametrize("arch", ["rwkv6_3b", "jamba_1_5_large_398b",
+                                  "seamless_m4t_medium", "paligemma_3b",
+                                  "qwen3_4b", "moonshot_v1_16b_a3b"])
+def test_one_rank_sharded_serve_steps_bitwise_solo_on_card(cuda, arch):
+    """``make_debug_mesh(1, 1)`` (a one-rank NCCL world), bf16: every
+    family's sharded ``make_prefill_fn`` logits (with the prefix or the
+    encoder input), the cache-writing prefill into a cache placed by
+    ``cache_shardings`` and 4 greedy ``make_serve_step`` steps bitwise
+    equal to solo, eager and captured (``GraphedServeStep``), every cache
+    leaf in its placements; no FFN kernel launched."""
+    import torch.distributed as dist
+    from repro_torch.dist import partitioning as part
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.serve.engine import (GraphedServeStep, init_cache_on,
+                                          make_prefill_fn, make_serve_step)
+    cfg, params, batch = _train_setup(cuda, arch, "bfloat16")
+    started = not dist.is_initialized()
+    mesh = make_debug_mesh(1, 1)
+    try:
+        sp = part.distribute_tree(params, part.param_shardings(
+            mesh, M.abstract_params(cfg)))
+        b2 = part.NamedSharding.of(mesh, part.batch_spec(mesh))
+        b3 = part.NamedSharding.of(mesh, part.P(("data",), None, None))
+        extras = {k: v for k, v in batch.items()
+                  if k in ("prefix_embeds", "src_embeds")}
+        mesh_extras = {k: part.distribute(v, b3) for k, v in extras.items()}
+        toks = batch["tokens"]
+        before = (BITMASK_SPMM.launches, FUSED_FFN.launches)
+        pf = make_prefill_fn(cfg)
+        with torch.no_grad():
+            assert _bitwise_trees(
+                _local(pf(sp, part.distribute(toks, b2), **mesh_extras)),
+                pf(params, toks, **extras))
+            B, S, n = toks.shape[0], 8, 4
+            enc = extras["src_embeds"].shape[1] if cfg.encoder_layers else 0
+            solo = M.init_cache(cfg, B, S + n, enc_len=enc, device=cuda)
+            cache, c_sh = init_cache_on(mesh, cfg, B, S + n, enc_len=enc,
+                                        device=cuda)
+            if cfg.encoder_layers:
+                solo = M.prefill_cache(params, cfg, solo, M.encode(
+                    params, extras["src_embeds"], cfg))
+                cache = M.prefill_cache(sp, cfg, cache, M.encode(
+                    sp, mesh_extras["src_embeds"], cfg))
+            ls, solo = pf(params, toks[:, :S].contiguous(), solo)
+            lm, cache = pf(sp, part.distribute(toks[:, :S].contiguous(), b2),
+                           cache)
+            assert _bitwise_trees(_local((lm, cache)), (ls, solo))
+            eager, graphed = make_serve_step(cfg), GraphedServeStep(cfg)
+            c_g = M.map_tree(torch.clone, cache)
+            ts = torch.argmax(ls, -1)[:, None]
+            te = tg = part.distribute(ts, b2)
+            for i in range(n):
+                pos = torch.full((B,), S + i, device=cuda)
+                ts, solo = eager(params, solo, ts, pos)
+                te, cache = eager(sp, cache, te, pos)
+                tg, c_g = graphed(sp, c_g, tg, pos)
+                torch.cuda.synchronize()
+                assert _bitwise_trees(_local((te, cache)), (ts, solo)), i
+                assert _bitwise_trees(_local((tg, c_g)), (ts, solo)), i
+        flat = M.flatten_tree(c_sh)
+        assert all(tuple(v.placements) == flat[k].placements
+                   for k, v in M.flatten_tree(c_g).items())
+        assert (BITMASK_SPMM.launches, FUSED_FFN.launches) == before
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
 def test_mesh_and_solo_checkpoints_restart_bitwise_on_card(cuda, tmp_path):
     """A checkpoint saved from the one-rank NCCL mesh restores solo
     bitwise, and a solo save of the same values (the same bytes) restores

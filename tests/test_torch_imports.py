@@ -58,6 +58,28 @@ def test_analysis_imports_no_jax_and_no_reference():
     assert out.stdout.strip() == "[]", out.stdout
 
 
+DRYRUN_PROBE = r"""
+import sys
+import torch.distributed as dist
+import repro_torch.launch.dryrun
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "repro."))
+             or m == "repro")
+print(bad, dist.is_initialized())
+"""
+
+
+def test_dryrun_imports_no_jax_and_no_reference():
+    """The dry run (``repro_torch.launch.dryrun``) imports neither JAX nor
+    ``repro``, and importing it starts no process group (the fake world
+    starts in ``main``)."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", DRYRUN_PROBE], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[] False", out.stdout
+
+
 def test_default_device_is_the_card():
     """Without a card the default device raises; nothing falls back."""
     if torch.cuda.is_available():
