@@ -239,10 +239,31 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    launches (``sharded_serve_steps_mesh``: 0 in each kernel's
    ``launches_by_path``).
 
-Phases 13-19 run between phases 10 and 11, phases 21 to 23 between 11
-and the VGG16 half of 12, phase 20 last; K3's and K4's
-``launches_by_path`` gain the paths of 13, 14, 17, 18 and 20, K1's those
-of 11 and 21.
+24. the other Table-1 nets at full size and depth (TABLE1_NETS: AlexNet
+   at 227 px and ResNet-18 at 224 px on the chunk pattern, ResNet-50 at
+   224 px on the unstructured one), each through the paper's experiment
+   ``examples/torch_sparse_cnn_sim.main``: built, ``oracle_check`` on one
+   image (K2 once a layer, K1 never; rel err <= 1e-5 against
+   ``dense_forward``, cuDNN, TF32 off; a non-zero output of the net's
+   shape), the layer table against Table 1 and its Figure-7 row at the
+   measured densities; then the compiled forward of 4 images (the eager
+   closure, the graph's first call and a replay, bitwise equal; K1 3 x
+   layers), ``VisionEngine`` on 8 staggered requests on 4 slots (outputs
+   bitwise the solo forward; K1 (steps + 1) x layers) and the replayed
+   forward against ``dense_forward`` (median of NET_WINDOWS windows).
+   VGG16's row comes from phase 4's stats. K1/K2 against their plain
+   versions (as phase 3) at AlexNet's 11x11 stride-4 stem and ResNet-50's
+   1x1 layer 43 (2048 -> 512 on 7x7 maps). ResNet-50 on the chunk
+   pattern (DEAD_NET: its one-tile layer 1 pruned away) through
+   ``oracle_check`` alone, its output all zero. Last, the other examples
+   in-process on the card: ``torch_quickstart`` (K4 then K3 once, within
+   1e-5), ``torch_serve_batched --smoke --sparse`` (batch-composition
+   check) and 4 pruned, checkpointed steps of ``torch_train_sparse_lm``.
+
+Phase 24 runs right after phase 4, phases 13-19 between phases 10 and
+11, phases 21 to 23 between 11 and the VGG16 half of 12, phase 20 last;
+K3's and K4's ``launches_by_path`` gain the paths of 13, 14, 17, 18, 20
+and 24, K1's and K2's those of 11, 21 and 24.
 
 The serving and training paths run compiled, as the reference's
 ``jax.jit`` does: the LM decode step under ``Scheduler`` and ``generate``
@@ -339,6 +360,19 @@ MESH_TIMED_STEPS = 6
 # RWKV6-3B and a Jamba Mamba block, FAMILY_STEPS decode steps each
 MESH_BATCH, FAMILY_STEPS, MAMBA_MESH_TOKENS = 4, 4, 64
 DRYRUN_CELL = ("qwen3_4b", "decode_32k")
+# phase 24, the other Table-1 nets at full size and depth: (bench, pattern,
+# px). ResNet-50's chunk pattern prunes its one-tile layer 1 (1x1, 64 -> 64)
+# away and every later map is zero, so its checks run on the unstructured
+# pattern and the chunk net runs through oracle_check alone
+NET_LABEL = {"VGGNet": "VGG16", "AlexNet": "AlexNet", "ResNet18": "ResNet-18",
+             "ResNet50": "ResNet-50"}
+TABLE1_NETS = (("AlexNet", "chunk", 227), ("ResNet18", "chunk", SIZE),
+               ("ResNet50", "unstructured", SIZE))
+DEAD_NET = ("ResNet50", "chunk", SIZE)
+NET_WINDOWS = 5
+# K1/K2 against their plain versions: AlexNet's 11x11 stride-4 stem and
+# ResNet-50's first 1x1 layer with 2048 input channels (7x7 maps)
+NET_KERNEL_LAYERS = {"AlexNet": (0,), "ResNet50": (43,)}
 
 
 class SmokeFailure(RuntimeError):
@@ -447,6 +481,7 @@ def kernel_phase(model, imgs, layer: int, card: str):
     per-kernel records."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.core.sparse import resolve_pads
     from repro_torch.kernels.grid import ROW_BLOCK, ring_stages
     from repro_torch.kernels.sparse_conv import (conv_grid_geometry,
                                                  sparse_conv_spmm,
@@ -475,17 +510,27 @@ def kernel_phase(model, imgs, layer: int, card: str):
     flops = 2.0 * sub_m * w.bk * w.bn * live_macs
     rows = B * m_img
     out_bytes = 4.0 * (rows * w.n_blocks * w.bn + rows // sub_m * w.n_blocks)
-    at = (f"VGG16 layer {layer} ({c.kh}x{c.kw}x{c.cin}->{c.cout}), {B} images"
-          f", {imgs.shape[1]} px, chunk pattern, bk={w.bk} bn={w.bn}")
+    at = (f"{NET_LABEL.get(model.name, model.name)} layer {layer} "
+          f"({c.kh}x{c.kw}x{c.cin}->{c.cout}"
+          f"{', stride %d' % lay.stride[0] if lay.stride[0] > 1 else ''}), "
+          f"{B} images, {imgs.shape[1]} px, {c.pattern} pattern, "
+          f"bk={w.bk} bn={w.bn}")
     tag = f"[{card}]"
 
-    # yardstick: one dense cuDNN conv of the same layer, TF32 off
+    # yardstick: one dense cuDNN conv of the same layer, TF32 off (the
+    # layer's stride and pads; an odd SAME pad split pre-pads x once)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     xn = x.permute(0, 3, 1, 2).contiguous()
     wd = torch.as_tensor(c.w_dense, device=x.device).permute(3, 2, 0, 1) \
         .contiguous()
-    lib_ms = graph_ms(lambda: F.conv2d(xn, wd, padding=c.kh // 2), reps=10)
+    (ph0, ph1), (pw0, pw1) = resolve_pads(tuple(xn.shape[2:]), c.kh, c.kw,
+                                          lay.stride, lay.padding)
+    if (ph0, pw0) != (ph1, pw1):
+        xn = F.pad(xn, (pw0, pw1, ph0, ph1))
+        ph0 = pw0 = 0
+    lib_ms = graph_ms(lambda: F.conv2d(xn, wd, stride=lay.stride,
+                                       padding=(ph0, pw0)), reps=10)
 
     # K1: the walker over the static (pack-time) schedule
     wl = build_worklist(idx, mb, mb_per_img=mpi)
@@ -629,8 +674,8 @@ def forward_trace(fn):
 
 
 def forwards_compared(fns, x0, card: str, windows: int = 7, calls: int = 5,
-                      traced=None):
-    """Phases 4 and 11: the VGG16 forwards ``fns`` ({name: fn(x)}) timed in
+                      traced=None, net: str = "VGG16"):
+    """Phases 4, 11 and 24: the ``net`` forwards ``fns`` ({name: fn(x)}) timed in
     turns, ``windows`` CUDA-event windows of ``calls`` calls each (median
     and range), and those named in ``traced`` split by one
     ``torch.profiler`` trace: the walker by layer, pooling, the other
@@ -661,7 +706,7 @@ def forwards_compared(fns, x0, card: str, windows: int = 7, calls: int = 5,
             f"beside)" if pools else ""
         if pools:
             rec["pool_gib"] = pools[0] / 2**30
-        print(f"VGG16 forward, {B} images at {x0.shape[1]} px, {name}: "
+        print(f"{net} forward, {B} images at {x0.shape[1]} px, {name}: "
               f"median {med:.4f} ms (range {min(w):.4f}-{max(w):.4f}; "
               f"{B / med * 1e3:.2f} img/s) of {windows} windows of {calls} "
               f"calls in turns; peak memory allocated during a call "
@@ -715,7 +760,8 @@ def forward_split(model, imgs, card: str):
 
 
 def drive(card: str):
-    """Phases 3 and 4 on the card; returns the kernels-line records."""
+    """Phases 3 and 4 on the card; returns the kernels-line records and the
+    chunk net's per-layer stats."""
     import torch
     from repro_torch.core import simulator as S
     from repro_torch.kernels.sparse_conv import CONV_GRID
@@ -768,6 +814,8 @@ def drive(card: str):
         tot = schedule_summary(stats)
         print("  schedule: " + ", ".join(f"{k} {v:.4g}"
                                          for k, v in tot.items()))
+        if pattern == "chunk":
+            chunk_stats = stats
     reqs = [ImageRequest(rid=i, image=imgs[i], arrival=i // 3)
             for i in range(8)]
     grid_launches = CONV_GRID.launches
@@ -829,7 +877,7 @@ def drive(card: str):
             "bound_by": first["bound_by"], "library_ms": first["library_ms"],
             "at": first["at"], "shapes": recs[key]})
     kernels[0]["vgg16_forward"] = split
-    return kernels
+    return kernels, chunk_stats
 
 
 def bf16_ulps(got, ref):
@@ -3985,6 +4033,230 @@ def serve_mesh_phase(dev, card):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 24: AlexNet, ResNet-18 and ResNet-50 at full size and depth, each
+# net's Figure-7 row at its measured densities, and the other examples
+def example(name: str):
+    """``examples/<name>.py`` as a module (the examples are scripts, not a
+    package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def net_oracle(name: str, pattern: str, size: int):
+    """One net built and run through ``oracle_check`` on one image by
+    ``examples/torch_sparse_cnn_sim.main`` (which prints the layer table
+    and the Figure-7 row): rel err <= TOL, the output finite and of the
+    net's shape, K2 launched once a layer and K1 never. Returns the
+    example's result, K2's launches and the output's non-zero share."""
+    import torch
+    from repro_torch.kernels.sparse_conv import CONV_GRID
+    from repro_torch.kernels.worklist_core import WALK
+    from repro_torch.vision import layer_geometry
+    label = NET_LABEL[name]
+    t0 = time.perf_counter()
+    WALK.launches = CONV_GRID.launches = 0
+    res = example("torch_sparse_cnn_sim").main(
+        ["--bench", name, "--image-size", str(size), "--pattern", pattern,
+         "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    model, out, rel = res["model"], res["output"], res["rel_err"]
+    grid, n = CONV_GRID.launches, model.num_layers
+    last = layer_geometry(model, size)[-1]
+    shape = (1, last["oh"], last["ow"], model.layers[-1].conv.cout)
+    require(tuple(out.shape) == shape and bool(torch.isfinite(out).all()),
+            f"{label}: output {tuple(out.shape)} is not finite of shape "
+            f"{shape}")
+    require(rel <= TOL, f"{label} {pattern}: rel err {rel:.3e} > {TOL}")
+    require(grid == n and WALK.launches == 0,
+            f"{label}: oracle_check launched the dense grid {grid} times "
+            f"(expected {n}) and the walker {WALK.launches} (expected 0)")
+    live = float((out != 0).float().mean())
+    print(f"{label} {size} px pattern={pattern}: oracle_check ({n} layers, "
+          f"{grid} dense-grid launches) rel err {rel:.3e} vs dense F.conv2d "
+          f"(TF32 off); output non-zero share {live:.4f}; build, check and "
+          f"row {dt:.2f} s")
+    return res, grid, live
+
+
+def net_phase(name: str, pattern: str, size: int, card: str):
+    """Phase 24 for one net: :func:`net_oracle`, then the compiled forward
+    of 4 images (the eager closure, the graph's first call and a replay,
+    bitwise equal, K1 launched exactly), ``VisionEngine`` on 8 staggered
+    requests (every output bitwise the solo forward, K1 exact), the
+    replayed forward timed against ``dense_forward``, and K1/K2 against
+    their plain versions at the layers of NET_KERNEL_LAYERS. Returns the
+    net's record and its kernel records."""
+    import torch
+    from repro_torch.core import simulator as S
+    from repro_torch.kernels.worklist_core import WALK
+    from repro_torch.launch.vision import blob_images
+    from repro_torch.vision import (ImageRequest, VisionEngine,
+                                    compile_forward, dense_forward,
+                                    graphed_forward)
+    label = NET_LABEL[name]
+    t0 = time.perf_counter()
+    res, grid, live = net_oracle(name, pattern, size)
+    require(live > 0, f"{label}: the output is all zero")
+    model = res["model"]
+    n, dev = model.num_layers, model.device
+    bench = S.BENCHMARKS[name]
+    imgs = blob_images(np.random.default_rng(SEED), 8, size,
+                       bench.map_density)
+    x4 = torch.as_tensor(imgs[:4], device=dev)
+
+    WALK.launches = 0
+    eager = compile_forward(model)(x4)
+    graph = graphed_forward(model)
+    first, replay = graph(x4), graph(x4)
+    torch.cuda.synchronize()
+    fwd = WALK.launches
+    require(torch.equal(first, eager) and torch.equal(replay, eager),
+            f"{label}: the graphed forward of 4 images != the eager one")
+    require(fwd == 3 * n, f"{label}: the compiled forwards launched the "
+                          f"walker {fwd} times, expected {3 * n}")
+
+    reqs = [ImageRequest(rid=i, image=imgs[i], arrival=i // 3)
+            for i in range(8)]
+    WALK.launches = 0
+    eng = VisionEngine(model, num_slots=4)
+    produced = eng.run(reqs)
+    torch.cuda.synchronize()
+    engine, st = WALK.launches, eng.stats
+    forwards = st.engine_steps + 1                     # + the warm-up
+    require(engine == forwards * n,
+            f"{label}: the engine launched the walker {engine} times, "
+            f"expected {forwards * n}")
+    solo = compile_forward(model)
+    for r in reqs:
+        one = solo(torch.as_tensor(r.image[None], device=dev))[0]
+        require(np.array_equal(produced[r.rid], one.cpu().numpy()),
+                f"{label} request {r.rid}: engine output != solo forward")
+    print(f"{label}: compiled forward of 4 images (eager, graph, replay) "
+          f"bitwise equal, {fwd} walker launches; engine {st.images} images "
+          f"on 4 slots in {st.engine_steps} steps, {engine} walker launches "
+          f"({n} a forward), outputs bitwise equal to solo, "
+          f"{st.img_per_s:.2f} img/s [{card}]")
+    times = forwards_compared(
+        {"graph": graph, "dense_forward (cuDNN, TF32 off)":
+         lambda x: dense_forward(model, x)}, x4, card, windows=NET_WINDOWS,
+        net=label)
+    kern = [kernel_phase(model, imgs[:4], layer, card)
+            for layer in NET_KERNEL_LAYERS.get(name, ())]
+    rec = {"pattern": pattern, "image_size": size, "layers": n,
+           "rel_err": res["rel_err"], "output_nonzero": live,
+           "filter_density": res["filter_density"],
+           "map_density": res["map_density"],
+           "paper_filter_density": bench.filter_density,
+           "paper_map_density": bench.map_density, "fig7": res["row"],
+           "launches": {"oracle_check_grid": grid, "forward_walker": fwd,
+                        "engine_walker": engine},
+           "forward": times, "seconds": time.perf_counter() - t0}
+    return rec, kern
+
+
+def examples_phase(card: str):
+    """The other three examples in-process at their smoke sizes on the
+    card (their default device): the quickstart's sparse FFN (K4 then K3,
+    once each) within TOL of its oracle, the batched server's
+    batch-composition check on a sparse smoke model, and four pruned,
+    checkpointed training steps. Returns K3/K4 launches by example."""
+    import tempfile
+    import torch
+    from repro_torch.kernels.bitmask_spmm import BITMASK_SPMM
+    from repro_torch.kernels.fused_ffn import FUSED_FFN
+
+    def counts():
+        torch.cuda.synchronize()
+        return {"k3": BITMASK_SPMM.launches, "k4": FUSED_FFN.launches}
+    launches = {}
+    BITMASK_SPMM.launches = FUSED_FFN.launches = 0
+    q = example("torch_quickstart").main([])
+    launches["example_quickstart"] = counts()
+    require(q["rel_err"] <= TOL, f"quickstart: sparse FFN rel err "
+                                 f"{q['rel_err']:.3e} > {TOL}")
+    require(launches["example_quickstart"] == {"k3": 1, "k4": 1},
+            f"quickstart launched {launches['example_quickstart']}, "
+            f"expected K3 and K4 once each")
+    BITMASK_SPMM.launches = FUSED_FFN.launches = 0
+    s = example("torch_serve_batched").main(["--smoke", "--sparse"])
+    launches["example_serve_batched"] = c = counts()
+    require(c["k3"] > 0 and c["k4"] > 0 and s["tokens"] > 0,
+            f"serve_batched: K3/K4 launches {c}, {s['tokens']} tokens")
+    ck = tempfile.mkdtemp(prefix="example_ckpt_", dir=ROOT / "build")
+    t = example("torch_train_sparse_lm").main(
+        ["--steps", "4", "--d-model", "64", "--layers", "2", "--seq", "16",
+         "--batch", "2", "--ckpt", ck, "--ckpt-every", "2"])
+    require(t["steps"] == 4 and t["masked"] > 0 and
+            all(np.isfinite(t["losses"])) and
+            sorted(p.name for p in Path(ck).iterdir())[-1:] ==
+            ["step_00000004"],
+            f"train_sparse_lm: {t['steps']} steps, {t['masked']} masked "
+            f"tensors, losses {t['losses']}")
+    print(f"examples: quickstart rel err {q['rel_err']:.3e} (K3, K4 once); "
+          f"serve_batched --smoke --sparse {s['tokens']} tokens, "
+          f"batch-composition invariant, K3/K4 {c}; train_sparse_lm 4 "
+          f"steps, losses {[round(x, 4) for x in t['losses']]}, "
+          f"{t['masked']} masked tensors still pruned, checkpoints at 2 "
+          f"and 4 [{card}]")
+    return launches
+
+
+def table1_phase(card: str, vgg_stats):
+    """Phase 24: VGG16's Figure-7 row from phase 4's stats (no rebuild),
+    :func:`net_phase` for each of TABLE1_NETS, DEAD_NET through
+    :func:`net_oracle` alone, then :func:`examples_phase`. Returns the
+    nets' records, the K1/K2 records, the K1/K2 launches by path and
+    the K3/K4 launches by example."""
+    import torch
+    from repro_torch.vision import measured_densities
+    t_phase = time.perf_counter()
+    sim = example("torch_sparse_cnn_sim")
+    fd, md = measured_densities(vgg_stats)
+    row = sim.figure7_row("VGGNet", len(vgg_stats), fd, md)
+    print(f"VGG16 (phase 4, chunk) measured network densities: filters "
+          f"{fd:.3f}, maps {md:.3f}")
+    for line in sim.row_lines("VGGNet (phase 4's stats)", row):
+        print(line)
+    nets = {"VGG16": {"pattern": "chunk", "image_size": SIZE,
+                      "layers": len(vgg_stats), "filter_density": fd,
+                      "map_density": md, "fig7": row}}
+    recs = {"walker": [], "grid": []}
+    by_path = {"walker": {}, "grid": {}}
+    for name, pattern, size in TABLE1_NETS:
+        rec, kern = net_phase(name, pattern, size, card)
+        nets[NET_LABEL[name]] = rec
+        key = name.lower()
+        by_path["grid"][f"{key}_oracle_check"] = \
+            rec["launches"]["oracle_check_grid"]
+        by_path["walker"][f"{key}_forward"] = \
+            rec["launches"]["forward_walker"]
+        by_path["walker"][f"{key}_engine"] = rec["launches"]["engine_walker"]
+        for r1, r2 in kern:
+            recs["walker"].append(r1)
+            recs["grid"].append(r2)
+        torch.cuda.empty_cache()
+    name, pattern, size = DEAD_NET
+    res, grid, live = net_oracle(name, pattern, size)
+    require(live == 0.0, f"{NET_LABEL[name]} {pattern}: expected the pruned "
+                         f"layer 1 to zero every later map")
+    nets[f"{NET_LABEL[name]} {pattern}"] = {
+        "pattern": pattern, "rel_err": res["rel_err"], "output_nonzero": live,
+        "filter_density": res["filter_density"],
+        "map_density": res["map_density"]}
+    by_path["grid"][f"{name.lower()}_{pattern}_oracle_check"] = grid
+    del res
+    torch.cuda.empty_cache()
+    k34 = examples_phase(card)
+    print(f"  phase 24 {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return nets, recs, by_path, k34
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4016,7 +4288,9 @@ def main() -> int:
                                        "spill", "smem")):
                 print(f"  ptxas {k.source.name}: {line.strip()}")
 
-    kernels = drive(card)                          # phases 3 and 4
+    kernels, vgg_stats = drive(card)               # phases 3 and 4
+    torch.cuda.empty_cache()
+    nets, t1_recs, t1_paths, t1_k34 = table1_phase(card, vgg_stats)  # 24
     torch.cuda.empty_cache()
     dev = torch.device("cuda")
     cfg, params = build_lm(dev)
@@ -4072,7 +4346,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     walker = kernels[0]
-    walker["shapes"] += k1_recs + k1_rwkv_recs + slab_recs
+    walker["shapes"] += k1_recs + k1_rwkv_recs + slab_recs + \
+        t1_recs["walker"]
     # per mode, the shape its path runs most: VGG16 layer 1 for the tile
     # mode, Qwen3-4B decode (4 rows) in bf16 for the grid modes
     modes = {}
@@ -4086,16 +4361,22 @@ def main() -> int:
         "vgg16_engine": walker["launches"],
         "qwen3_4b_ffn_compact": k1_qwen,
         "rwkv6_3b_channel_mix_compact": k1_rwkv, **slab_launches,
-        **mesh_launches, "sharded_serve_steps_mesh": 0}
+        **mesh_launches, "sharded_serve_steps_mesh": 0,
+        **t1_paths["walker"]}
     # phase 23 (the dense sharded serve steps) launches none of the four
-    kernels[1].setdefault("launches_by_path", {
-        "vgg16_oracle_check": kernels[1]["launches"]})[
-        "sharded_serve_steps_mesh"] = 0
+    grid = kernels[1]
+    grid["launches_by_path"] = {
+        "vgg16_oracle_check": grid["launches"],
+        "sharded_serve_steps_mesh": 0, **t1_paths["grid"]}
+    grid["shapes"] += t1_recs["grid"]
     launches["sharded_serve_steps_mesh"] = {"k3": 0, "k4": 0}
+    launches.update(t1_k34)
     walker["vgg16_mesh"] = mesh_rec
-    walker["launches"] = sum(walker["launches_by_path"].values())
-    for key in ("max_abs_err", "max_rel_err"):
-        walker[key] = max(r[key] for r in walker["shapes"])
+    walker["table1_nets"] = nets
+    for k in (walker, grid):
+        k["launches"] = sum(k["launches_by_path"].values())
+        for key in ("max_abs_err", "max_rel_err"):
+            k[key] = max(r[key] for r in k["shapes"])
     meta = {
         "k3": ("bitmask_spmm", "src/repro_torch/csrc/bitmask_spmm.cu",
                "src/repro/kernels/bitmask_spmm.py:118"),

@@ -1,4 +1,5 @@
-"""Conv geometry helpers and magnitude pruning (port of ``repro.core.sparse``).
+"""Conv geometry helpers, magnitude pruning and the activation tile
+density (port of ``repro.core.sparse``).
 
 ``padtype_to_pads`` is a self-contained copy of the rule JAX's
 ``lax.padtype_to_pads`` applies for ``"SAME"``: the output keeps
@@ -7,9 +8,13 @@
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.bitmask import chunk_occupancy
 
 Stride = Union[int, Tuple[int, int]]
 Padding = Union[str, Sequence[Tuple[int, int]]]
@@ -54,6 +59,28 @@ def resolve_pads(hw: Tuple[int, int], kh: int, kw: int, stride: Stride,
     if isinstance(pad, str):
         return padtype_to_pads(hw, (kh, kw), normalize_stride(stride), pad)
     return pad
+
+
+def activation_tile_density(x: torch.Tensor, block: int = 128,
+                            valid_rows: Optional[int] = None,
+                            valid_cols: Optional[int] = None
+                            ) -> torch.Tensor:
+    """Fraction of non-zero (row-block x k-chunk) activation tiles of ``x``
+    (flattened to [-1, last dim]), a 0-d float32 tensor on ``x``'s device.
+
+    The mean runs over the tiles that hold real data only: a caller
+    measuring an operand already padded to the block grid passes its real
+    extent as ``valid_rows`` / ``valid_cols``, and the all-zero padding
+    tiles past it are not counted.
+    """
+    x2 = x.reshape(-1, x.shape[-1])
+    m, k = x2.shape
+    vr = m if valid_rows is None else min(valid_rows, m)
+    vc = k if valid_cols is None else min(valid_cols, k)
+    pm, pk = (-m) % block, (-k) % block
+    occ = chunk_occupancy(F.pad(x2, (0, pk, 0, pm)), block, block)
+    rt, ct = -(-vr // block), -(-vc // block)  # tiles overlapping real data
+    return occ[:rt, :ct].float().mean()
 
 
 def prune_by_magnitude(w: np.ndarray, density: float,

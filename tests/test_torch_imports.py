@@ -224,3 +224,52 @@ def test_lm_mesh_modules_import_alone_no_jax(first):
     assert lines[0] == "[]", out.stdout
     if not torch.cuda.is_available():
         assert lines[1:] == ["refused"], out.stdout
+
+
+EXAMPLES = SRC.parent / "examples"
+EXAMPLE_NAMES = ("torch_sparse_cnn_sim", "torch_quickstart",
+                 "torch_serve_batched", "torch_train_sparse_lm")
+
+
+def test_numpy_models_and_examples_import_no_jax_and_no_reference():
+    """The paper's numpy models (``core.simulator``, ``core.asic_model``,
+    ``core.telescope``) and each ``examples/torch_*.py``, imported in a
+    fresh process, load neither JAX nor ``repro``; importing an example
+    runs nothing (its ``main`` is only called)."""
+    probe = ("import importlib, importlib.util, sys\n"
+             "for m in ('repro_torch.core.asic_model', "
+             "'repro_torch.core.simulator', 'repro_torch.core.telescope'):\n"
+             "    importlib.import_module(m)\n"
+             f"for name in {EXAMPLE_NAMES!r}:\n"
+             f"    spec = importlib.util.spec_from_file_location(name, "
+             f"{str(EXAMPLES)!r} + '/' + name + '.py')\n"
+             "    mod = importlib.util.module_from_spec(spec)\n"
+             "    spec.loader.exec_module(mod)\n"
+             "    assert callable(mod.main)\n"
+             "print(sorted(m for m in sys.modules if m == 'jax' or "
+             "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro'))")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+@pytest.mark.parametrize("name", EXAMPLE_NAMES)
+def test_examples_default_to_the_card(name):
+    """Without a card each example's default device raises; nothing falls
+    back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device works")
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name,
+                                                  EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    argv = {"torch_serve_batched": ["--smoke"],
+            "torch_train_sparse_lm": ["--steps", "1", "--d-model", "64",
+                                      "--layers", "1", "--ckpt", ""],
+            "torch_sparse_cnn_sim": ["--layers", "1", "--image-size", "8"],
+            "torch_quickstart": []}[name]
+    with pytest.raises((AssertionError, RuntimeError)):
+        mod.main(argv)
