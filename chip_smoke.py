@@ -638,7 +638,9 @@ def kernel_phase(model, imgs, layer: int, card: str):
 def trace_kernels(fn):
     """[(name, device ms)] of the card's activity during one call of
     ``fn``, traced by ``torch.profiler`` (CUPTI; the second of two traces,
-    the first pays the profiler's set-up)."""
+    the first pays the profiler's set-up). The program's spans
+    (:mod:`repro_torch.obs`) reach the card's row as user annotations
+    and are left out: they are ranges of the host, not work of the card."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
@@ -648,7 +650,8 @@ def trace_kernels(fn):
             torch.cuda.synchronize()
     return [(e.name, e.time_range.elapsed_us() / 1e3) for e in
             prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
 
 
 def by_name(kernels):

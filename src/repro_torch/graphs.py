@@ -42,6 +42,9 @@ copying new inputs into its static input buffers.
   draws from the generator's current Philox offset and advances it by
   what one eager call would, and a replayed run draws the eager run's
   numbers.
+* **Spans.** Under a recording profiler a replay's input copies, the
+  replay and a capture are ``graph.copy_in``, ``graph.replay`` and
+  ``graph.capture`` spans (:mod:`repro_torch.obs`).
 * **The CPU.** There is nothing to capture on the CPU: the body is called
   directly on the inputs given, as the kernels' plain versions are.
 
@@ -59,6 +62,7 @@ import torch
 
 from repro_torch.kernels import _cuda
 from repro_torch.models.model import map_tree
+from repro_torch.obs import span
 
 
 class GraphCaptureError(RuntimeError):
@@ -134,21 +138,25 @@ class CapturedGraph:
                 map_tree(self._adopt if i in self.adopt else self._buffer, x)
                 for i, x in enumerate(inputs))
             out = self.body(*self.static)          # the eager warm-up
-            self._capture()
+            with span("graph.capture"):
+                self._capture()
             return out
         static, given = leaves(self.static), leaves(inputs)
         if len(static) != len(given):
             raise ValueError(f"{self.name}: {len(given)} input tensors, the "
                              f"graph was captured with {len(static)}")
-        for s, x in zip(static, given):
-            if x is s:
-                continue
-            if x.shape != s.shape or x.dtype != s.dtype:
-                raise ValueError(
-                    f"{self.name}: an input of {tuple(x.shape)} {x.dtype} "
-                    f"where the graph has {tuple(s.shape)} {s.dtype}")
-            s.copy_(x)
-        self.graph.replay()
+        with span("graph.copy_in"):
+            for s, x in zip(static, given):
+                if x is s:
+                    continue
+                if x.shape != s.shape or x.dtype != s.dtype:
+                    raise ValueError(
+                        f"{self.name}: an input of {tuple(x.shape)} "
+                        f"{x.dtype} where the graph has {tuple(s.shape)} "
+                        f"{s.dtype}")
+                s.copy_(x)
+        with span("graph.replay"):
+            self.graph.replay()
         self.replays += 1
         for kernel, n in self.tally.items():
             kernel.launches += n

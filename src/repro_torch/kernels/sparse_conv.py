@@ -53,6 +53,7 @@ from repro_torch.kernels.worklist_core import (DEFAULT_BM, LANE, WorkList,
                                                schedule_counters,
                                                worklist_spmm,
                                                worklist_spmm_plain)
+from repro_torch.obs import span
 
 CONV_GRID = CudaKernel("conv_grid.cu", "conv_grid_spmm", [
     P, P, P, P, P, P, P,                 # x vals indices occ out occ cnt
@@ -314,15 +315,18 @@ def worklist_spmm_slabs(x: torch.Tensor, vals: torch.Tensor, wl: WorkList,
 def _static_worklist(w: bm.BlockSparseMatrix, mb: int, mb_per_img: int,
                      wl_cache: Optional[dict]):
     """The pack-time (weight-only) schedule for ``mb`` row blocks, cached
-    in ``wl_cache`` per row-block count."""
+    in ``wl_cache`` per row-block count; a build is a
+    ``conv.worklist_build`` span."""
     wl = wl_cache.get(mb) if wl_cache is not None else None
     if wl is None:
         if w.vals.is_cuda and torch.cuda.is_current_stream_capturing():
             raise ValueError("a layer's static work list is built on the "
                              "host: run one eager call before CUDA-graph "
                              "capture, so that capture finds it cached")
-        wl = build_worklist(  # lint: ignore[EAGER-GUARD] no jax Tracer here
-            w.host_indices(), mb, mb_per_img=mb_per_img, shard_of=w.shard_of)
+        with span("conv.worklist_build"):
+            wl = build_worklist(  # lint: ignore[EAGER-GUARD] no jax Tracer here
+                w.host_indices(), mb, mb_per_img=mb_per_img,
+                shard_of=w.shard_of)
         if wl_cache is not None:
             wl_cache[mb] = wl
     return wl

@@ -46,6 +46,7 @@ import torch
 from repro_torch.core.balance import round_robin_permutation
 from repro_torch.core.telescope import combine_schedule_requests
 from repro_torch.kernels.worklist_core import schedule_counters
+from repro_torch.obs import span
 from repro_torch.vision import model as VM
 from repro_torch.vision.engine import ImageRequest
 from repro_torch.vision.mesh import agree, split_slots
@@ -339,9 +340,13 @@ class VisionServer:
 
     def step(self) -> bool:
         """One event: admit the selected bucket batch and run it, or idle
-        to the next arrival. Returns False when drained."""
+        to the next arrival. Returns False when drained. Under a recording
+        profiler its phases are the spans ``server.select``,
+        ``server.assemble``, ``server.copy_out`` and ``server.retire``
+        (:mod:`repro_torch.obs`)."""
         now = self.clock.now()
-        sel = self._select_batch(now)
+        with span("server.select"):
+            sel = self._select_batch(now)
         if self.mesh is not None and self.mesh.size() > 1:
             # one decision for the mesh: its first rank's (the requests
             # and the queue are the same on every rank, the clocks not)
@@ -359,45 +364,49 @@ class VisionServer:
             return True
         bucket, batch_reqs = sel
         self._warm_bucket(bucket)
-        batch = np.zeros((self.num_slots, bucket, bucket, self._channels),
-                         np.float32)
-        # §3.3.2 round-robin lanes (spread across lanes, don't pin lane 0)
-        lanes = round_robin_permutation(self.num_slots,
-                                        self._rr_lane)[:len(batch_reqs)]
-        self._rr_lane += len(batch_reqs)
-        for lane, p in zip(lanes, batch_reqs):
-            batch[lane] = p.image
+        with span("server.assemble"):
+            batch = np.zeros((self.num_slots, bucket, bucket,
+                              self._channels), np.float32)
+            # §3.3.2 round-robin lanes (spread across lanes, don't pin
+            # lane 0)
+            lanes = round_robin_permutation(self.num_slots,
+                                            self._rr_lane)[:len(batch_reqs)]
+            self._rr_lane += len(batch_reqs)
+            for lane, p in zip(lanes, batch_reqs):
+                batch[lane] = p.image
         t0 = time.monotonic()
         x = torch.from_numpy(batch)      # the graph copies it in itself
         out = self._fwd(x if self.compiled else x.to(self.device))
-        out = out.cpu().numpy()
+        with span("server.copy_out"):
+            out = out.cpu().numpy()
         measured = time.monotonic() - t0
-        if self._fixed_cost is not None and getattr(
-                self.clock, "virtual", False):
-            self.clock.advance(self._fixed_cost[bucket])
-        else:
-            self._est[bucket] = ((1 - self._ewma)
-                                 * self._est.get(bucket, measured)
-                                 + self._ewma * measured)
-        done = self.clock.now()
-        admitted = {p.rid for p in batch_reqs}
-        self.queue = [p for p in self.queue if p.rid not in admitted]
-        self.stats.engine_steps += 1
-        self.stats.active_lane_steps += len(batch_reqs)
-        self.stats.idle_lane_steps += self.num_slots - len(batch_reqs)
-        self.stats.bucket_steps[bucket] = \
-            self.stats.bucket_steps.get(bucket, 0) + 1
-        for lane, p in zip(lanes, batch_reqs):
-            rec = RequestRecord(p.rid, bucket, p.arrival_s, p.deadline_s,
-                                done)
-            self.records[p.rid] = rec
-            self.produced[p.rid] = out[lane]
-            self.stats.images += 1
-            self.stats.latencies_s.append(rec.latency_s)
-            if p.deadline_s is not None:
-                self.stats.deadlined += 1
-                if rec.missed:
-                    self.stats.sla_misses += 1
+        with span("server.retire"):
+            if self._fixed_cost is not None and getattr(
+                    self.clock, "virtual", False):
+                self.clock.advance(self._fixed_cost[bucket])
+            else:
+                self._est[bucket] = ((1 - self._ewma)
+                                     * self._est.get(bucket, measured)
+                                     + self._ewma * measured)
+            done = self.clock.now()
+            admitted = {p.rid for p in batch_reqs}
+            self.queue = [p for p in self.queue if p.rid not in admitted]
+            self.stats.engine_steps += 1
+            self.stats.active_lane_steps += len(batch_reqs)
+            self.stats.idle_lane_steps += self.num_slots - len(batch_reqs)
+            self.stats.bucket_steps[bucket] = \
+                self.stats.bucket_steps.get(bucket, 0) + 1
+            for lane, p in zip(lanes, batch_reqs):
+                rec = RequestRecord(p.rid, bucket, p.arrival_s, p.deadline_s,
+                                    done)
+                self.records[p.rid] = rec
+                self.produced[p.rid] = out[lane]
+                self.stats.images += 1
+                self.stats.latencies_s.append(rec.latency_s)
+                if p.deadline_s is not None:
+                    self.stats.deadlined += 1
+                    if rec.missed:
+                        self.stats.sla_misses += 1
         return True
 
     def run(self, requests: Optional[List[ImageRequest]] = None

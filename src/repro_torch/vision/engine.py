@@ -20,6 +20,7 @@ import torch
 from repro_torch.core.balance import round_robin_permutation
 from repro_torch.core.telescope import combine_schedule_requests
 from repro_torch.kernels.worklist_core import schedule_counters
+from repro_torch.obs import span
 from repro_torch.vision import model as VM
 from repro_torch.vision.mesh import data_counters, split_slots
 
@@ -202,33 +203,44 @@ class VisionEngine:
     # -- engine ------------------------------------------------------------
     def step(self) -> bool:
         """One engine tick: admissions, then one whole-network forward over
-        the slot batch; all live slots retire. Returns False when idle."""
-        self._admit_ready()
-        active = self.slot_req >= 0
-        if not active.any():
-            if self.queue:               # waiting on future arrivals
+        the slot batch; all live slots retire. Returns False when idle.
+        Under a recording profiler the tick is an ``engine.step`` span
+        holding ``engine.admit``, ``engine.assemble``, ``engine.forward``,
+        ``engine.copy_out`` (the wait for the forward and the copy back)
+        and ``engine.retire`` (:mod:`repro_torch.obs`)."""
+        with span("engine.step"):
+            with span("engine.admit"):
+                self._admit_ready()
+            active = self.slot_req >= 0
+            if not active.any():
+                if self.queue:               # waiting on future arrivals
+                    self.clock += 1
+                    return True
+                return False
+            with span("engine.assemble"):
+                batch = np.zeros((self.num_slots,) + self._image_shape,
+                                 np.float32)
+                for s in np.nonzero(active)[0]:
+                    batch[s] = self._slot_img[s]
+                x = torch.from_numpy(batch)  # the graph copies it in itself
+            self._warmup(batch.shape)
+            with span("engine.forward"):
+                out = self._fwd(x if self.compiled else x.to(self.device))
+            with span("engine.copy_out"):
+                out = out.cpu().numpy()
+            with span("engine.retire"):
+                self.stats.engine_steps += 1
+                self.stats.active_lane_steps += int(active.sum())
+                self.stats.idle_lane_steps += int((~active).sum())
+                for s in np.nonzero(active)[0]:
+                    rid = int(self.slot_req[s])
+                    self.produced[rid] = out[s]
+                    self.done_at[rid] = self.clock
+                    self.stats.images += 1
+                    self.slot_req[s] = -1
+                    self._slot_img[s] = None
                 self.clock += 1
-                return True
-            return False
-        batch = np.zeros((self.num_slots,) + self._image_shape, np.float32)
-        for s in np.nonzero(active)[0]:
-            batch[s] = self._slot_img[s]
-        self._warmup(batch.shape)
-        x = torch.from_numpy(batch)      # the graph copies it in itself
-        out = self._fwd(x if self.compiled else x.to(self.device))
-        out = out.cpu().numpy()
-        self.stats.engine_steps += 1
-        self.stats.active_lane_steps += int(active.sum())
-        self.stats.idle_lane_steps += int((~active).sum())
-        for s in np.nonzero(active)[0]:
-            rid = int(self.slot_req[s])
-            self.produced[rid] = out[s]
-            self.done_at[rid] = self.clock
-            self.stats.images += 1
-            self.slot_req[s] = -1
-            self._slot_img[s] = None
-        self.clock += 1
-        return True
+            return True
 
     def _warmup(self, batch_shape) -> None:
         """Run the forward once per batch shape — building its work lists,
@@ -237,11 +249,12 @@ class VisionEngine:
         ``stats.compile_s``."""
         if batch_shape in self._warm_shapes:
             return
-        t0 = time.perf_counter()
-        self._fwd(torch.zeros(batch_shape, device=self.device))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.stats.compile_s += time.perf_counter() - t0
+        with span("engine.warmup"):
+            t0 = time.perf_counter()
+            self._fwd(torch.zeros(batch_shape, device=self.device))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.stats.compile_s += time.perf_counter() - t0
         self._warm_shapes.add(batch_shape)
 
     def run(self, requests: Optional[List[ImageRequest]] = None

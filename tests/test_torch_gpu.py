@@ -1212,6 +1212,93 @@ def test_graphed_vgg_head_forward_bitwise_on_card(cuda):
     assert all(np.array_equal(got[i], want[i]) for i in range(4))
 
 
+def test_graph_spans_on_card(cuda, monkeypatch):
+    """The captured forward's first call opens one ``graph.capture`` span
+    and each replay a ``graph.copy_in`` and a ``graph.replay``; an engine
+    step its phases. The capture runs with no profiler, its span counted
+    through a stand-in that records each name: on the card a capture under
+    a recording ``torch.profiler`` can be invalidated after earlier card
+    work, spans or none. On the card's timeline a span is only a user
+    annotation (which the benchmark's trace drops), never a kernel or a
+    copy; the outputs are the unprofiled ones."""
+    import repro_torch.graphs as G
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.vision import blob_images
+    from repro_torch.vision import graphed_forward
+    model = build_vision_model("VGGNet", pattern="chunk", num_layers=2,
+                               seed=0, device=cuda)
+    imgs = blob_images(np.random.default_rng(1), 4, 32, 0.45)
+    x = torch.as_tensor(imgs[:2])
+    eager = compile_forward(model)(x.to(cuda))
+    fwd = graphed_forward(model)
+    opened, span = [], G.span
+
+    def recording(name):
+        opened.append(name)
+        return span(name)
+    monkeypatch.setattr(G, "span", recording)
+    first = fwd(x)
+    assert opened == ["graph.capture"]
+    monkeypatch.setattr(G, "span", span)
+
+    def spans(prof):
+        return [e.name() for e in prof.profiler.kineto_results.events()
+                if e.device_type() != torch.autograd.DeviceType.CUDA
+                and e.name().startswith(("graph.", "engine."))]
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        outs = [fwd(x) for _ in range(3)]
+        eng = VisionEngine(model, num_slots=2)
+        got = eng.run([ImageRequest(i, imgs[i]) for i in range(4)])
+        torch.cuda.synchronize()
+    names = spans(prof)
+    assert "graph.capture" not in names
+    # three replays, then the engine's warm-up and its two steps
+    assert names.count("graph.copy_in") == names.count("graph.replay") == 6
+    assert names.count("engine.copy_out") == 2
+    device = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA]
+    assert any(e.name().startswith("Memcpy HtoD") for e in device)
+    assert not [e.name() for e in device if not e.is_user_annotation()
+                and e.name().startswith(("graph.", "engine.", "conv."))]
+    assert all(torch.equal(o, eager) for o in [first] + outs)
+    for i in range(4):
+        one = compile_forward(model)(torch.as_tensor(imgs[i:i + 1],
+                                                     device=cuda))
+        np.testing.assert_array_equal(got[i], one[0].cpu().numpy())
+
+
+def test_chip_smoke_kernel_trace_leaves_out_program_spans(cuda):
+    """``chip_smoke.trace_kernels`` of a graphed forward and of engine
+    steps lists the card's kernels and copies and no program span: the
+    ``graph.*`` and ``engine.*`` user annotations on the card's row would
+    count a replay's whole range as busy time."""
+    import importlib.util
+    from pathlib import Path
+    from repro_torch.launch.vision import blob_images
+    from repro_torch.vision import graphed_forward
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    model = build_vision_model("VGGNet", pattern="chunk", num_layers=2,
+                               seed=0, device=cuda)
+    imgs = blob_images(np.random.default_rng(2), 4, 32, 0.45)
+    x = torch.as_tensor(imgs[:2])
+    fwd = graphed_forward(model)
+    fwd(x)                                 # the capture
+    eng = VisionEngine(model, num_slots=2)
+    for i in range(4):
+        eng.submit(ImageRequest(i, imgs[i]))
+    spans = ("graph.", "engine.", "conv.", "server.")
+    for fn in (lambda: fwd(x), eng.step):  # a replay; then two steps
+        names = [n for n, _ in smoke.trace_kernels(fn)]
+        assert any("tile_kernel" in n for n in names)
+        assert any(n.startswith("Memcpy HtoD") for n in names)
+        assert not [n for n in names if n.startswith(spans)]
+
+
 def test_capture_refuses_host_schedules_and_host_reads(cuda):
     """A body that builds a host schedule under capture (the compact FFN
     schedule with activation occupancy) or reads a tensor to the host
