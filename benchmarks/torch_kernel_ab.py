@@ -15,7 +15,8 @@ the main paths' shapes:
 * K1, the walker: its tile mode at VGG16 layers 1, 8 and 10 (4 images at
   224 px, chunk pattern, fp32; 1568, 112 and 32 pairs) on the patch matrix
   and, in a tree that has it, on the tap-slab operand (the NHWC map, lazy
-  im2col; a tree without it has no such rows); its 8-row mode
+  im2col; a tree without it has no such rows), and both again at 32
+  images (rows ending ``B32``: the benchmark's batch); its 8-row mode
   (the compact FFN schedule, bf16) on Qwen3-4B layer 0, two streams
   (in/gate, swiglu) and one stream (the out projection) at 2 and 4 decode
   rows and a 128-row prefill, and on RWKV6-3B layer 0's channel-mix (in,
@@ -45,6 +46,9 @@ import numpy as np
 
 REPS = 50
 SEED = 0
+# the images of the VGG16 rows: the 4 of the K2 rows, and the benchmark's
+# batch of 32 (K1 alone)
+VGG_BATCHES = (4, 32)
 DENSITY, SHARDS = 0.35, 4
 CHUNK, SUB_M = 128, 8
 
@@ -81,7 +85,8 @@ def cuda_ms(fn, reps: int = REPS, replays: int = 4) -> float:
 
 
 def vision_times(dev):
-    """K1's tile mode and K2 at VGG16 layers 1, 8 and 10."""
+    """K1's tile mode and K2 at VGG16 layers 1, 8 and 10; K1 at 32 images
+    too."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import simulator as S
@@ -99,39 +104,48 @@ def vision_times(dev):
     torch.backends.cudnn.allow_tf32 = False
     model = build_vision_model("VGGNet", pattern="chunk", seed=SEED,
                                device=dev)
-    imgs = blob_images(np.random.default_rng(SEED), 4, 224,
-                       S.BENCHMARKS["VGGNet"].map_density)
     out = {}
-    for layer in (1, 8, 10):
-        head = VisionModel(model.name, model.layers[:layer],
-                           model.input_size, model.density, dev)
-        x = dense_forward(head, torch.as_tensor(imgs, device=dev))
-        lay = model.layers[layer]
-        c, w = lay.conv, lay.conv.packed
-        patches, (oh, ow) = extract_patches(
-            x, c.kh, c.kw, lay.stride, lay.padding,
-            strategy="taps" if c.layout == "tap" else "slices")
-        m_pad = oh * ow + (-(oh * ow)) % 128
-        flat = F.pad(patches, (0, w.shape[0] - patches.shape[-1], 0,
-                               m_pad - oh * ow)).reshape(-1, w.shape[0]) \
-            .contiguous()
-        mb = flat.shape[0] // 128
-        wl = build_worklist(w.host_indices(), mb, mb_per_img=m_pad // 128)
-        kw1 = dict(bk=w.bk, bn=w.bn, bm_rows=128, sub_m=SUB_M, act="relu",
-                   emit_occupancy=True)
-        out[f"K1 tile VGG16 L{layer}"] = cuda_ms(
-            lambda: worklist_spmm(flat, w.vals, wl, mb_per_img=m_pad // 128,
-                                  ncolors=2, **kw1))
-        if worklist_spmm_slabs is not None:
-            xc = x.contiguous()
-            out[f"K1 tap slabs VGG16 L{layer}"] = cuda_ms(
-                lambda: worklist_spmm_slabs(
-                    xc, w.vals, wl, kh=c.kh, kw=c.kw, stride=lay.stride,
-                    padding=lay.padding, m_pad=m_pad, **kw1))
-        kw2 = dict(bk=w.bk, bn=w.bn, bm_rows=128, sub_m=SUB_M,
-                   two_sided=True, emit_occupancy=True, count_macs=True)
-        out[f"K2 VGG16 L{layer}"] = cuda_ms(
-            lambda: sparse_conv_spmm(flat, w.indices, w.vals, **kw2))
+    for batch in VGG_BATCHES:
+        tag = "" if batch == VGG_BATCHES[0] else f" B{batch}"
+        imgs = blob_images(np.random.default_rng(SEED), batch, 224,
+                           S.BENCHMARKS["VGGNet"].map_density)
+        for layer in (1, 8, 10):
+            head = VisionModel(model.name, model.layers[:layer],
+                               model.input_size, model.density, dev)
+            x = dense_forward(head, torch.as_tensor(imgs, device=dev))
+            lay = model.layers[layer]
+            c, w = lay.conv, lay.conv.packed
+            patches, (oh, ow) = extract_patches(
+                x, c.kh, c.kw, lay.stride, lay.padding,
+                strategy="taps" if c.layout == "tap" else "slices")
+            m_pad = oh * ow + (-(oh * ow)) % 128
+            flat = F.pad(patches, (0, w.shape[0] - patches.shape[-1], 0,
+                                   m_pad - oh * ow)).reshape(-1, w.shape[0]) \
+                .contiguous()
+            del patches
+            mb = flat.shape[0] // 128
+            wl = build_worklist(w.host_indices(), mb,
+                                mb_per_img=m_pad // 128)
+            kw1 = dict(bk=w.bk, bn=w.bn, bm_rows=128, sub_m=SUB_M, act="relu",
+                       emit_occupancy=True)
+            out[f"K1 tile VGG16 L{layer}{tag}"] = cuda_ms(
+                lambda: worklist_spmm(flat, w.vals, wl,
+                                      mb_per_img=m_pad // 128, ncolors=2,
+                                      **kw1))
+            if worklist_spmm_slabs is not None:
+                xc = x.contiguous()
+                out[f"K1 tap slabs VGG16 L{layer}{tag}"] = cuda_ms(
+                    lambda: worklist_spmm_slabs(
+                        xc, w.vals, wl, kh=c.kh, kw=c.kw, stride=lay.stride,
+                        padding=lay.padding, m_pad=m_pad, **kw1))
+            if not tag:
+                kw2 = dict(bk=w.bk, bn=w.bn, bm_rows=128, sub_m=SUB_M,
+                           two_sided=True, emit_occupancy=True,
+                           count_macs=True)
+                out[f"K2 VGG16 L{layer}"] = cuda_ms(
+                    lambda: sparse_conv_spmm(flat, w.indices, w.vals, **kw2))
+            del flat, x
+            torch.cuda.empty_cache()
     return out
 
 

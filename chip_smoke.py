@@ -86,13 +86,14 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    taps patch matrix, with its launch grid and graph-replay times beside
    its bound (bytes of the map, the weights and the output, or the needed
    FLOPs), K1 on the patch matrix, the layer call with ``taps`` (im2col +
-   K1) and with ``lazy``, and one ``F.conv2d`` (TF32 off); (b) every
-   tap-layout layer pinned to ``im2col="lazy"`` at 128-row blocks through
-   ``autotune_conv(candidates=...)``: the ``compile_forward(use_tuned=True)``
-   forward bitwise equal to the taps forward, the walker's launches of one
-   forward counted from zero, both forwards timed in turns (median and
-   range of 7 windows) and the lazy one split by a ``torch.profiler``
-   trace; (c) ``autotune_model`` modelled, then ``measure=True``: each
+   K1) and with ``lazy``, and one ``F.conv2d`` (TF32 off); (b) the default
+   forward (``im2col="auto"``: every tap-layout layer on the tap-slab
+   operand), its walker launches and tap-slab launches of one forward
+   counted from zero, eager and replayed bitwise equal to the forward with
+   every tap-layout layer pinned to ``im2col="taps"`` at 128-row blocks
+   through ``autotune_conv(candidates=...)`` (``use_tuned=True``), both
+   forwards timed in turns (median and range of 7 windows) and split by
+   ``torch.profiler`` traces; (c) ``autotune_model`` modelled, then ``measure=True``: each
    layer's modelled and measured pick with their measured times, both tuned
    forwards bitwise equal to the default, and the tuned model's oracle (K2
    at the tuned row blocks) within 1e-5; (d) ``VisionServer`` on a virtual
@@ -754,11 +755,11 @@ def forward_split(model, imgs, card: str):
     torch.backends.cudnn.allow_tf32 = False
     x0 = torch.as_tensor(imgs, device=model.device)
     recs = forwards_compared(
-        {"graph (taps)": graphed_forward(model),
-         "eager (taps)": compile_forward(model),
+        {"graph (default)": graphed_forward(model),
+         "eager (default)": compile_forward(model),
          "dense_forward (cuDNN, TF32 off)":
              lambda x: dense_forward(model, x)},
-        x0, card, traced=("graph (taps)", "eager (taps)"))
+        x0, card, traced=("graph (default)", "eager (default)"))
     return {"images": x0.shape[0], **recs}
 
 
@@ -2648,29 +2649,31 @@ def tap_slab_phase(model, imgs, layer: int, card: str):
             "taps_layer_ms": taps_ms, "lazy_layer_ms": lazy_ms}
 
 
-def pin_lazy(model):
-    """Every tap-layout layer tuned to the lazy operand at 128-row blocks
-    and its pack-time bn (the stem keeps the global knobs)."""
+def pin_taps(model):
+    """Every tap-layout layer tuned to the taps patch matrix at 128-row
+    blocks and its pack-time bn (the stem keeps the global knobs): with
+    ``use_tuned`` the forward builds the patch matrix the default forward
+    (the tap-slab operand) never builds."""
     from repro_torch.kernels.autotune import ConvTileConfig, autotune_conv
     from repro_torch.vision import layer_geometry
     for layer, g in zip(model.layers, layer_geometry(model, SIZE)):
         c = layer.conv
         if c.layout == "tap":
             autotune_conv(c, g["m_img"], batch=4, candidates=[ConvTileConfig(
-                bm_rows=128, bn=c.packed.bn, sub_m=8, im2col="lazy")])
+                bm_rows=128, bn=c.packed.bn, sub_m=8, im2col="taps")])
 
 
 def lazy_forward_split(model, x0, card: str):
-    """The lazy forward against the taps (default) one, each replayed from
-    its graph and eager, in turns, each traced once. Returns the record."""
+    """The default forward (the tap-slab operand at every tap-layout
+    layer) against the taps-pinned one, each replayed from its graph and
+    eager, in turns, each traced once. Returns the record."""
     from repro_torch.vision import compile_forward, graphed_forward
-    n_lazy = sum(1 for layer in model.layers if layer.conv.tuned is not None
-                 and layer.conv.tuned.config.im2col == "lazy")
+    n_lazy = sum(1 for layer in model.layers if layer.conv.layout == "tap")
     print(f"lazy forward: tap slabs at {n_lazy} layers")
-    fns = {"graph (lazy)": graphed_forward(model, use_tuned=True),
-           "eager (lazy)": compile_forward(model, use_tuned=True),
-           "graph (taps)": graphed_forward(model),
-           "eager (taps)": compile_forward(model)}
+    fns = {"graph (lazy)": graphed_forward(model),
+           "eager (lazy)": compile_forward(model),
+           "graph (taps)": graphed_forward(model, use_tuned=True),
+           "eager (taps)": compile_forward(model, use_tuned=True)}
     return {"images": x0.shape[0], "lazy_layers": n_lazy,
             **forwards_compared(fns, x0, card, traced=tuple(fns))}
 
@@ -2832,7 +2835,7 @@ def lazy_phase(card: str):
     the walker's tap-slab records and its launches by path."""
     import torch
     from repro_torch.core import simulator as S
-    from repro_torch.kernels.worklist_core import WALK
+    from repro_torch.kernels.worklist_core import WALK, WALK_TAP_SLABS
     from repro_torch.launch.vision import blob_images
     from repro_torch.vision import (build_vision_model, compile_forward,
                                     graphed_forward)
@@ -2843,22 +2846,25 @@ def lazy_phase(card: str):
                                device=dev)
     recs = [tap_slab_phase(model, imgs, layer, card) for layer in (1, 8)]
     x0 = torch.as_tensor(imgs, device=dev)
+    WALK.launches = WALK_TAP_SLABS.launches = 0
     default = compile_forward(model)(x0)
-    pin_lazy(model)
-    WALK.launches = 0
-    lazy = compile_forward(model, use_tuned=True)(x0)
     torch.cuda.synchronize()
-    lazy_launches = WALK.launches
-    require(lazy_launches == model.num_layers,
-            f"the lazy forward launched the walker {lazy_launches} times")
-    require(torch.equal(lazy, default),
-            "the lazy forward != the taps forward bitwise")
-    glazy = graphed_forward(model, use_tuned=True)
-    require(all(torch.equal(glazy(x0), default) for _ in range(2)),
-            "the replayed lazy forward != the taps forward bitwise")
-    print(f"lazy forward ({model.num_layers - 1} tap-layout layers on the "
-          f"tap-slab operand): eager and replayed bitwise equal to the taps "
-          f"forward, {lazy_launches} walker launches")
+    lazy_launches, slab_launches = WALK.launches, WALK_TAP_SLABS.launches
+    n_tap = sum(1 for layer in model.layers if layer.conv.layout == "tap")
+    require(lazy_launches == model.num_layers and slab_launches == n_tap,
+            f"the default forward launched the walker {lazy_launches} times,"
+            f" {slab_launches} on the tap-slab operand")
+    pin_taps(model)
+    taps = compile_forward(model, use_tuned=True)(x0)
+    require(torch.equal(default, taps),
+            "the default (lazy) forward != the taps forward bitwise")
+    glazy = graphed_forward(model)
+    require(all(torch.equal(glazy(x0), taps) for _ in range(2)),
+            "the replayed default (lazy) forward != the taps forward bitwise")
+    print(f"lazy forward ({n_tap} tap-layout layers on the tap-slab operand,"
+          f" the default): eager and replayed bitwise equal to the taps "
+          f"forward, {lazy_launches} walker launches, {slab_launches} of "
+          f"them tap slabs")
     split = lazy_forward_split(model, x0, card)
     tune = autotune_phase(model, x0, default, card)
     server = server_phase(model, card)

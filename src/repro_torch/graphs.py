@@ -26,9 +26,11 @@ copying new inputs into its static input buffers.
   graph is captured right after it (capture runs nothing) and replayed
   from the second call on.
 * **Launch counts.** While it is captured, the kernel wrappers tally their
-  launches on the graph (:func:`repro_torch.kernels._cuda.capture_tally`)
-  and count nothing; each replay adds the tally, so a counter reads what
-  the eager calls would have launched.
+  launches (and their :class:`~repro_torch.kernels._cuda.LaunchCounter`
+  counts, such as the walker's tap-slab launches) on the graph
+  (:func:`repro_torch.kernels._cuda.capture_tally`) and count nothing;
+  each replay adds the tally, so a counter reads what the eager calls
+  would have launched.
 * **No silent fallback.** A body that makes a call CUDA cannot capture (a
   host read such as ``.item()``, ``.cpu()`` or ``.tolist()``, a
   synchronisation, a host schedule build) raises
@@ -101,7 +103,7 @@ class CapturedGraph:
     the replays, ``capture_s`` is the
     capture's host time, ``pool_bytes`` the memory the capture reserved on
     the device (the graph's private pool: its intermediates and outputs)
-    and ``tally`` the kernel launches one replay makes.
+    and ``tally`` the launches one replay makes, by counter.
     """
 
     def __init__(self, body: Callable, device, name: str,
@@ -117,7 +119,7 @@ class CapturedGraph:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.error: Optional[GraphCaptureError] = None
         self.outputs: Any = None
-        self.tally: Dict[_cuda.CudaKernel, int] = {}
+        self.tally: Dict[_cuda.LaunchCounter, int] = {}
         self.replays = 0
         self.capture_s = 0.0
         self.pool_bytes = 0
@@ -158,14 +160,14 @@ class CapturedGraph:
         with span("graph.replay"):
             self.graph.replay()
         self.replays += 1
-        for kernel, n in self.tally.items():
-            kernel.launches += n
+        for counter, n in self.tally.items():
+            counter.launches += n
         return self.outputs
 
     def _capture(self) -> None:
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        tally: Dict[_cuda.CudaKernel, int] = {}
+        tally: Dict[_cuda.LaunchCounter, int] = {}
         try:
             if self.generator is not None:
                 graph.register_generator_state(self.generator)

@@ -12,7 +12,9 @@ a launch whose ``cudaGetLastError()`` is not 0 raises :class:`RuntimeError`.
 
 A launch made while the current stream is capturing a CUDA graph runs
 nothing: it is tallied on the graph (:func:`capture_tally`), and each
-replay adds the tally to the counters (:mod:`repro_torch.graphs`).
+replay adds the tally to the counters (:mod:`repro_torch.graphs`). A
+:class:`LaunchCounter` counts a subset of a kernel's launches (a mode it
+ran in) the same way.
 """
 from __future__ import annotations
 
@@ -45,14 +47,14 @@ class KernelBuildError(RuntimeError):
     pass
 
 
-# {kernel: launches} of the graph being captured (None: no tally open)
-_TALLY: Optional[Dict["CudaKernel", int]] = None
+# {counter: launches} of the graph being captured (None: no tally open)
+_TALLY: Optional[Dict["LaunchCounter", int]] = None
 
 
 @contextlib.contextmanager
-def capture_tally(tally: Dict["CudaKernel", int]):
+def capture_tally(tally: Dict["LaunchCounter", int]):
     """Within the block, launches made on a capturing stream add to
-    ``tally`` instead of the kernels' ``launches``."""
+    ``tally`` instead of the counters' ``launches``."""
     global _TALLY
     prev, _TALLY = _TALLY, tally
     try:
@@ -71,20 +73,51 @@ def _nvcc() -> str:
     raise KernelBuildError("nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda)")
 
 
-class CudaKernel:
-    """One ``.cu`` source, its C entry point and its launch counter.
+def _capturing(name: str) -> bool:
+    """Whether the current stream is capturing a CUDA graph; raises when
+    it is and no :func:`capture_tally` is open to count on."""
+    capturing = torch.cuda.is_current_stream_capturing()
+    if capturing and _TALLY is None:
+        raise RuntimeError(
+            f"{name}: launched on a stream that is capturing a CUDA graph "
+            f"with no capture_tally open; capture through "
+            f"repro_torch.graphs.CapturedGraph so that each replay counts "
+            f"its launches")
+    return capturing
 
-    ``launches`` counts the kernel's runs on the card: successful eager
-    launches made through :meth:`launch`, plus, for each replay of a CUDA
-    graph, the launches captured in it; callers reset it to 0 to count one
-    run.
-    """
+
+class LaunchCounter:
+    """A count of launches on the card: ``launches`` counts eager
+    launches, plus, for each replay of a CUDA graph, the launches captured
+    in it (tallied on the graph while it is captured); callers reset it to
+    0 to count one run."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+
+    def _add(self, capturing: bool) -> None:
+        if capturing:
+            _TALLY[self] = _TALLY.get(self, 0) + 1
+        else:
+            self.launches += 1
+
+    def count(self, device: torch.device) -> None:
+        """Count one launch just made on ``device``'s current stream."""
+        with torch.cuda.device(device):
+            self._add(_capturing(self.name))
+
+
+class CudaKernel(LaunchCounter):
+    """One ``.cu`` source, its C entry point and its launch counter:
+    ``launches`` counts the successful launches made through
+    :meth:`launch`, as a :class:`LaunchCounter` does."""
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence):
+        super().__init__(symbol)
         self.source = CSRC / source
         self.symbol = symbol
         self.argtypes = list(argtypes)
-        self.launches = 0
         self.build_log = ""
         self.build_s = 0.0
         self._fn = None
@@ -140,22 +173,13 @@ class CudaKernel:
         open, the launch raises before it is recorded."""
         fn = self._load()
         with torch.cuda.device(device):
-            capturing = torch.cuda.is_current_stream_capturing()
-            if capturing and _TALLY is None:
-                raise RuntimeError(
-                    f"{self.symbol}: launched on a stream that is capturing "
-                    f"a CUDA graph with no capture_tally open; capture "
-                    f"through repro_torch.graphs.CapturedGraph so that "
-                    f"each replay counts its launches")
+            capturing = _capturing(self.symbol)
             stream = torch.cuda.current_stream(device).cuda_stream
             code = fn(*args, stream)
         if code != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {code} "
                                f"({self._err(code).decode()})")
-        if capturing:
-            _TALLY[self] = _TALLY.get(self, 0) + 1
-        else:
-            self.launches += 1
+        self._add(capturing)
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> Dict[str, float]:

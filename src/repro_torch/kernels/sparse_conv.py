@@ -18,9 +18,10 @@ occupancy. Images are stacked with their rows padded to whole ``bm_rows``
 blocks.
 
 The lazy im2col (``im2col="lazy"``, ``layout="tap"`` packing, the compact
-schedule) never builds the patch matrix: in the tap layout a K-chunk is one
-``(tap, channel group)`` slab of the input map. On the CPU the plain
-version :func:`worklist_spmm_slabs_plain` stacks only the live slabs
+schedule; what ``im2col="auto"`` takes there) never builds the patch
+matrix: in the tap layout a K-chunk is one ``(tap, channel group)`` slab of
+the input map. On the CPU the plain version
+:func:`worklist_spmm_slabs_plain` stacks only the live slabs
 (:func:`extract_tap_slabs`) and walks them; on CUDA the walker reads each
 live slab straight from the NHWC map (its tap-slab operand, im2col tensor
 copies). Both compute the ``taps`` path's terms in its order, so the result
@@ -362,6 +363,11 @@ def sparse_conv2d_nhwc(x: torch.Tensor, w: bm.BlockSparseMatrix, kh: int,
     (:func:`worklist_spmm_slabs`); it is demoted to ``"taps"`` under
     ``schedule="dense"`` and ``compact_activations``, which need the whole
     patch matrix. The result is bitwise the ``taps`` path's.
+    ``im2col="auto"`` resolves by the packing: ``"lazy"`` at
+    ``layout="tap"`` (so ``"taps"`` where lazy is demoted), ``"slices"`` at
+    ``layout="channel"``. At ``layout="tap"``, ``"patches"`` and
+    ``"slices"`` mean ``"taps"``; ``"taps"`` builds the patch matrix on any
+    schedule.
 
     Returns ``(out, aux)``: ``aux`` carries ``occupancy`` (int32 [B,
     ceil(M_img/sub_m), n_blocks]) and ``mac_counts`` when asked, the patch
@@ -372,10 +378,14 @@ def sparse_conv2d_nhwc(x: torch.Tensor, w: bm.BlockSparseMatrix, kh: int,
         schedule = "dense"
         report_schedule = True
     if layout == "tap":
-        if im2col in ("auto", "patches", "slices"):
+        if im2col == "auto":
+            im2col = "lazy"
+        elif im2col in ("patches", "slices"):
             im2col = "taps"
     elif im2col in ("taps", "lazy"):
         raise ValueError(f"im2col={im2col!r} needs layout='tap' packing")
+    elif im2col == "auto":
+        im2col = "slices"
     lazy = im2col == "lazy"
     if lazy and (schedule != "compact" or compact_activations):
         im2col, lazy = "taps", False

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels._cuda import (KERNEL_DTYPES, CudaKernel, I, P,
-                                       check_cuda_tensor, ptr)
+                                       LaunchCounter, check_cuda_tensor, ptr)
 from repro_torch.kernels.grid import (ROW_BLOCK, WALK_KS, GridGeometry,
                                       TapGeometry, WalkTiles, grid_geometry,
                                       lm_grid_problem, sm_count,
@@ -60,6 +60,12 @@ WALK = CudaKernel("walk.cu", "walk_spmm", [
     I, I, I, I, I, I, I,                 # map: H W cin kh kw sh sw
     I, I, I, I, I, I,                    # ph0 ph1 pw0 pw1 m_pad img_stride
     P])                                  # stream
+
+# of WALK's launches, those that read x through the tap-slab operand, and
+# of those, the ones whose im2col tensor copies were refused
+# (``walk_im2col_problem``: plain copies into one stage)
+WALK_TAP_SLABS = LaunchCounter("walk_spmm, tap slabs")
+WALK_TAP_SLABS_PLAIN = LaunchCounter("walk_spmm, tap slabs, plain copies")
 
 
 # ---------------------------------------------------------------------------
@@ -754,6 +760,10 @@ def _worklist_spmm_cuda(patches, vals, vals2, wl, *, bk, bn, bm_rows, sub_m,
                 ACT_CODE[act], int(emit_occupancy), ncolors, mb_per_img,
                 int(patches.dtype == torch.bfloat16), col_group, *tile,
                 *geom)
+    if taps is not None:
+        WALK_TAP_SLABS.count(dev)
+        if not mode.tma:
+            WALK_TAP_SLABS_PLAIN.count(dev)
     return (out,) if occ is None else (out, occ)
 
 

@@ -67,7 +67,13 @@ class VisionEngine:
     the reference jits its forward) replays the forward captured per batch
     shape (:func:`~repro_torch.vision.model.graphed_forward`; the warm-up
     captures it, each step copies the host batch into the graph's input),
-    ``compiled=False`` runs the eager forward.
+    ``compiled=False`` runs the eager forward. ``im2col="auto"`` (the
+    default) reads each tap-layout layer's input map through K1's tap-slab
+    operand, never building its patch matrix, and builds the channel-layout
+    layers' (the stem's) patch matrix by strided slices
+    (:func:`~repro_torch.kernels.sparse_conv.sparse_conv2d_nhwc`); a
+    tap-layout layer tuned to ``"taps"`` (``use_tuned``) builds its patch
+    matrix instead, with bitwise the same outputs.
 
     ``mesh`` (a ``DeviceMesh`` with a ``data`` dim; every rank runs the
     same engine on the same requests) data-shards the slot batch:

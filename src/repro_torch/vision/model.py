@@ -294,11 +294,15 @@ def graphed_forward(model: VisionModel, *, sub_m: int = 8,
     layers' work lists and their device copies) and captures it; later
     calls copy the batch (on the host or the card) into the graph's input
     buffer and replay: 13 K1 launches and the pools of VGG16 in one graph
-    launch, bitwise what the eager forward gives. Returns a new tensor on
-    the model's device; the callable's ``graphs`` holds its graphs by
-    shape. On the CPU it is the eager forward. The instrumented
-    paths (``forward(collect_stats=True)``, ``oracle_check``) read counters
-    to the host and stay eager.
+    launch, bitwise what the eager forward gives. With ``im2col="auto"``
+    (the default) the tap-layout layers' K1 launches read their input maps
+    through the tap-slab operand (im2col tensor copies baked into the
+    graph), so the graph holds no patch matrix but the stem's; a layer
+    tuned to ``"taps"`` (``use_tuned``) captures its patch matrix instead,
+    with bitwise the same output. Returns a new tensor on the model's device;
+    the callable's ``graphs`` holds its graphs by shape. On the CPU it is
+    the eager forward. The instrumented paths (``forward(collect_stats=
+    True)``, ``oracle_check``) read counters to the host and stay eager.
 
     ``mesh`` data-shards it as :func:`compile_forward` does: each rank
     replays the forward captured at its local width ``B / D``, and the

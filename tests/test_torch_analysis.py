@@ -543,8 +543,9 @@ def test_card_ffn_chunk_rule(chunk, card):
 # the port's own: device copies of a work list, zoo, purity
 # ---------------------------------------------------------------------------
 def _served_model():
-    """A 2-layer VGG (chunk pattern) after one forward: its cached static
-    work lists hold the plain version's live steps on the CPU."""
+    """A 2-layer VGG (chunk pattern) after one forward: its static work
+    lists cached (the tap layer's walked through the tap slabs, whose plain
+    version remaps a copy of the list)."""
     vm = build_vision_model("VGGNet", density=0.3, seed=0, num_layers=2,
                             pattern="chunk", device=CPU)
     x = torch.zeros((2, 16, 16, 3))
@@ -571,6 +572,7 @@ def test_stale_device_copy_is_refused(copy):
         bad[t] = kb
         wl._device[str(CPU)] = dataclasses.replace(ds, k=bad)
     else:
+        wl.live_steps(CPU)   # the plain walker's copy (on the patch matrix)
         key = next(iter(wl._live))
         n, m, k, j = wl._live[key]
         k = k.clone()

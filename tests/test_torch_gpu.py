@@ -1977,3 +1977,47 @@ def test_mesh_and_solo_checkpoints_restart_bitwise_on_card(cuda, tmp_path):
     finally:
         if started:
             dist.destroy_process_group()
+
+
+def test_vgg16_engine_default_reads_tap_slabs_bitwise_taps_on_card(cuda):
+    """``VisionEngine`` at its defaults on the chunk-pattern VGG16 chain at
+    224 px and 32 slots, captured and replayed: each of the 12 tap-layout
+    layers' K1 launches reads its input map through the tap-slab operand
+    (12 a replay, no im2col tensor copy refused), and the outputs equal,
+    bitwise, an engine's whose tap-layout layers are pinned to the taps
+    patch matrix."""
+    from repro_torch.kernels.autotune import ConvTileConfig, autotune_conv
+    from repro_torch.kernels.worklist_core import (WALK_TAP_SLABS,
+                                                   WALK_TAP_SLABS_PLAIN)
+    from repro_torch.vision import layer_geometry
+    model = build_vision_model("VGGNet", pattern="chunk", seed=0,
+                               device=cuda)
+    assert [layer.conv.layout for layer in model.layers] == \
+        ["channel"] + ["tap"] * 12
+    rng = np.random.default_rng(31)
+    imgs = np.abs(rng.normal(size=(80, 224, 224, 3))).astype(np.float32)
+    imgs[rng.random(imgs.shape) >= 0.5] = 0.0
+
+    def served(**kw):
+        eng = VisionEngine(model, num_slots=32, **kw)
+        WALK_TAP_SLABS.launches = WALK_TAP_SLABS_PLAIN.launches = 0
+        out = eng.run([ImageRequest(rid=i, image=imgs[i])
+                       for i in range(len(imgs))])
+        torch.cuda.synchronize()
+        (g,) = eng._fwd.graphs.values()
+        return out, g, WALK_TAP_SLABS.launches, WALK_TAP_SLABS_PLAIN.launches
+
+    got, g, slabs, plain = served()
+    assert g.replays == 3                  # 80 images: 3 steps of 32 slots
+    assert g.tally[WALK_TAP_SLABS] == 12
+    assert WALK_TAP_SLABS_PLAIN not in g.tally
+    assert (slabs, plain) == (12 * (1 + g.replays), 0)   # warm-up + replays
+    for layer, geom in zip(model.layers, layer_geometry(model, 224)):
+        c = layer.conv
+        if c.layout == "tap":
+            autotune_conv(c, geom["m_img"], candidates=[ConvTileConfig(
+                bm_rows=128, bn=c.packed.bn, sub_m=8, im2col="taps")])
+    want, g_taps, slabs, plain = served(use_tuned=True)
+    assert WALK_TAP_SLABS not in g_taps.tally and (slabs, plain) == (0, 0)
+    assert sorted(got) == sorted(want) == list(range(len(imgs)))
+    assert all(np.array_equal(got[r], want[r]) for r in want)
