@@ -5,5 +5,7 @@ runs one cell of ``BENCHMARK.json`` once and prints its result as the last
 line of standard output. Everything that belongs to one configuration,
 cell, traffic mix or metric sits in a file of its own, found by name:
 ``configs/<config>.json``, ``workloads/<cell>.json``,
-``traffic/<mix>.json`` and ``metrics/<metric>.py``.
+``traffic/<mix>.json`` and ``metrics/<metric>.py``; a configuration's
+topology, in ``programs/<topology>.py`` and ``reference/<topology>.py``,
+which its ``"topology"`` key names (``chain`` where it is absent).
 """

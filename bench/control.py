@@ -26,7 +26,6 @@ import torch  # noqa: E402
 
 from bench import arrivals, harness  # noqa: E402
 from bench.inputs import make_inputs  # noqa: E402
-from bench.reference import net  # noqa: E402
 
 
 def control_samples(cell: harness.Cell, seed: int):
@@ -43,19 +42,19 @@ def control_checks(cell: harness.Cell, seed: int, device,
                    precision: str = "tf32"):
     """The checks of a run whose answers are the reference's at
     ``precision``."""
-    cfg = cell.config
+    cfg, reference = cell.config, cell.reference
     side = max(arrivals.sides_of(cell.traffic))
     filters, pool = make_inputs(cfg, int(cell.traffic["pool"]), side, seed,
                                 device)
-    pruned = net.prune_filters(cfg, [f.cpu().numpy() for f in filters])
-    ref = net.device_filters(pruned, device)
+    pruned = reference.prune_filters(cfg, [f.cpu().numpy() for f in filters])
+    ref = reference.device_filters(pruned, device)
     samples = {}
     for size, items in control_samples(cell, seed).items():
-        outs = harness.reference_outputs(cfg, ref, pool, items, size,
-                                         precision)
+        outs = harness.reference_outputs(reference, cfg, ref, pool, items,
+                                         size, precision)
         samples[size] = [it + (o.cpu().numpy(),) for it, o in
                          zip(items, outs)]
-    return harness.check(cfg, ref, pool, samples, 0,
+    return harness.check(reference, cfg, ref, pool, samples, 0,
                          cell.workload["limits"])
 
 

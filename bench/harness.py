@@ -3,28 +3,33 @@ window produced against the plain reference, and the record the metrics
 read.
 
 The program under test is ``repro_torch``: the benchmark hands the dense
-filters it made from the seed to the port's packing chain
-(``sparsity.conv.build_sparse_chain``), assembles the network from the
-port's ``VisionModel`` / ``VisionLayer``, and drives ``VisionEngine.step``
-in a closed loop. The reference
-(``bench/reference``) prunes the same dense filters again with its own
-copy of the rule and runs the chain in plain PyTorch, after the window has
-closed and the program's state is freed.
+filters it made from the seed to the configuration's program module
+(``bench/programs/<program>.py``), which builds the port's network, and
+drives ``VisionEngine.step`` in a closed loop. The reference module of
+the same topology (``bench/reference/<topology>.py``) prunes the same
+dense filters again with its own copy of the rule and runs the network in
+plain PyTorch, after the window has closed and the program's state is
+freed. The configuration's ``"topology"`` key names both modules; a
+configuration without it runs the chain (``chain``).
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import math
+import re
+import sys
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from types import ModuleType
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from bench import arrivals
-from bench.reference import counts, net
+from bench.reference import counts
 from bench.trace import Stretch, TraceSummary, Tracer, span
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -34,6 +39,14 @@ GRACE_S = 60.0
 REF_BLOCK = 16
 # the gap recorded for an answer of the wrong shape or not finite
 NO_ANSWER = 1e30
+# the topology where a configuration names none
+TOPOLOGY = "chain"
+# a topology's program and reference modules: the folder under bench/ and
+# the functions each defines
+MODULES = (("programs", ("build",)),
+           ("reference", ("prune_filters", "device_filters", "forward",
+                          "map_bytes")))
+STEM = re.compile(r"[A-Za-z_][A-Za-z0-9_]*")
 
 
 # ---------------------------------------------------------------------------
@@ -48,6 +61,8 @@ class Cell:
     traffic: Dict
     end_to_end: List[Dict]
     per_layer: List[Dict]
+    program: ModuleType
+    reference: ModuleType
 
 
 def _for_cell(metrics: List[Dict], cell: str) -> List[Dict]:
@@ -55,23 +70,58 @@ def _for_cell(metrics: List[Dict], cell: str) -> List[Dict]:
             or cell in m["workloads"]]
 
 
+def modules_of(config: Dict, root: Path = ROOT,
+               where: str = "the configuration"
+               ) -> Tuple[ModuleType, ModuleType]:
+    """(program, reference): ``bench/programs/<topology>.py`` and
+    ``bench/reference/<topology>.py`` under ``root``, for the topology
+    that the configuration's ``"topology"`` key names. Raises
+    ``SystemExit``, naming ``where`` and the file, for a name that is not
+    a plain identifier, a file that does not exist or a module that lacks
+    a function of its interface."""
+    stem = config.get("topology", TOPOLOGY)
+    if not isinstance(stem, str) or not STEM.fullmatch(stem):
+        raise SystemExit(f"{where}: topology {stem!r} is not the stem of a "
+                         f"module under bench/programs/ and bench/reference/")
+    found = []
+    for folder, functions in MODULES:
+        rel = f"bench/{folder}/{stem}.py"
+        path = root / rel
+        if not path.is_file():
+            raise SystemExit(f"{where}: topology {stem!r}: no file {rel}")
+        name = f"bench_{folder}_{stem}"
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        # registered as an import would be: dataclasses look a class's
+        # module up in sys.modules
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+        missing = [f for f in functions if not callable(getattr(mod, f, None))]
+        if missing:
+            raise SystemExit(f"{where}: {rel} defines no {', '.join(missing)}")
+        found.append(mod)
+    return found[0], found[1]
+
+
 def load_cell(name: str, root: Path = ROOT) -> Cell:
     """The cell ``name`` of ``BENCHMARK.json`` with its configuration,
-    workload and traffic files and the metrics it reports."""
+    workload and traffic files, the metrics it reports, and its
+    configuration's program and reference modules, all under ``root``."""
     spec = json.loads((root / "BENCHMARK.json").read_text())
     cells = {w["name"]: w for w in spec["workloads"]}
     if name not in cells:
         raise SystemExit(f"no workload {name!r} in BENCHMARK.json")
     w = cells[name]
     cfg = {c["name"]: c for c in spec["configs"]}[w["config"]]
+    config = json.loads((root / cfg["file"]).read_text())
     bench = root / "bench"
     return Cell(
-        name, int(w["chips"]),
-        json.loads((root / cfg["file"]).read_text()),
+        name, int(w["chips"]), config,
         json.loads((bench / "workloads" / f"{name}.json").read_text()),
         json.loads((bench / "traffic" / f"{w['traffic']}.json").read_text()),
         _for_cell(spec["end_to_end"], name),
-        _for_cell(spec["per_layer"], name))
+        _for_cell(spec["per_layer"], name),
+        *modules_of(config, root, cfg["file"]))
 
 
 # ---------------------------------------------------------------------------
@@ -105,14 +155,14 @@ class Yardstick:
     """Two-sided MACs of each pool image at the cell's size, the bytes of
     one image's maps, the non-zero filter bytes, and the card's peaks."""
     macs: np.ndarray                           # int64 [pool]
-    size: int
+    map_bytes: int
     weight_bytes: int
     peaks: Dict[str, float]
 
-    def step_bound_s(self, config: Dict, pool_idx) -> float:
+    def step_bound_s(self, pool_idx) -> float:
         idx = np.asarray(pool_idx, np.int64)
         return counts.forward_bound_s(int(self.macs[idx].sum()), idx.size,
-                                      config, self.size, self.weight_bytes,
+                                      self.map_bytes, self.weight_bytes,
                                       self.peaks)
 
 
@@ -124,25 +174,6 @@ def untraced(run: RunRecord):
     started: the whole window when nothing was traced."""
     cut = run.window_s if run.untraced_s is None else run.untraced_s
     return cut, [s for s in run.steps if s[1] <= cut]
-
-
-def build_model(config: Dict, filters: List[torch.Tensor], device):
-    """The port's network from the benchmark's dense filters."""
-    from repro_torch.sparsity.conv import build_sparse_chain
-    from repro_torch.vision.model import VisionLayer, VisionModel
-    pack = config["pack"]
-    chain = build_sparse_chain(
-        [f.cpu().numpy() for f in filters], density=float(config["density"]),
-        num_shards=int(pack["num_shards"]),
-        balance_filters=bool(pack["balance_filters"]),
-        pattern=config["pattern"], micro_ranges=int(pack["micro_ranges"]),
-        device=device)
-    layers = [VisionLayer(conv, (l["stride"], l["stride"]), l["padding"],
-                          tuple(l["pool_after"]) if l.get("pool_after")
-                          else None)
-              for l, conv in zip(config["layers"], chain)]
-    return VisionModel(config["arch"], layers, int(config["input_size"]),
-                       float(config["density"]), device)
 
 
 class Reservoir:
@@ -253,11 +284,13 @@ def run_closed(cell: Cell, model, pool_np: np.ndarray, seed: int,
 # ---------------------------------------------------------------------------
 # the check against the reference
 # ---------------------------------------------------------------------------
-def reference_outputs(config: Dict, filters_ref: List[torch.Tensor],
-                      pool: torch.Tensor, items: List[tuple], size: int,
+def reference_outputs(reference: ModuleType, config: Dict,
+                      filters_ref: List[torch.Tensor], pool: torch.Tensor,
+                      items: List[tuple], size: int,
                       precision: str = "float32") -> List[torch.Tensor]:
-    """The reference's final map of each sampled (rid, pool image, side)
-    request, zero-padded to ``size``, on ``pool``'s device."""
+    """The final map by the ``reference`` module of each sampled (rid,
+    pool image, side) request, zero-padded to ``size``, on ``pool``'s
+    device."""
     outs: List[torch.Tensor] = []
     for b in range(0, len(items), REF_BLOCK):
         block = items[b:b + REF_BLOCK]
@@ -266,7 +299,8 @@ def reference_outputs(config: Dict, filters_ref: List[torch.Tensor],
         for j, it in enumerate(block):
             side = it[2]
             x[j, :side, :side] = pool[it[1], :side, :side]
-        outs.extend(net.forward(config, filters_ref, x, precision).unbind(0))
+        outs.extend(reference.forward(config, filters_ref, x,
+                                      precision).unbind(0))
     return outs
 
 
@@ -281,14 +315,16 @@ def rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
     return rel if math.isfinite(rel) else NO_ANSWER
 
 
-def check(config: Dict, filters_ref: List[torch.Tensor], pool: torch.Tensor,
+def check(reference: ModuleType, config: Dict,
+          filters_ref: List[torch.Tensor], pool: torch.Tensor,
           samples: Dict[int, List[tuple]], failed: int, limits: Dict
           ) -> Dict[str, Dict[str, float]]:
     """The numbers compared, each with its limit: the widest relative gap
     of a sampled answer, and the answers that never came."""
     worst, n = 0.0, 0
     for size, items in samples.items():
-        refs = reference_outputs(config, filters_ref, pool, items, size)
+        refs = reference_outputs(reference, config, filters_ref, pool,
+                                 items, size)
         for it, ref in zip(items, refs):
             out = torch.as_tensor(it[3]).to(ref.device)
             if out.shape != ref.shape:
@@ -311,16 +347,18 @@ def is_correct(checks: Dict[str, Dict[str, float]]) -> bool:
             and c["unanswered"]["value"] <= c["unanswered"]["limit"])
 
 
-def yardstick(config: Dict, pruned: List[np.ndarray],
+def yardstick(reference: ModuleType, config: Dict, pruned: List[np.ndarray],
               filters_ref: List[torch.Tensor], pool: torch.Tensor,
               device_name: str) -> Yardstick:
-    """Two-sided MACs of every pool image, by the reference."""
+    """Two-sided MACs of every pool image and the bytes of one image's
+    maps, by the ``reference`` module."""
     macs = []
     for b in range(0, pool.shape[0], REF_BLOCK):
         per_layer: List[torch.Tensor] = []
-        net.forward(config, filters_ref, pool[b:b + REF_BLOCK],
-                    masks_out=per_layer)
+        reference.forward(config, filters_ref, pool[b:b + REF_BLOCK],
+                          masks_out=per_layer)
         macs.append(torch.stack(per_layer).sum(0).cpu())
     return Yardstick(torch.cat(macs).numpy().astype(np.int64),
-                     int(pool.shape[1]), counts.filter_bytes(pruned),
+                     int(reference.map_bytes(config, int(pool.shape[1]))),
+                     counts.filter_bytes(pruned),
                      counts.peaks_for(device_name))

@@ -13,6 +13,6 @@ def read(run):
     if k1 <= 0:
         return None
     y = run.yardstick()
-    bound = sum(y.step_bound_s(run.config, s[2]) for s in run.traced_steps
+    bound = sum(y.step_bound_s(s[2]) for s in run.traced_steps
                 if s[2])
     return 100.0 * bound / k1

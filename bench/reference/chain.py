@@ -1,4 +1,5 @@
-"""Plain reference of the benchmark's conv chains, in PyTorch and numpy.
+"""Plain reference of the benchmark's conv chains, in PyTorch and numpy:
+the reference module of a configuration without a ``"topology"`` key.
 
 It reads the topology from a configuration file of ``bench/configs`` and
 works everything out again from the dense filters that the benchmark made
@@ -22,6 +23,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from bench.reference.counts import FP32_BYTES
 
 # the packing's chunk (the paper's 128) and the narrowest layer that the
 # chunk pattern prunes by whole tiles; narrower stems prune per filter
@@ -178,6 +181,15 @@ def output_sides(config: Dict, size: int) -> List[Tuple[int, int]]:
         if pool and h >= pool[0]:
             h = (h - pool[0]) // pool[1] + 1
     return sides
+
+
+def map_bytes(config: Dict, size: int) -> int:
+    """Bytes of every layer's input and output map for one square
+    ``size`` image, once each (a chain has no map that two layers read)."""
+    total = 0
+    for layer, (h, oh) in zip(config["layers"], output_sides(config, size)):
+        total += h * h * layer["cin"] + oh * oh * layer["cout"]
+    return total * FP32_BYTES
 
 
 def to_tf32(t: torch.Tensor) -> torch.Tensor:

@@ -2,20 +2,19 @@
 the shapes alone, and the card's published peaks.
 
 Two-sided MACs are the products whose filter value and input activation are
-both non-zero (:func:`bench.reference.net.forward` counts them per image and
-layer from the reference's own activations and pruned filters). Bytes are
-each layer's input map and output map once each in fp32, and the non-zero
-filter values once per forward. Neither count reads the program: no
-counter, tile size, layout or im2col of it moves the yardstick, so a later
-kernel cannot read above 100% of a bound made from them.
+both non-zero (the configuration's reference module counts them per image
+and convolution, in ``forward(..., masks_out=...)``, from its own
+activations and pruned filters). Bytes are every map read or written once
+in fp32 (the reference's ``map_bytes``), and the non-zero filter values
+once per forward. Neither count reads the program: no counter, tile size,
+layout or im2col of it moves the yardstick, so a later kernel cannot read
+above 100% of a bound made from them.
 """
 from __future__ import annotations
 
 from typing import Dict, Sequence
 
 import numpy as np
-
-from bench.reference.net import output_sides
 
 FP32_BYTES = 4
 
@@ -36,26 +35,19 @@ def peaks_for(device_name: str) -> Dict[str, float]:
     raise KeyError(f"no published peaks for {device_name!r}")
 
 
-def map_bytes(config: Dict, size: int) -> int:
-    """Bytes of every layer's input and output map for one square
-    ``size`` image, once each."""
-    total = 0
-    for layer, (h, oh) in zip(config["layers"], output_sides(config, size)):
-        total += h * h * layer["cin"] + oh * oh * layer["cout"]
-    return total * FP32_BYTES
-
-
 def filter_bytes(pruned: Sequence[np.ndarray]) -> int:
     """Bytes of the non-zero filter values, read once per forward."""
     return int(sum(int(np.count_nonzero(w)) for w in pruned)) * FP32_BYTES
 
 
-def forward_bound_s(macs: int, images: int, config: Dict, size: int,
+def forward_bound_s(macs: int, images: int, map_bytes: int,
                     weight_bytes: int, peaks: Dict[str, float]) -> float:
     """The least time one forward of ``images`` images with ``macs``
     two-sided MACs in all can take: the larger of its operations over the
-    fp32 peak and its bytes over the memory bandwidth."""
+    fp32 peak and its bytes (``map_bytes`` of each image, by the
+    configuration's reference, and the filters) over the memory
+    bandwidth."""
     flops = 2.0 * macs
-    nbytes = images * map_bytes(config, size) + weight_bytes
+    nbytes = images * map_bytes + weight_bytes
     return max(flops / peaks["float32_flops"],
                nbytes / peaks["hbm_bytes_per_s"])

@@ -38,7 +38,6 @@ import torch  # noqa: E402
 
 from bench import arrivals, harness  # noqa: E402
 from bench.inputs import make_inputs  # noqa: E402
-from bench.reference import net  # noqa: E402
 from bench.trace import Tracer  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
@@ -64,12 +63,12 @@ def run_cell(cell: harness.Cell, seed: int, seconds: float, trace: bool,
     """One run: returns the result object (``checks`` last)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg, wl = cell.config, cell.workload
+    cfg, wl, reference = cell.config, cell.workload, cell.reference
     side = max(arrivals.sides_of(cell.traffic))
     filters, pool = make_inputs(cfg, int(cell.traffic["pool"]), side, seed,
                                 device)
     pool_np = pool.cpu().numpy()
-    model = harness.build_model(cfg, filters, device)
+    model = cell.program.build(cfg, filters, device)
     tracer = Tracer() if trace else None
     rec, samples, program = harness.run_closed(cell, model, pool_np, seed,
                                                seconds, tracer, t_start)
@@ -79,14 +78,15 @@ def run_cell(cell: harness.Cell, seed: int, seconds: float, trace: bool,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    pruned = net.prune_filters(cfg, [f.cpu().numpy() for f in filters])
-    filters_ref = net.device_filters(pruned, device)
-    checks = harness.check(cfg, filters_ref, pool, samples, rec.failed,
-                           wl["limits"])
+    pruned = reference.prune_filters(cfg,
+                                     [f.cpu().numpy() for f in filters])
+    filters_ref = reference.device_filters(pruned, device)
+    checks = harness.check(reference, cfg, filters_ref, pool, samples,
+                           rec.failed, wl["limits"])
     kind = torch.cuda.get_device_name(device) if cuda else "cpu"
     if cuda:                  # the peaks are the card's; a CPU run has none
         rec.yardstick = functools.cache(lambda: harness.yardstick(
-            cfg, pruned, filters_ref, pool, kind))
+            reference, cfg, pruned, filters_ref, pool, kind))
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):
         value = read_metric(m["name"], rec)

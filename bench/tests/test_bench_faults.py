@@ -47,8 +47,10 @@ def stale(out, state):
 
 
 def cell():
-    return harness.Cell("t.offline", 1, tiny_config(), WL, CLOSED,
-                        [{"name": "setup_s", "unit": "s"}], [])
+    cfg = tiny_config()
+    return harness.Cell("t.offline", 1, cfg, WL, CLOSED,
+                        [{"name": "setup_s", "unit": "s"}], [],
+                        *harness.modules_of(cfg))
 
 
 def run(fault, monkeypatch):

@@ -1,6 +1,7 @@
 """What the benchmark loads: nothing of JAX or the JAX package in the
-process that runs a cell, nothing of the program in the reference, and
-nothing under ``bench/`` reads the JAX package's ``benchmarks/``."""
+process that runs a cell, with every program module, nothing of the
+program in any reference module, and nothing under ``bench/`` reads the
+JAX package's ``benchmarks/``."""
 import os
 import subprocess
 import sys
@@ -17,6 +18,8 @@ import bench.run, bench.control
 for p in sorted(Path({root!r}, "bench", "metrics").glob("*.py")):
     spec = importlib.util.spec_from_file_location("m", p)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for p in sorted(Path({root!r}, "bench", "programs").glob("*.py")):
+    importlib.import_module("bench.programs." + p.stem)
 # what a run drives of the port
 import repro_torch.vision.engine
 import repro_torch.sparsity.conv, repro_torch.analysis
@@ -26,7 +29,10 @@ print(sorted({{m.split(".")[0] for m in sys.modules}}))
 REF_PROBE = r"""
 import sys
 sys.path[:0] = [{src!r}, {root!r}]
-import bench.reference.net, bench.reference.counts
+import importlib
+from pathlib import Path
+for p in sorted(Path({root!r}, "bench", "reference").glob("*.py")):
+    importlib.import_module("bench.reference." + p.stem)
 print(sorted({{m.split(".")[0] for m in sys.modules}}))
 """
 

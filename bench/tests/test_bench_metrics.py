@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 
 from bench import harness
+from bench.reference import chain
 from bench.trace import TraceSummary, gaps, union_s
 from conftest import tiny_config
 
@@ -89,7 +90,8 @@ def test_trace_readers_of_the_engine_cells():
 def test_traced_runs_read_host_spans_before_the_profiler():
     peaks = {"float32_flops": 1e9, "hbm_bytes_per_s": 1e12}
     y = harness.Yardstick(np.array([1e9, 2e9, 3e9, 4e9]).astype(np.int64),
-                          16, 0, peaks)
+                          chain.map_bytes(tiny_config(), 16), 0,
+                          peaks)
     rec = closed_record(yardstick=lambda: y, untraced_s=1.0)
     # the first step alone (10e9 MACs) over the first second
     assert metric("forward_mfu.offline")(rec) == pytest.approx(
@@ -99,7 +101,8 @@ def test_traced_runs_read_host_spans_before_the_profiler():
 def test_roofline_and_mfu_from_the_yardstick():
     peaks = {"float32_flops": 1e9, "hbm_bytes_per_s": 1e12}
     y = harness.Yardstick(np.array([1e9, 2e9, 3e9, 4e9]).astype(np.int64),
-                          16, 0, peaks)
+                          chain.map_bytes(tiny_config(), 16), 0,
+                          peaks)
     rec = closed_record(trace=trace(), yardstick=lambda: y)
     # steps: images 0-3 (10e9 MACs) and 0,0,1,1 (6e9): bounds 20 s and
     # 12 s of compute, over 4.75 s of K1

@@ -7,7 +7,7 @@ import torch
 
 from bench import harness
 from bench.inputs import make_inputs
-from bench.reference import net
+from bench.reference import chain
 from conftest import layer, tiny_config
 
 
@@ -18,7 +18,7 @@ def numpy_chain(config, filters, x):
         k, s = l["k"], l["stride"]
         b, h, wd, c = y.shape
         if l["padding"] == "SAME":
-            ph, pw = net.same_pads(h, k, s), net.same_pads(wd, k, s)
+            ph, pw = chain.same_pads(h, k, s), chain.same_pads(wd, k, s)
         else:
             ph = pw = (0, 0)
         yp = np.pad(y, ((0, 0), ph, pw, (0, 0)))
@@ -45,8 +45,8 @@ def test_reference_matches_numpy_chain(size):
     cfg = tiny_config()
     cfg["layers"][0]["padding"] = "VALID" if size == 13 else "SAME"
     filters, pool = make_inputs(cfg, 3, size, 11, "cpu")
-    pruned = net.prune_filters(cfg, [f.numpy() for f in filters])
-    ref = net.forward(cfg, net.device_filters(pruned, "cpu"), pool)
+    pruned = chain.prune_filters(cfg, [f.numpy() for f in filters])
+    ref = chain.forward(cfg, chain.device_filters(pruned, "cpu"), pool)
     want = numpy_chain(cfg, pruned, pool.numpy())
     assert ref.shape == want.shape
     assert np.abs(want).max() > 0
@@ -56,9 +56,9 @@ def test_reference_matches_numpy_chain(size):
 def test_output_sides_follow_the_chain():
     cfg = tiny_config()
     filters, pool = make_inputs(cfg, 1, 16, 0, "cpu")
-    ref = net.forward(cfg, net.device_filters(
+    ref = chain.forward(cfg, chain.device_filters(
         [f.numpy() for f in filters], "cpu"), pool)
-    sides = net.output_sides(cfg, 16)
+    sides = chain.output_sides(cfg, 16)
     assert sides[0] == (16, 8)
     # the last layer keeps its input side (1x1, no pool after it)
     assert ref.shape[1] == sides[-1][1]
@@ -74,22 +74,22 @@ def test_reference_pruning_equals_the_ports(pattern):
     cfg["layers"][4]["cin"] = 64            # a balance permutation to fold
     filters, _ = make_inputs(cfg, 1, 16, 3, "cpu")
     dense = [f.numpy() for f in filters]
-    pruned = net.prune_filters(cfg, dense)
-    chain = build_sparse_chain(dense, density=cfg["density"],
-                               pattern=pattern, device="cpu")
+    pruned = chain.prune_filters(cfg, dense)
+    packed = build_sparse_chain(dense, density=cfg["density"],
+                                pattern=pattern, device="cpu")
     prev = np.arange(dense[0].shape[2])
-    for w_ref, conv in zip(pruned, chain):
+    for w_ref, conv in zip(pruned, packed):
         want = w_ref[:, :, prev, :][..., conv.perm]
         np.testing.assert_array_equal(conv.w_dense, want)
         assert (w_ref != 0).any()
         prev = conv.perm
-    assert (chain[-1].perm == np.arange(chain[-1].cout)).all()
+    assert (packed[-1].perm == np.arange(packed[-1].cout)).all()
 
 
 def test_tf32_rounding():
     x = torch.tensor([1.0, 1.0 + 2**-10, 1.0 + 2**-11, 1.0 + 3 * 2**-11,
                       -2.5 - 2**-20])
-    got = net.to_tf32(x)
+    got = chain.to_tf32(x)
     assert got.tolist() == [1.0, 1.0 + 2**-10, 1.0, 1.0 + 2**-9, -2.5]
 
 
@@ -99,12 +99,13 @@ def test_control_fails_the_check(pattern):
     far above a sound answer and fails the cells' limit."""
     cfg = tiny_config(pattern)
     filters, pool = make_inputs(cfg, 8, 16, 5, "cpu")
-    pruned = net.prune_filters(cfg, [f.numpy() for f in filters])
-    ref = net.device_filters(pruned, "cpu")
+    pruned = chain.prune_filters(cfg, [f.numpy() for f in filters])
+    ref = chain.device_filters(pruned, "cpu")
     items = [(i, i, 16) for i in range(8)]
-    control = harness.reference_outputs(cfg, ref, pool, items, 16, "tf32")
+    control = harness.reference_outputs(chain, cfg, ref, pool, items, 16,
+                                        "tf32")
     samples = {16: [it + (o.numpy(),) for it, o in zip(items, control)]}
-    checks = harness.check(cfg, ref, pool, samples, 0,
+    checks = harness.check(chain, cfg, ref, pool, samples, 0,
                            {"max_rel_err": 1e-4})
     assert checks["max_rel_err"]["value"] > 1e-4
     assert not harness.is_correct(checks)

@@ -7,7 +7,7 @@ import pytest
 import torch
 
 from bench.inputs import make_inputs
-from bench.reference import counts, net
+from bench.reference import chain, counts
 from conftest import tiny_config
 
 
@@ -20,12 +20,13 @@ def brute_force_macs(config, filters, x):
     for i in range(len(config["layers"])):
         acts.append(y.numpy())
         sub = dict(config, layers=config["layers"][i:i + 1])
-        y = net.forward(sub, net.device_filters([filters[i]], "cpu"), y)
+        y = chain.forward(sub, chain.device_filters([filters[i]], "cpu"),
+                          y)
     out = np.zeros((x.shape[0], len(config["layers"])), np.int64)
     for li, (l, w, a) in enumerate(zip(config["layers"], filters, acts)):
         k, s = l["k"], l["stride"]
-        ph = net.same_pads(a.shape[1], k, s)
-        pw = net.same_pads(a.shape[2], k, s)
+        ph = chain.same_pads(a.shape[1], k, s)
+        pw = chain.same_pads(a.shape[2], k, s)
         ap = np.pad(a, ((0, 0), ph, pw, (0, 0)))
         oh = (ap.shape[1] - k) // s + 1
         ow = (ap.shape[2] - k) // s + 1
@@ -41,15 +42,15 @@ def brute_force_macs(config, filters, x):
 def test_two_sided_macs_equal_a_brute_force_count(pattern):
     cfg = tiny_config(pattern)
     filters, pool = make_inputs(cfg, 2, 16, 9, "cpu")
-    pruned = net.prune_filters(cfg, [f.numpy() for f in filters])
+    pruned = chain.prune_filters(cfg, [f.numpy() for f in filters])
     per_layer = []
-    net.forward(cfg, net.device_filters(pruned, "cpu"), pool,
+    chain.forward(cfg, chain.device_filters(pruned, "cpu"), pool,
                 masks_out=per_layer)
     got = torch.stack(per_layer, 1).numpy()
     want = brute_force_macs(cfg, pruned, pool.numpy())
     np.testing.assert_array_equal(got, want)
     # zeros on both sides are skipped: fewer than the one-sided count
-    sides = net.output_sides(cfg, 16)
+    sides = chain.output_sides(cfg, 16)
     dense = sum(oh * oh * l["k"] ** 2 * l["cin"] * l["cout"]
                 for l, (_, oh) in zip(cfg["layers"], sides))
     assert 0 < got.sum(1).max() < dense
@@ -60,7 +61,7 @@ def test_map_and_filter_bytes_from_shapes():
     # 16 -> 8 (stem, stride 2) -> pool 4 -> 4 -> 4 -> pool 2 -> 2
     want = (16 * 16 * 3 + 8 * 8 * 16) + (4 * 4 * 16 + 4 * 4 * 32) \
         + (4 * 4 * 32 + 4 * 4 * 32) + (2 * 2 * 32 + 2 * 2 * 16)
-    assert counts.map_bytes(cfg, 16) == 4 * want
+    assert chain.map_bytes(cfg, 16) == 4 * want
     w = [np.array([[0.0, 1.0], [2.0, 0.0]], np.float32)]
     assert counts.filter_bytes(w) == 8
 
@@ -68,12 +69,12 @@ def test_map_and_filter_bytes_from_shapes():
 def test_forward_bound_takes_the_larger_side():
     cfg = tiny_config()
     peaks = {"float32_flops": 1e12, "hbm_bytes_per_s": 1e9}
-    per_img = counts.map_bytes(cfg, 16)
+    per_img = chain.map_bytes(cfg, 16)
     # bytes-bound: 2 images, few MACs
-    got = counts.forward_bound_s(10, 2, cfg, 16, 400, peaks)
+    got = counts.forward_bound_s(10, 2, per_img, 400, peaks)
     assert got == pytest.approx((2 * per_img + 400) / 1e9)
     # compute-bound: many MACs
-    got = counts.forward_bound_s(10**12, 2, cfg, 16, 400, peaks)
+    got = counts.forward_bound_s(10**12, 2, per_img, 400, peaks)
     assert got == pytest.approx(2.0)
 
 
