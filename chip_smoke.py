@@ -261,10 +261,25 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    1e-5), ``torch_serve_batched --smoke --sparse`` (batch-composition
    check) and 4 pruned, checkpointed steps of ``torch_train_sparse_lm``.
 
-Phase 24 runs right after phase 4, phases 13-19 between phases 10 and
-11, phases 21 to 23 between 11 and the VGG16 half of 12, phase 20 last;
+25. ResNet-50 v1.5 with its 16 shortcut adds (53 convs at their
+   published widths, unstructured at density 0.421, He-normal filters from
+   SEED) at 224 px and 32 images, as the benchmark cell
+   ``resnet50_residual.offline_b32`` runs it: K1's residual flush
+   (``worklist_spmm(..., residual=)``, ``act(acc + shortcut)``) at stage
+   2's first 1x1 64->256 (56 px, adding the projection) and stage 5's last
+   512->2048 (7 px), on the dense oracle's maps, against its plain version
+   (rel err <= 1e-5, occupancy equal), bit for bit K1 without the shortcut
+   plus torch's add and ReLU, the shortcut read in place, timed beside K1
+   without it, its plain version and its bound; then the graphed forward,
+   first call and replay bitwise the eager one, within 1e-4 of
+   ``dense_forward`` (cuDNN, TF32 off), one replay counting 53 walker
+   launches and 16 on ``WALK_RESIDUAL``.
+
+Phase 24 runs right after phase 4, phase 25 right after 24, phases 13-19
+between phases 10 and 11, phases 21 to 23 between 11 and the VGG16 half of
+12, phase 20 last;
 K3's and K4's ``launches_by_path`` gain the paths of 13, 14, 17, 18, 20
-and 24, K1's and K2's those of 11, 21 and 24.
+and 24, K1's and K2's those of 11, 21 and 24, K1's that of 25.
 
 The serving and training paths run compiled, as the reference's
 ``jax.jit`` does: the LM decode step under ``Scheduler`` and ``generate``
@@ -374,6 +389,11 @@ NET_WINDOWS = 5
 # K1/K2 against their plain versions: AlexNet's 11x11 stride-4 stem and
 # ResNet-50's first 1x1 layer with 2048 input channels (7x7 maps)
 NET_KERNEL_LAYERS = {"AlexNet": (0,), "ResNet50": (43,)}
+# phase 25: ResNet-50 v1.5 as its benchmark cell runs it (density, batch,
+# the benchmark's limit), the residual flush at stage 2's first 1x1 64->256
+# (56 px, adding the projection) and stage 5's last 512->2048 (7 px)
+RESIDUAL_DENSITY, RESIDUAL_BATCH, RESIDUAL_TOL = 0.421, 32, 1e-4
+RESIDUAL_KERNEL_LAYERS = (4, 52)
 
 
 class SmokeFailure(RuntimeError):
@@ -4266,6 +4286,183 @@ def table1_phase(card: str, vgg_stats):
     return nets, recs, by_path, k34
 
 
+# ---------------------------------------------------------------------------
+# phase 25: ResNet-50 v1.5 with its shortcuts, K1's residual flush
+def resnet50_residual(dev):
+    """ResNet-50 v1.5 at its published widths and depth (the benchmark's
+    ``bench/reference/residual.py`` writes its 53 layers), unstructured at
+    RESIDUAL_DENSITY, He-normal filters from SEED, on ``dev``."""
+    sys.path.insert(0, str(ROOT))
+    from bench.reference.residual import bottleneck_layers
+    from repro_torch.vision.model import build_residual_model
+    wiring = bottleneck_layers()
+    rng = np.random.default_rng(SEED)
+    dense = [(rng.normal(size=(w["k"], w["k"], w["cin"], w["cout"]))
+              * np.sqrt(2.0 / (w["k"] ** 2 * w["cin"]))).astype(np.float32)
+             for w in wiring]
+    return build_residual_model("ResNet50", dense, wiring, input_size=SIZE,
+                                density=RESIDUAL_DENSITY, device=dev)
+
+
+def map_of(model, layer: int, x):
+    """The dense oracle's output map of ``layer`` (NHWC; -1 the image)."""
+    from repro_torch.vision import dense_forward
+    from repro_torch.vision.model import VisionModel
+    if layer < 0:
+        return x
+    head = VisionModel(model.name, model.layers[:layer + 1],
+                       model.input_size, model.density, model.device)
+    return dense_forward(head, x)
+
+
+# lint: ignore[EAGER-GUARD] builds its schedules eagerly, before any capture
+def residual_kernel_phase(model, x, layer: int, card: str):
+    """K1's residual flush at one 1x1 stride-1 conv that adds a shortcut,
+    on the dense oracle's maps of ``x``: against its plain version
+    (``worklist_spmm_plain(..., residual=)``), bit for bit against K1
+    without the shortcut followed by torch's add and ReLU (both round
+    acc + shortcut once in fp32), the shortcut read where it lies; timed
+    beside K1 without it, its plain version and its bound. Returns the
+    record."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import worklist_core as WC
+    from repro_torch.kernels.sparse_conv import shortcut_rows
+    lay = model.layers[layer]
+    c, w = lay.conv, lay.conv.packed
+    require(c.kh == c.kw == 1 and tuple(lay.stride) == (1, 1)
+            and lay.add is not None, f"layer {layer} is no 1x1 add")
+    src = layer - 1 if lay.src is None else lay.src
+    inp, short = map_of(model, src, x), map_of(model, lay.add, x)
+    B, oh, ow, cin = inp.shape
+    m_img = oh * ow
+    m_pad = m_img + (-m_img) % 128
+    bm_rows, sub_m = 128, 8
+    mpi = m_pad // bm_rows
+    flat = F.pad(inp.reshape(B, m_img, cin),
+                 (0, w.shape[0] - cin, 0, m_pad - m_img)) \
+        .reshape(B * m_pad, -1).contiguous()
+    ld = w.n_blocks * w.bn
+    require(ld == c.cout, f"layer {layer}: cout {c.cout} in {ld} columns")
+    # the shortcut where its producer's flush left it: padded rows
+    buf = torch.zeros(B, m_pad, ld, device=x.device)
+    buf[:, :m_img] = short.reshape(B, m_img, ld)
+    res = shortcut_rows(buf[:, :m_img].reshape(B, oh, ow, ld), m_pad, ld)
+    require(res.data_ptr() == buf.data_ptr(),
+            f"layer {layer}: the shortcut was copied, not read in place")
+    idx = w.host_indices()
+    wl = WC.build_worklist(idx, B * mpi, mb_per_img=mpi)
+    kw = dict(bk=w.bk, bn=w.bn, bm_rows=bm_rows, sub_m=sub_m,
+              emit_occupancy=True)
+    WC.WALK_RESIDUAL.launches = 0
+    out, occ = WC.worklist_spmm(flat, w.vals, wl, mb_per_img=mpi,
+                                ncolors=2, act="relu", residual=res, **kw)
+    bare = WC.worklist_spmm(flat, w.vals, wl, mb_per_img=mpi, ncolors=2,
+                            act=None, **kw)[0]
+    pout, pocc = WC.worklist_spmm_plain(flat, w.vals, wl, act="relu",
+                                        residual=res, **kw)
+    torch.cuda.synchronize()
+    require(WC.WALK_RESIDUAL.launches == 1,
+            f"layer {layer}: {WC.WALK_RESIDUAL.launches} residual launches")
+    abs_, rel = errors(out, pout)
+    at = (f"ResNet-50 v1.5 layer {layer} ({c.kh}x{c.kw}x{c.cin}->{c.cout}, "
+          f"adds layer {lay.add}), {B} images, {oh}x{ow} map, "
+          f"{c.pattern} pattern, bk={w.bk} bn={w.bn}")
+    require(rel <= TOL, f"residual flush vs plain at layer {layer}: rel "
+                        f"{rel:.3e}")
+    require(torch.equal(occ, pocc),
+            f"residual flush occupancy differs from plain at layer {layer}")
+    require(torch.equal(out, torch.clamp_min(bare + res, 0.0)),
+            f"residual flush != K1 + add + ReLU bitwise at layer {layer}")
+    grid = WC.walk_mode(flat, w.vals, None, wl, bk=w.bk, bn=w.bn,
+                        bm_rows=bm_rows).describe()
+    k_ms = graph_ms(lambda: WC.worklist_spmm(
+        flat, w.vals, wl, mb_per_img=mpi, ncolors=2, act="relu",
+        residual=res, **kw), reps=20)
+    bare_ms = graph_ms(lambda: WC.worklist_spmm(
+        flat, w.vals, wl, mb_per_img=mpi, ncolors=2, act="relu", **kw),
+        reps=20)
+    p_ms = cuda_ms(lambda: WC.worklist_spmm_plain(
+        flat, w.vals, wl, act="relu", residual=res, **kw), reps=3)
+    # the function's needs: a MAC for every occupied sub_m-row sub-block of
+    # a stored chunk; the used chunks of the real rows, the stored weights,
+    # the shortcut and the output of the real rows (and its occupancy)
+    # moved once
+    per_chunk = WC.activation_occupancy(flat, sub_m, w.bk).sum(0) \
+        .cpu().numpy()
+    live_macs = int(per_chunk[idx[idx >= 0]].sum())
+    rows = B * m_img
+    used = np.unique(idx[idx >= 0]).size
+    nbytes = 4.0 * (rows * w.bk * used + int((idx >= 0).sum()) * w.bk * w.bn
+                    + 2 * rows * ld + rows // sub_m * w.n_blocks)
+    b_ms, b_by = bound(2.0 * sub_m * w.bk * w.bn * live_macs, nbytes)
+    print(f"residual flush @ {at} [{card}]")
+    print(f"  walker, act(acc + shortcut): max abs err {abs_:.3e}, max rel "
+          f"err {rel:.3e}, occupancy equal to the plain version, bitwise "
+          f"equal to K1 + torch add + ReLU, the shortcut read in place; "
+          f"{grid}; kernel {k_ms:.4f} ms, without the shortcut "
+          f"{bare_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by})")
+    return {"at": at, "mode": "tile, residual", "max_abs_err": abs_,
+            "max_rel_err": rel, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "grid": grid,
+            "without_shortcut_ms": bare_ms}
+
+
+def residual_phase(card: str):
+    """Phase 25: ResNet-50 v1.5 with its 16 shortcuts at 224 px and
+    RESIDUAL_BATCH images (the benchmark cell's batch): K1's residual flush
+    at RESIDUAL_KERNEL_LAYERS (:func:`residual_kernel_phase`), then the
+    graphed forward, its first call and a replay bitwise the eager one,
+    within RESIDUAL_TOL of ``dense_forward``, and the counters read from
+    one replay: the walker once a layer, WALK_RESIDUAL once a block.
+    Returns the kernel records and the walker's launches by path."""
+    import torch
+    from repro_torch.core import simulator as S
+    from repro_torch.kernels.worklist_core import WALK, WALK_RESIDUAL
+    from repro_torch.launch.vision import blob_images
+    from repro_torch.vision import (compile_forward, dense_forward,
+                                    graphed_forward)
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    model = resnet50_residual(dev)
+    n = model.num_layers
+    blocks = sum(1 for layer in model.layers if layer.add is not None)
+    imgs = blob_images(np.random.default_rng(SEED), RESIDUAL_BATCH, SIZE,
+                       S.BENCHMARKS["ResNet50"].map_density)
+    x = torch.as_tensor(imgs, device=dev)
+    with torch.no_grad():
+        recs = [residual_kernel_phase(model, x, layer, card)
+                for layer in RESIDUAL_KERNEL_LAYERS]
+        torch.cuda.empty_cache()
+        eager = compile_forward(model)(x)
+        fwd = graphed_forward(model)
+        first = fwd(x)
+        torch.cuda.synchronize()
+        WALK.launches = WALK_RESIDUAL.launches = 0
+        replay = fwd(x)
+        torch.cuda.synchronize()
+        walks, fused = WALK.launches, WALK_RESIDUAL.launches
+        ref = dense_forward(model, x)
+    require(torch.equal(first, eager) and torch.equal(replay, eager),
+            "ResNet-50 v1.5: the graphed forward != the eager one bitwise")
+    require((n, blocks) == (53, 16) and (walks, fused) == (n, blocks),
+            f"ResNet-50 v1.5 ({n} layers, {blocks} adds): a replay launched "
+            f"the walker {walks} times, {fused} of them residual")
+    _, rel = errors(replay, ref)
+    require(rel <= RESIDUAL_TOL, f"ResNet-50 v1.5: the graphed forward's rel"
+                                 f" err {rel:.3e} > {RESIDUAL_TOL}")
+    print(f"ResNet-50 v1.5 ({n} convs, {blocks} shortcut adds) at {SIZE} px,"
+          f" {RESIDUAL_BATCH} images: graphed forward (first call, replay) "
+          f"bitwise the eager one, rel err {rel:.3e} against dense_forward "
+          f"(cuDNN, TF32 off); one replay: {walks} walker launches, {fused} "
+          f"of them residual flushes; phase 25 "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    del model, fwd
+    torch.cuda.empty_cache()
+    return recs, {"resnet50_residual_graphed_replay": walks}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4301,6 +4498,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     nets, t1_recs, t1_paths, t1_k34 = table1_phase(card, vgg_stats)  # 24
     torch.cuda.empty_cache()
+    res_recs, res_paths = residual_phase(card)     # phase 25
     dev = torch.device("cuda")
     cfg, params = build_lm(dev)
     lm_admission_phase(cfg, params, card)          # phase 12 (Qwen3-4B)
@@ -4356,7 +4554,7 @@ def main() -> int:
 
     walker = kernels[0]
     walker["shapes"] += k1_recs + k1_rwkv_recs + slab_recs + \
-        t1_recs["walker"]
+        t1_recs["walker"] + res_recs
     # per mode, the shape its path runs most: VGG16 layer 1 for the tile
     # mode, Qwen3-4B decode (4 rows) in bf16 for the grid modes
     modes = {}
@@ -4371,7 +4569,7 @@ def main() -> int:
         "qwen3_4b_ffn_compact": k1_qwen,
         "rwkv6_3b_channel_mix_compact": k1_rwkv, **slab_launches,
         **mesh_launches, "sharded_serve_steps_mesh": 0,
-        **t1_paths["walker"]}
+        **t1_paths["walker"], **res_paths}
     # phase 23 (the dense sharded serve steps) launches none of the four
     grid = kernels[1]
     grid["launches_by_path"] = {

@@ -21,8 +21,8 @@ Two halves, one diagnostics vocabulary:
   off the CPU branch).
 
 Both run from ``python -m repro_torch.analysis.lint``, and the verifier
-is wired into pack time (``build_sparse_chain``/``sparsify_model``
-``strict=``) and admission
+is wired into pack time (``build_sparse_chain``/``build_sparse_graph``/
+``sparsify_model`` ``strict=``) and admission
 (:class:`~repro_torch.vision.engine.VisionEngine`,
 :class:`~repro_torch.serve.vision.VisionServer`,
 :class:`~repro_torch.serve.scheduler.Scheduler`), on by default.
@@ -34,8 +34,8 @@ from repro_torch.analysis.diagnostics import (AnalysisError, Diagnostic,
 from repro_torch.analysis.verify import (SMEM_BUDGET_BYTES, verify_artifact,
                                          verify_block_sparse, verify_chain,
                                          verify_combined_schedule,
-                                         verify_ffn_leaves, verify_model,
-                                         verify_packed_conv,
+                                         verify_ffn_leaves, verify_graph,
+                                         verify_model, verify_packed_conv,
                                          verify_param_leaves,
                                          verify_sparse_ffn, verify_worklist)
 
@@ -43,7 +43,8 @@ __all__ = [
     "AnalysisError", "Diagnostic", "SMEM_BUDGET_BYTES", "Severity",
     "has_errors", "raise_on_errors", "render_github", "render_text",
     "verify_artifact", "verify_block_sparse", "verify_chain",
-    "verify_combined_schedule", "verify_ffn_leaves", "verify_model",
+    "verify_combined_schedule", "verify_ffn_leaves", "verify_graph",
+    "verify_model",
     "verify_packed_conv", "verify_param_leaves", "verify_sparse_ffn",
     "verify_worklist",
 ]

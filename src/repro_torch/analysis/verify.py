@@ -123,6 +123,10 @@ register("CH-GEOM", E, "fold legality across ReLU/pool: cout_i == "
          "pack+admission+ci")
 register("CH-LAST-PERM", E, "last layer unpermuted (network outputs leave "
          "in canonical channel order)", "pack+admission+ci")
+register("CH-WIRING", E, "a graph's layer reads and adds maps of earlier "
+         "layers (or the image) only", "pack+admission+ci")
+register("CH-ADD", E, "the two maps an add joins agree in shape and in "
+         "channel permutation", "pack+admission+ci")
 
 register("FF-ALIGN", E, "gated in/gate chunk lists share one slot axis",
          "pack+admission+ci")
@@ -1048,33 +1052,73 @@ def _verify_tuned(pc, path: str, card: bool = False) -> List[Diagnostic]:
     return out
 
 
-def verify_chain(chain: Sequence, path: str = "chain", *,
+def verify_chain(chain: Sequence, path: str = "chain",
+                 **kw) -> List[Diagnostic]:
+    """:func:`verify_graph` on a sequential conv chain."""
+    return verify_graph(chain, [None] * len(chain), [None] * len(chain),
+                        path, **kw)
+
+
+def verify_graph(convs: Sequence, srcs: Sequence[Optional[int]],
+                 adds: Sequence[Optional[int]], path: str = "graph", *,
+                 sides: Optional[Sequence[Tuple[Tuple[int, int],
+                                                Tuple[int, int]]]] = None,
                  check_values: bool = True, deep: bool = False,
                  device=None) -> List[Diagnostic]:
-    """Prove a sequential conv chain fold-legal end to end, plus every
-    layer individually."""
+    """Prove a graph of convs (``srcs[i]``: the layer whose output layer
+    ``i`` reads, -1 the image, None the layer before; ``adds[i]``: the
+    layer whose output it adds, or None) fold-legal by its edges, plus
+    every layer individually: each layer reads and adds earlier maps
+    (CH-WIRING), its cin is its source's cout (CH-GEOM), the two maps of an
+    add carry the same channels in the same permutation and, with
+    ``sides`` (per layer the conv's output sides and its map's sides after
+    the pool), the same sides (CH-ADD); the last map leaves unpermuted
+    (CH-LAST-PERM)."""
     out: List[Diagnostic] = []
-    for i, pc in enumerate(chain):
+    for i, pc in enumerate(convs):
         out.extend(verify_packed_conv(pc, f"{path}/layer{i}",
                                       check_values=check_values,
                                       deep=deep, device=device))
-    for i, (a, b) in enumerate(zip(chain, chain[1:])):
-        if a.cout != b.cin:
+    for i, (pc, s, a) in enumerate(zip(convs, srcs, adds)):
+        p = f"{path}/layer{i}"
+        s = i - 1 if s is None else s
+        if not -1 <= s < i or (a is not None and not 0 <= a < i):
             out.append(diag(
-                "CH-GEOM", f"{path}/layer{i}",
-                f"cout={a.cout} feeds layer{i + 1} cin={b.cin}",
-                hint="folding layer i's permutation into layer i+1's "
-                     "input axis needs matching channel counts (ReLU/"
-                     "max-pool act per-channel and preserve the axis)"))
-    if chain:
-        last = np.asarray(chain[-1].perm)
-        if last.shape == (chain[-1].cout,) and \
-                (last != np.arange(chain[-1].cout)).any():
+                "CH-WIRING", p, f"reads layer {s} and adds layer {a}",
+                hint="a layer reads the image (-1) or an earlier layer's "
+                     "output, and adds an earlier layer's output"))
+            continue
+        if s >= 0 and convs[s].cout != pc.cin:
             out.append(diag(
-                "CH-LAST-PERM", f"{path}/layer{len(chain) - 1}",
+                "CH-GEOM", p, f"cin={pc.cin} reads layer{s} cout="
+                              f"{convs[s].cout}",
+                hint="a layer reads its source map's channels, in that "
+                     "map's permutation"))
+        if a is None:
+            continue
+        other = convs[a]
+        same_perm = np.array_equal(np.asarray(other.perm),
+                                   np.asarray(pc.perm))
+        shape = (pc.cout,) + (tuple(sides[i][0]) if sides else ())
+        shape_a = (other.cout,) + (tuple(sides[a][1]) if sides else ())
+        if shape != shape_a or not same_perm:
+            out.append(diag(
+                "CH-ADD", p,
+                f"adds layer{a}'s map {shape_a} to its own {shape}" +
+                ("" if same_perm else " in another channel permutation"),
+                hint="an add sums two maps channel by channel: both are "
+                     "one shape, and the convs that write them permute "
+                     "their channels alike (one permutation per group of "
+                     "maps an add joins)"))
+    if convs:
+        last = np.asarray(convs[-1].perm)
+        if last.shape == (convs[-1].cout,) and \
+                (last != np.arange(convs[-1].cout)).any():
+            out.append(diag(
+                "CH-LAST-PERM", f"{path}/layer{len(convs) - 1}",
                 "last layer carries a non-identity balance permutation",
-                hint="there is no next layer to fold the inverse into — "
-                     "the network's outputs would leave permuted"))
+                hint="no layer reads the last map: the network's outputs "
+                     "would leave permuted"))
     return out
 
 
@@ -1082,11 +1126,24 @@ def verify_model(model, path: Optional[str] = None, *,
                  check_values: bool = True, deep: bool = False,
                  device=None) -> List[Diagnostic]:
     """Verify a :class:`~repro_torch.vision.model.VisionModel`'s packed
-    chain."""
+    convs by their edges (:func:`verify_graph`; where a layer adds, with
+    each map's sides at the model's input size)."""
+    from repro_torch.vision.model import layer_geometry, pooled_size
     p = path if path is not None else f"zoo/{model.name}"
-    return verify_chain([layer.conv for layer in model.layers], p,
-                        check_values=check_values, deep=deep,
-                        device=device)
+    convs = [layer.conv for layer in model.layers]
+    srcs = [layer.src for layer in model.layers]
+    adds = [layer.add for layer in model.layers]
+    sides = None
+    if any(a is not None for a in adds) and all(
+            -1 <= (i - 1 if s is None else s) < i and
+            (a is None or 0 <= a < i)
+            for i, (s, a) in enumerate(zip(srcs, adds))):
+        geo = layer_geometry(model, model.input_size)
+        sides = [((g["oh"], g["ow"]),
+                  pooled_size(g["oh"], g["ow"], layer.pool_after))
+                 for g, layer in zip(geo, model.layers)]
+    return verify_graph(convs, srcs, adds, p, sides=sides,
+                        check_values=check_values, deep=deep, device=device)
 
 
 # ---------------------------------------------------------------------------

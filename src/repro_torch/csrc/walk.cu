@@ -76,6 +76,14 @@
 // the same address map. Every stage holds the values the patch-matrix
 // operand stages, so the result is bit for bit K1's on the patch matrix.
 //
+// The residual flush (the tile mode, fp32, one stream, the patch matrix: a
+// ResNet block's last conv). res is the shortcut in the output's own
+// geometry [M, nb * bn], and the flush stores act(acc + res) at every
+// element it stores, reading res there and nowhere else: one fp32 add, so
+// the result is bit for bit K1 without it followed by an add and act. Its
+// launches are tile_kernel_residual, the body of tile_kernel with the add;
+// tile_kernel itself has none.
+//
 // The grid mode (bm_rows dividing 32: the compact FFN schedule's 8-row
 // blocks, also 16 and 32). This mode runs on the grid of the dense FFN
 // kernels (ffn_grid.cuh): 64-thread CTAs over 32-row x 16- or 32-column
@@ -127,6 +135,8 @@
 // against a 64 KB weight tile, below the ridge, but each element's chain of
 // dependent fmaf runs on the latency of a few busy CTAs per SM, as in the
 // dense FFN kernels.
+#include <type_traits>
+
 #include "ffn_grid.cuh"
 
 namespace {
@@ -258,6 +268,7 @@ struct TileArgs {
   // contiguous), rows are pixels of images of m_pad rows, m_img real
   int H, W, cin, cpt, kw, sh, sw, ph0, pw0, ow, m_img, m_pad;
   long img_stride;
+  const T* res;         // tile_kernel_residual: the shortcut [M, nb * bn]
 };
 
 // The conv geometry of the tap-slab operand, as the C entry takes it.
@@ -420,12 +431,13 @@ __device__ __forceinline__ void mac(float (&acc)[TM][8], const float* xt,
 }
 
 // One CTA: RT = a.rows rows x CT columns of one pair's output. MAP: x is
-// the input map (the tap-slab operand).
-template <typename T, int TM, int CT, bool GATED, bool MAP>
-__global__ void __launch_bounds__((Lay<T, TM, CT>::THREADS))
-    tile_kernel(const TileArgs<T> a, const __grid_constant__ CUtensorMap tx,
-                const __grid_constant__ CUtensorMap tw0,
-                const __grid_constant__ CUtensorMap tw1) {
+// the input map (the tap-slab operand). RES: the flush adds a.res before
+// act. tx, tw0 and tw1 are the kernel's own __grid_constant__ parameters.
+template <typename T, int TM, int CT, bool GATED, bool MAP, bool RES>
+__device__ __forceinline__ void tile_body(const TileArgs<T>& a,
+                                          const CUtensorMap& tx,
+                                          const CUtensorMap& tw0,
+                                          const CUtensorMap& tw1) {
   using L = Lay<T, TM, CT>;
   using V = V16<T>;
   extern __shared__ unsigned char smem_raw[];
@@ -636,11 +648,27 @@ __global__ void __launch_bounds__((Lay<T, TM, CT>::THREADS))
     for (int v = 0; v < L::NV; ++v) {
       const int col = cl * L::VK + v * (CT / L::NV);
       float y[L::VK];
+      // RES: the shortcut at the elements this thread stores
+      float sc[L::VK];
+      if constexpr (RES) {
+        const T* rp = a.res + (row_base + r) * ldo + (long)n * a.bn + c0 + col;
+        if (a.vec_out && col + L::VK <= cols) {
+          const typename V::R rv = ld16(rp);
+#pragma unroll
+          for (int c = 0; c < L::VK; ++c) sc[c] = V::at(rv, c);
+        } else {
+#pragma unroll
+          for (int c = 0; c < L::VK; ++c)
+            sc[c] = col + c < cols ? tile::widen(rp[c]) : 0.f;
+        }
+      }
 #pragma unroll
       for (int c = 0; c < L::VK; ++c) {
         float gv = 0.f;
         if constexpr (GATED) gv = acc2[i][v * L::VK + c];
-        y[c] = fgrid::act_of(acc[i][v * L::VK + c], gv, a.act);
+        float h = acc[i][v * L::VK + c];
+        if constexpr (RES) h += sc[c];
+        y[c] = fgrid::act_of(h, gv, a.act);
         if (a.occ_out != nullptr && col + c < cols &&
             fgrid::stored_nonzero(y[c], out))
           nz |= 1u << i;
@@ -694,9 +722,33 @@ __global__ void __launch_bounds__((Lay<T, TM, CT>::THREADS))
 }
 
 template <typename T, int TM, int CT, bool GATED, bool MAP>
+__global__ void __launch_bounds__((Lay<T, TM, CT>::THREADS))
+    tile_kernel(const TileArgs<T> a, const __grid_constant__ CUtensorMap tx,
+                const __grid_constant__ CUtensorMap tw0,
+                const __grid_constant__ CUtensorMap tw1) {
+  tile_body<T, TM, CT, GATED, MAP, false>(a, tx, tw0, tw1);
+}
+
+// tile_kernel whose flush stores act(acc + a.res): one stream, the patch
+// matrix
+template <typename T, int TM, int CT>
+__global__ void __launch_bounds__((Lay<T, TM, CT>::THREADS))
+    tile_kernel_residual(const TileArgs<T> a,
+                         const __grid_constant__ CUtensorMap tx,
+                         const __grid_constant__ CUtensorMap tw0,
+                         const __grid_constant__ CUtensorMap tw1) {
+  tile_body<T, TM, CT, false, false, true>(a, tx, tw0, tw1);
+}
+
+template <typename T, int TM, int CT, bool GATED, bool MAP, bool RES>
 int launch_tile_ct(TileArgs<T> a, const MapGeom& g, cudaStream_t st) {
   using L = Lay<T, TM, CT>;
-  const auto kernel = tile_kernel<T, TM, CT, GATED, MAP>;
+  const auto kernel = [] {
+    if constexpr (RES)
+      return tile_kernel_residual<T, TM, CT>;
+    else
+      return tile_kernel<T, TM, CT, GATED, MAP>;
+  }();
   const int threads = a.rows * CT / (TM * 8) + (a.tma ? 32 : 0);
   if (a.rows <= 0 || a.rows > MAX_ROWS || a.rows % L::BAND ||
       threads > L::THREADS)
@@ -739,16 +791,16 @@ int launch_tile_ct(TileArgs<T> a, const MapGeom& g, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int TM, bool GATED, bool MAP>
+template <typename T, int TM, bool GATED, bool MAP, bool RES = false>
 int launch_tile_tm(const TileArgs<T>& a, const MapGeom& g, int cols,
                    cudaStream_t st) {
   switch (cols) {
     case 128:
-      return launch_tile_ct<T, TM, 128, GATED, MAP>(a, g, st);
+      return launch_tile_ct<T, TM, 128, GATED, MAP, RES>(a, g, st);
     case 64:
-      return launch_tile_ct<T, TM, 64, GATED, MAP>(a, g, st);
+      return launch_tile_ct<T, TM, 64, GATED, MAP, RES>(a, g, st);
     case 32:
-      return launch_tile_ct<T, TM, 32, GATED, MAP>(a, g, st);
+      return launch_tile_ct<T, TM, 32, GATED, MAP, RES>(a, g, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -756,15 +808,17 @@ int launch_tile_tm(const TileArgs<T>& a, const MapGeom& g, int cols,
 
 // The tile mode: CTAs of rows x cols with thread_rows rows a thread (8, or
 // 4; two streams take 4), a ring of tensor copies (tma = 1) or plain copies
-// (tma = 0); with g.m_pad > 0 x is the input map (the tap-slab operand).
+// (tma = 0); with g.m_pad > 0 x is the input map (the tap-slab operand);
+// with res the residual flush (fp32, one stream, the patch matrix).
 template <typename T>
 int launch_tile(const void* x, const void* vals, const void* vals2,
                 const int* pair_ptr, const int* ks, const int* k2s,
                 const int* js, void* out, int* occ_out, int M, int K, int nb,
                 int mb, int max_nz, int bk, int bn, int bm_rows, int sub_m,
                 int act, int emit_occ, int rows, int cols, int thread_rows,
-                int tma, const MapGeom& g, cudaStream_t st) {
+                int tma, const MapGeom& g, const void* res, cudaStream_t st) {
   TileArgs<T> a{};
+  a.res = static_cast<const T*>(res);
   a.pair_ptr = pair_ptr;
   a.ks[0] = ks, a.ks[1] = k2s;
   a.js = js;
@@ -805,6 +859,17 @@ int launch_tile(const void* x, const void* vals, const void* vals2,
     const cudaError_t e = cudaMemsetAsync(
         a.occ_out, 0, sizeof(int) * (size_t)(M / sub_m) * nb, st);
     if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (res != nullptr) {
+    if constexpr (std::is_same<T, float>::value) {
+      if (vals2 != nullptr || map)
+        return static_cast<int>(cudaErrorInvalidValue);
+      if (thread_rows == 8)
+        return launch_tile_tm<T, 8, false, false, true>(a, g, cols, st);
+      if (thread_rows == 4)
+        return launch_tile_tm<T, 4, false, false, true>(a, g, cols, st);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   if (vals2 != nullptr)
     return thread_rows == 4 ? launch_tile_tm<T, 4, true, false>(a, g, cols, st)
@@ -859,7 +924,9 @@ extern "C" const char* cuda_error_string(int code) {
 // kh x kw conv with strides (sh, sw) and pads (ph0, ph1), (pw0, pw1), its
 // images img_stride elements apart (each image's pixels contiguous), whose
 // outputs take m_pad rows an image, and K = kh * kw * cin (the tap-slab
-// operand); m_pad == 0: x is the patch matrix [M, K].
+// operand); m_pad == 0: x is the patch matrix [M, K]. res, or null: the
+// shortcut [M, nb * bn] that the tile mode's flush adds before act (fp32,
+// one stream, the patch matrix).
 // Returns the cudaError_t of the launch (0 = launched).
 extern "C" int walk_spmm(const void* x, const void* vals, const void* vals2,
                          const int* pair_ptr, const int* ks, const int* k2s,
@@ -871,7 +938,7 @@ extern "C" int walk_spmm(const void* x, const void* vals, const void* vals2,
                          int thread_rows, int tma, int H, int W, int cin,
                          int kh, int kw, int sh, int sw, int ph0, int ph1,
                          int pw0, int pw1, int m_pad, int img_stride,
-                         void* stream) {
+                         const void* res, void* stream) {
   (void)ncolors;     // see the note on colouring above
   (void)mb_per_img;
   if ((vals2 == nullptr) != (k2s == nullptr) || act < tile::ACT_NONE ||
@@ -881,7 +948,8 @@ extern "C" int walk_spmm(const void* x, const void* vals, const void* vals2,
   const MapGeom g{H, W, cin, kh, kw, sh, sw, ph0, ph1, pw0, pw1, m_pad,
                   img_stride};
   if (col_group != 0) {
-    if (m_pad != 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (m_pad != 0 || res != nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
     if (bf16)
       return launch_grid<__nv_bfloat16>(x, vals, vals2, pair_ptr, ks, k2s, js,
                                         out, occ_out, M, K, nb, max_nz, bk,
@@ -895,9 +963,9 @@ extern "C" int walk_spmm(const void* x, const void* vals, const void* vals2,
     return launch_tile<__nv_bfloat16>(
         x, vals, vals2, pair_ptr, ks, k2s, js, out, occ_out, M, K, nb, mb,
         max_nz, bk, bn, bm_rows, sub_m, act, emit_occ, tile_rows, tile_cols,
-        thread_rows, tma, g, st);
+        thread_rows, tma, g, res, st);
   return launch_tile<float>(x, vals, vals2, pair_ptr, ks, k2s, js, out,
                             occ_out, M, K, nb, mb, max_nz, bk, bn, bm_rows,
                             sub_m, act, emit_occ, tile_rows, tile_cols,
-                            thread_rows, tma, g, st);
+                            thread_rows, tma, g, res, st);
 }

@@ -260,8 +260,12 @@ def autotune_model(model, image_size: Optional[int] = None, *,
     """Walk a :class:`~repro_torch.vision.model.VisionModel`'s layer
     geometry and tune every conv (with ``measure``, on ``x`` carried through
     the layers at their default config); clears the model's compiled-forward
-    cache so that the next ``compile_forward`` runs the tuned configs."""
-    from repro_torch.vision.model import max_pool
+    cache so that the next ``compile_forward`` runs the tuned configs.
+    A graph (a ResNet's shortcuts) raises ``ValueError``: the walk carries
+    one map from layer to layer."""
+    from repro_torch.vision.model import (max_pool, pooled_size,
+                                          require_chain)
+    require_chain(model, "autotune_model")
     size = image_size if image_size is not None else model.input_size
     H = W = size
     records: Dict[int, TuneRecord] = {}
@@ -272,11 +276,7 @@ def autotune_model(model, image_size: Optional[int] = None, *,
         records[i] = autotune_conv(
             c, oh * ow, batch=batch, measure=measure, x=xi,
             stride=layer.stride, padding=layer.padding)
-        H, W = oh, ow
-        if layer.pool_after is not None and min(H, W) >= layer.pool_after[0]:
-            win, st = layer.pool_after
-            H = (H - win) // st + 1
-            W = (W - win) // st + 1
+        H, W = pooled_size(oh, ow, layer.pool_after)
         if measure and xi is not None:
             with torch.no_grad():
                 xi, _ = sparse_conv2d_nhwc(

@@ -46,9 +46,9 @@ from repro_torch.kernels.bitmask_spmm import subblock_macs
 from repro_torch.kernels.grid import GridGeometry, check_lm_grid, \
     check_row_block, tap_geometry
 from repro_torch.kernels.worklist_core import (DEFAULT_BM, LANE, WorkList,
-                                               _tile_output,
+                                               _occupancy_of, _tile_output,
                                                _worklist_spmm_cuda,
-                                               build_worklist,
+                                               activate, build_worklist,
                                                check_row_tiling,
                                                map_pixels_contiguous,
                                                schedule_counters,
@@ -313,6 +313,26 @@ def worklist_spmm_slabs(x: torch.Tensor, vals: torch.Tensor, wl: WorkList,
                                ncolors=2, taps=geom, **kw_)
 
 
+def shortcut_rows(s: torch.Tensor, m_pad: int, ld: int) -> torch.Tensor:
+    """The shortcut map ``s`` [B, OH, OW, C] as the ``[B * m_pad, ld]``
+    rows a conv's flush writes (each image ``m_pad`` rows, ``ld >= C``
+    columns): the buffer ``s`` was cut from where it is one, as a layer's
+    own output of that geometry is (its pad rows are that layer's, which
+    only reach the pad rows of the sum); else a zero-padded copy."""
+    b, oh, ow, c = s.shape
+    m_img = oh * ow
+    view = (ld == c and m_pad >= m_img
+            and s.stride() == (m_pad * ld, ow * ld, ld, 1)
+            and s.data_ptr() % 16 == 0
+            and s.untyped_storage().nbytes() >= (s.storage_offset()
+                                                 + b * m_pad * ld)
+            * s.element_size())
+    if view:
+        return s.as_strided((b * m_pad, ld), (ld, 1))
+    return F.pad(s.reshape(b, m_img, c),
+                 (0, ld - c, 0, m_pad - m_img)).reshape(b * m_pad, ld)
+
+
 def _static_worklist(w: bm.BlockSparseMatrix, mb: int, mb_per_img: int,
                      wl_cache: Optional[dict]):
     """The pack-time (weight-only) schedule for ``mb`` row blocks, cached
@@ -345,9 +365,18 @@ def sparse_conv2d_nhwc(x: torch.Tensor, w: bm.BlockSparseMatrix, kh: int,
                        layout: str = "channel",
                        compact_activations: bool = False,
                        report_schedule: bool = False,
-                       wl_cache: Optional[dict] = None):
+                       wl_cache: Optional[dict] = None,
+                       residual: Optional[torch.Tensor] = None):
     """One conv layer through the sparse kernels: x [B, H, W, Cin] ->
     [B, OH, OW, Cout] (ReLU fused when ``fuse_relu``).
+
+    ``residual`` [B, OH, OW, Cout] (a ResNet block's shortcut) is added to
+    the conv's output before the ReLU, and the occupancy is that of the
+    sum. The compact schedule adds it in K1's flush (fp32, its tile mode:
+    ``tile_kernel_residual``), reading it as the output's own padded rows
+    (:func:`shortcut_rows`); a layer with a shortcut reads the patch matrix
+    (``lazy`` is demoted to ``taps``). The dense schedule adds it by torch
+    after its launch.
 
     ``w`` packs the matrixized filters (K = Cin*kh*kw, N = Cout, both
     chunk-padded) in ``layout`` (``"channel"`` pairs with the
@@ -387,7 +416,8 @@ def sparse_conv2d_nhwc(x: torch.Tensor, w: bm.BlockSparseMatrix, kh: int,
     elif im2col == "auto":
         im2col = "slices"
     lazy = im2col == "lazy"
-    if lazy and (schedule != "compact" or compact_activations):
+    if lazy and (schedule != "compact" or compact_activations
+                 or residual is not None):
         im2col, lazy = "taps", False
     b = x.shape[0]
     if lazy:
@@ -414,6 +444,12 @@ def sparse_conv2d_nhwc(x: torch.Tensor, w: bm.BlockSparseMatrix, kh: int,
                                                                k_total)
     mb = (b * m_pad) // bm_rows
     aux = {"m_img": m_img, "k_total": k_total, "oh": oh, "ow": ow}
+    res2d = None
+    if residual is not None:
+        if tuple(residual.shape) != (b, oh, ow, cout):
+            raise ValueError(f"the shortcut {tuple(residual.shape)} does not "
+                             f"match the conv's output {(b, oh, ow, cout)}")
+        res2d = shortcut_rows(residual, m_pad, w.n_blocks * w.bn)
 
     wl = None
     if schedule == "compact" or report_schedule:
@@ -458,12 +494,20 @@ def sparse_conv2d_nhwc(x: torch.Tensor, w: bm.BlockSparseMatrix, kh: int,
         res = worklist_spmm(
             flat, w.vals, wl, bk=w.bk, bn=w.bn, bm_rows=bm_rows, sub_m=sub_m,
             mb_per_img=m_pad // bm_rows, ncolors=2,
-            act="relu" if fuse_relu else None, emit_occupancy=emit_occupancy)
+            act="relu" if fuse_relu else None, emit_occupancy=emit_occupancy,
+            residual=res2d)
     elif schedule == "dense":
         res = sparse_conv_spmm(
             flat, w.indices, w.vals, bk=w.bk, bn=w.bn, bm_rows=bm_rows,
-            sub_m=sub_m, two_sided=two_sided, fuse_relu=fuse_relu,
-            emit_occupancy=emit_occupancy, count_macs=count_macs)
+            sub_m=sub_m, two_sided=two_sided,
+            fuse_relu=fuse_relu and res2d is None,
+            emit_occupancy=emit_occupancy and res2d is None,
+            count_macs=count_macs)
+        if res2d is not None:
+            summed = activate(res[0] + res2d, None,
+                              "relu" if fuse_relu else None)
+            res = _occupancy_of(summed, w.n_blocks, w.bn, sub_m,
+                                emit_occupancy) + res[1:]
     else:
         raise ValueError(f"unknown schedule {schedule!r}")
     out = res[0].reshape(b, m_pad, w.n_blocks * w.bn)

@@ -59,6 +59,7 @@ WALK = CudaKernel("walk.cu", "walk_spmm", [
     I, I, I, I,                          # tile rows cols thread_rows tma
     I, I, I, I, I, I, I,                 # map: H W cin kh kw sh sw
     I, I, I, I, I, I,                    # ph0 ph1 pw0 pw1 m_pad img_stride
+    P,                                   # res (the residual flush's shortcut)
     P])                                  # stream
 
 # of WALK's launches, those that read x through the tap-slab operand, and
@@ -66,6 +67,9 @@ WALK = CudaKernel("walk.cu", "walk_spmm", [
 # (``walk_im2col_problem``: plain copies into one stage)
 WALK_TAP_SLABS = LaunchCounter("walk_spmm, tap slabs")
 WALK_TAP_SLABS_PLAIN = LaunchCounter("walk_spmm, tap slabs, plain copies")
+# of WALK's launches, those whose flush adds a shortcut before the
+# activation (``tile_kernel_residual``: a ResNet block's last conv)
+WALK_RESIDUAL = LaunchCounter("walk_spmm, residual")
 
 
 # ---------------------------------------------------------------------------
@@ -590,29 +594,53 @@ def check_row_tiling(bm_rows: int, sub_m: int) -> None:
 def _tile_output(acc: torch.Tensor, nb: int, mb: int, bm_rows: int, bn: int,
                  sub_m: int, emit_occupancy: bool):
     """[nb*mb, bm, bn] pair accumulators -> ``(out [M, nb*bn][, occ])``."""
-    M = mb * bm_rows
     out = acc.reshape(nb, mb, bm_rows, bn).permute(1, 2, 0, 3) \
-             .reshape(M, nb * bn)
+             .reshape(mb * bm_rows, nb * bn)
+    return _occupancy_of(out, nb, bn, sub_m, emit_occupancy)
+
+
+def _occupancy_of(out: torch.Tensor, nb: int, bn: int, sub_m: int,
+                  emit_occupancy: bool):
+    """``(out [M, nb*bn][, occ])``, occ the int32 [M // sub_m, nb]
+    occupancy of ``out`` when asked."""
     if not emit_occupancy:
         return (out,)
+    M = out.shape[0]
     occ = (out.reshape(M // sub_m, sub_m, nb, bn) != 0).any(dim=3) \
         .any(dim=1).to(torch.int32)
     return (out, occ)
 
 
+def check_residual(residual: torch.Tensor, M: int, N: int,
+                   dtype: torch.dtype, device: torch.device) -> None:
+    """A shortcut the walker takes: ``[M, N]`` rows of ``N`` elements, one
+    after another, of the output's type, on its device, 16-byte aligned."""
+    if tuple(residual.shape) != (M, N) or residual.stride() != (N, 1):
+        raise ValueError(f"the shortcut must be [{M}, {N}] with row stride "
+                         f"{N}, got {tuple(residual.shape)} strides "
+                         f"{residual.stride()}")
+    if residual.dtype != dtype or residual.device != device:
+        raise ValueError(f"the shortcut is {residual.dtype} on "
+                         f"{residual.device}, the output {dtype} on {device}")
+    if residual.data_ptr() % 16:
+        raise ValueError("the shortcut must be 16-byte aligned")
+
+
 def worklist_spmm_plain(patches: torch.Tensor, vals: torch.Tensor,
                         wl: WorkList, *, vals2: Optional[torch.Tensor] = None,
                         bk: int, bn: int, bm_rows: int, sub_m: int,
-                        act: Optional[str], emit_occupancy: bool):
+                        act: Optional[str], emit_occupancy: bool,
+                        residual: Optional[torch.Tensor] = None):
     """Plain version of the walker, on any device (the port of the
     reference's ``segment_spmm``): per weight stream, gather exactly the
     scheduled (x block, W chunk) tile pairs where that stream is live, one
     batched fp32 matmul, then the products summed per (n, m) pair in
     schedule order (ascending j: one ``index_add_`` per slot rank, so no
     two products of a pass meet and the sum is deterministic on every
-    device); then ``activate(acc, acc2, act)`` and one rounding to
-    ``patches``' type. Flush-only steps cost nothing: pairs without
-    products stay zero."""
+    device); then ``activate(acc + residual, acc2, act)`` (``residual``,
+    the shortcut in the output's ``[M, nb * bn]`` geometry, where given)
+    and one rounding to ``patches``' type. Flush-only steps cost nothing:
+    pairs without products stay zero."""
     M, K = patches.shape
     mb, kb = M // bm_rows, K // bk
     x4 = patches.reshape(mb, bm_rows, kb, bk)
@@ -633,6 +661,9 @@ def worklist_spmm_plain(patches: torch.Tensor, vals: torch.Tensor,
 
     acc = stream(vals, 0)
     acc2 = stream(vals2, 1) if vals2 is not None else None
+    if residual is not None:
+        acc = acc + residual.float().reshape(mb, bm_rows, wl.nb, bn) \
+            .permute(2, 0, 1, 3).reshape(wl.nb * mb, bm_rows, bn)
     out = activate(acc, acc2, act).to(patches.dtype)
     return _tile_output(out, wl.nb, mb, bm_rows, bn, sub_m, emit_occupancy)
 
@@ -694,10 +725,14 @@ def map_pixels_contiguous(x: torch.Tensor) -> bool:
 
 def _worklist_spmm_cuda(patches, vals, vals2, wl, *, bk, bn, bm_rows, sub_m,
                         mb_per_img, ncolors, act, emit_occupancy,
-                        taps: Optional[TapGeometry] = None):
+                        taps: Optional[TapGeometry] = None,
+                        residual: Optional[torch.Tensor] = None):
     """Launch the walker. ``patches`` is the patch matrix ``[M, K]``, or
     with ``taps`` the NHWC input map it stands for (the tap-slab operand,
-    whose work-list chunks name ``(tap, channel group)`` slabs of it)."""
+    whose work-list chunks name ``(tap, channel group)`` slabs of it).
+    ``residual`` is added before ``act`` in the tile mode's flush
+    (``tile_kernel_residual``: fp32, one stream, the patch matrix; any
+    other launch with one raises)."""
     dev = patches.device
     if taps is None:
         M, K = patches.shape
@@ -744,6 +779,12 @@ def _worklist_spmm_cuda(patches, vals, vals2, wl, *, bk, bn, bm_rows, sub_m,
                          f"({bm_rows}, {bk})")
     mode = walk_mode(patches, vals, vals2, wl, bk=bk, bn=bn, bm_rows=bm_rows,
                      taps=taps)
+    if residual is not None:
+        if isinstance(mode, GridGeometry) or taps is not None or \
+                vals2 is not None or patches.dtype != torch.float32:
+            raise ValueError("the residual flush is the tile mode's, fp32, "
+                             "one stream, on the patch matrix")
+        check_residual(residual, M, nb * bn, patches.dtype, dev)
     if isinstance(mode, GridGeometry):
         col_group, tile = mode.col_group, (0, 0, 0, 0)
     else:
@@ -759,7 +800,9 @@ def _worklist_spmm_cuda(patches, vals, vals2, wl, *, bk, bn, bm_rows, sub_m,
                 M, K, nb, M // bm_rows, max_nz, bk, bn, bm_rows, sub_m,
                 ACT_CODE[act], int(emit_occupancy), ncolors, mb_per_img,
                 int(patches.dtype == torch.bfloat16), col_group, *tile,
-                *geom)
+                *geom, ptr(residual))
+    if residual is not None:
+        WALK_RESIDUAL.count(dev)
     if taps is not None:
         WALK_TAP_SLABS.count(dev)
         if not mode.tma:
@@ -772,7 +815,8 @@ def worklist_spmm(patches: torch.Tensor, vals: torch.Tensor, wl: WorkList, *,
                   bn: int = LANE, bm_rows: int = DEFAULT_BM,
                   sub_m: Optional[int] = None,
                   mb_per_img: Optional[int] = None, ncolors: int = 1,
-                  act: Optional[str] = None, emit_occupancy: bool = False):
+                  act: Optional[str] = None, emit_occupancy: bool = False,
+                  residual: Optional[torch.Tensor] = None):
     """Run a compacted :class:`WorkList` — ``patches [M, K] @ vals`` (and,
     for a two-stream list, ``@ vals2``, the gate stream) over exactly the
     scheduled steps, with the fused epilogue ``act`` (None or one of
@@ -784,7 +828,11 @@ def worklist_spmm(patches: torch.Tensor, vals: torch.Tensor, wl: WorkList, *,
     otherwise); a CPU tensor runs
     :func:`worklist_spmm_plain`. ``ncolors`` / ``mb_per_img`` carry the
     §3.3 colouring, which cannot change the result here (see
-    ``csrc/walk.cu``). Returns ``(out[, occupancy])``."""
+    ``csrc/walk.cu``). ``residual`` ``[M, nb * bn]`` (a row stride of
+    ``nb * bn``, 16-byte aligned) is added to ``acc`` before ``act``, the
+    occupancy then that of the sum: on the card in the tile mode's flush,
+    fp32, one stream (``WALK_RESIDUAL`` counts those launches). Returns
+    ``(out[, occupancy])``."""
     if (vals2 is not None) != (wl.k2 is not None):
         raise ValueError("a two-stream work list (gate_indices) needs vals2,"
                          " a one-stream list takes none")
@@ -800,9 +848,13 @@ def worklist_spmm(patches: torch.Tensor, vals: torch.Tensor, wl: WorkList, *,
         raise ValueError(f"work list has {wl.mb} row blocks, patches {mb}")
     mb_per_img = mb if mb_per_img is None else mb_per_img
     if patches.device.type == "cpu":
+        if residual is not None:
+            check_residual(residual, M, wl.nb * bn, patches.dtype,
+                           patches.device)
         return worklist_spmm_plain(patches, vals, wl, vals2=vals2, bk=bk,
                                    bn=bn, bm_rows=bm_rows, sub_m=sub_m,
-                                   act=act, emit_occupancy=emit_occupancy)
+                                   act=act, emit_occupancy=emit_occupancy,
+                                   residual=residual)
     if patches.device.type != "cuda":
         raise ValueError(f"no walker for device {patches.device}")
     if emit_occupancy:
@@ -810,7 +862,8 @@ def worklist_spmm(patches: torch.Tensor, vals: torch.Tensor, wl: WorkList, *,
     return _worklist_spmm_cuda(patches, vals, vals2, wl, bk=bk, bn=bn,
                                bm_rows=bm_rows, sub_m=sub_m,
                                mb_per_img=mb_per_img, ncolors=ncolors,
-                               act=act, emit_occupancy=emit_occupancy)
+                               act=act, emit_occupancy=emit_occupancy,
+                               residual=residual)
 
 
 def worklist_spmm_padded_plain(patches: torch.Tensor, vals: torch.Tensor,

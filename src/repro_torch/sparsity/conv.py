@@ -245,7 +245,7 @@ def build_sparse_chain(weights: Sequence[np.ndarray], *, density: float = 1.0,
     ``weights[i]`` is [kh, kw, Cin_i, Cout_i] with Cout_i == Cin_{i+1}.
 
     ``strict=True`` runs the artifact verifier over the packed chain
-    (:func:`repro_torch.analysis.verify_chain`) and raises
+    (:func:`repro_torch.analysis.verify_graph`) and raises
     :class:`~repro_torch.analysis.AnalysisError` on any error. The packed
     tiles land on ``device``.
 
@@ -272,14 +272,92 @@ def build_sparse_chain(weights: Sequence[np.ndarray], *, density: float = 1.0,
     cout that is not whole ``bn`` blocks keeps the contiguous split (a
     partial block cannot move without breaking the packed padding).
     """
+    n = len(weights)
+    return build_sparse_graph(weights, [None] * n, [None] * n,
+                              density=density, num_shards=num_shards,
+                              chunk=chunk, balance_filters=balance_filters,
+                              pattern=pattern, micro_ranges=micro_ranges,
+                              mesh_devices=mesh_devices, strict=strict,
+                              device=device)
+
+
+def map_groups(adds: Sequence[Optional[int]]) -> List[int]:
+    """For each layer's output map, the first layer of the maps that adds
+    join with it (``adds[i]``: the layer whose output layer ``i`` adds, or
+    None): the sum of two maps carries one channel order, so each group
+    shares one permutation."""
+    root = list(range(len(adds)))
+
+    def find(i: int) -> int:
+        while root[i] != i:
+            i = root[i]
+        return i
+
+    for i, a in enumerate(adds):
+        if a is not None:
+            lo, hi = sorted((find(i), find(a)))
+            root[hi] = lo
+    return [find(i) for i in range(len(adds))]
+
+
+def build_sparse_graph(weights: Sequence[np.ndarray],
+                       srcs: Sequence[Optional[int]],
+                       adds: Sequence[Optional[int]], *,
+                       density: float = 1.0, num_shards: int = 16,
+                       chunk: int = bm.CHUNK, balance_filters: bool = True,
+                       pattern: str = "unstructured",
+                       micro_ranges: int = 3,
+                       mesh_devices: Optional[int] = None,
+                       strict: bool = False,
+                       device="cuda") -> List[PackedConv]:
+    """The offline pipeline of :func:`build_sparse_chain` for a graph of
+    convs (a ResNet): layer ``i`` reads the output of layer ``srcs[i]``
+    (-1: the image; None: the layer before) and adds that of ``adds[i]``
+    (None: nothing) before its activation. :func:`build_sparse_chain` is
+    this packer on a chain.
+
+    Permutations belong to maps, not layers. The maps an add joins (a
+    stage's trunk) share one (:func:`map_groups`), set by the first layer
+    that writes the group, by the chain's rule (greedy balance of its
+    pruned filters, or whole banks under ``pattern="chunk"``; direction by
+    its index), or the identity for the group of the last layer's map (the
+    network's outputs leave unpermuted). Every layer permutes its output
+    channels by its map's permutation and folds its source map's into its
+    input channels before pruning, as the chain folds layer ``i``'s into
+    layer ``i + 1``. ``mesh_devices`` (a chain only) runs the chain's
+    cluster balance pass, whose block permutation joins the map's.
+    ``strict=True`` runs :func:`repro_torch.analysis.verify_graph` over
+    the result."""
     if pattern not in ("unstructured", "chunk"):
         raise ValueError(f"unknown pattern {pattern!r}")
+    n = len(weights)
+    if len(srcs) != n or len(adds) != n:
+        raise ValueError(f"{n} layers, {len(srcs)} sources, {len(adds)} adds")
     ws = [np.asarray(w, np.float32) for w in weights]
-    for a, b_ in zip(ws, ws[1:]):
-        assert a.shape[3] == b_.shape[2], (a.shape, b_.shape)
+    src = [i - 1 if s is None else int(s) for i, s in enumerate(srcs)]
+    mesh = mesh_devices is not None and mesh_devices > 1
+    if mesh and (src != list(range(-1, n - 1)) or any(
+            a is not None for a in adds)):
+        raise ValueError("the cluster balance pass (mesh_devices) packs a "
+                         "chain")
+    for i, (s, a) in enumerate(zip(src, adds)):
+        if not -1 <= s < i or (a is not None and not 0 <= a < i):
+            raise ValueError(f"layer {i} reads layer {s} and adds layer {a}: "
+                             f"a layer reads and adds earlier layers only")
+        if s >= 0 and ws[s].shape[3] != ws[i].shape[2]:
+            raise ValueError(f"layer {i}: cin={ws[i].shape[2]}, its source "
+                             f"layer {s} has cout={ws[s].shape[3]}")
+        if a is not None and ws[a].shape[3] != ws[i].shape[3]:
+            raise ValueError(f"layer {i}: cout={ws[i].shape[3]} adds layer "
+                             f"{a}'s {ws[a].shape[3]} channels")
+    group = map_groups(adds)
+    final = group[n - 1] if n else None
+    perms = {}                       # group -> its permutation
     out: List[PackedConv] = []
     for i, w in enumerate(ws):
-        last = i == len(ws) - 1
+        if src[i] >= 0:
+            # the layer reads its source map in that map's channel order
+            w = balance.fold_permutation(w, perms[group[src[i]]], axis_in=2)
         layout, bk, bn = ("channel", chunk, chunk)
         info = None
         if pattern == "chunk":
@@ -290,31 +368,30 @@ def build_sparse_chain(weights: Sequence[np.ndarray], *, density: float = 1.0,
                     w, density, bk=bk, bn=bn, micro_ranges=micro_ranges)
             else:
                 w = w * prune_by_magnitude(w, density, axis_out=-1)
-        if balance_filters and not last:
-            if pattern == "chunk":
-                if info is not None:
+        g = group[i]
+        if g not in perms:
+            perm = np.arange(w.shape[3])
+            if balance_filters and g != final:
+                if pattern == "unstructured":
+                    perm = balance.greedy_balance(
+                        balance.filter_density(w, axis_out=-1), num_shards,
+                        direction=i)
+                elif info is not None:
                     perm = structured.bank_balance_permutation(
                         info.keep, bn, w.shape[3], direction=i)
-                    if w.shape[3] % bn == 0:
-                        info = dataclasses.replace(
-                            info, keep=info.keep[:, perm[::bn] // bn],
-                            quota=info.quota[perm[::bn] // bn])
-                else:
-                    perm = np.arange(w.shape[3])
-            else:
-                dens = balance.filter_density(w, axis_out=-1)
-                perm = balance.greedy_balance(dens, num_shards, direction=i)
-            w = w[..., perm]
-            # repair: the next layer reads its input channels in perm order
-            ws[i + 1] = balance.fold_permutation(ws[i + 1], perm, axis_in=2)
-        else:
-            perm = np.arange(w.shape[3])
+            perms[g] = perm
+        perm = perms[g]
+        w = w[..., perm]
+        if info is not None and w.shape[3] % bn == 0:
+            info = dataclasses.replace(
+                info, keep=info.keep[:, perm[::bn] // bn],
+                quota=info.quota[perm[::bn] // bn])
         shard = None
-        if mesh_devices is not None and mesh_devices > 1:
+        if mesh:
             mat = matrixize_filters(w, chunk, layout, bk=bk, bn=bn)
             steps = chunk_block_steps(mat, bk, bn)
             cout = w.shape[3]
-            movable = (not last) and cout % bn == 0
+            movable = g != final and cout % bn == 0
             if movable:
                 assign, mode = mesh_shard_assignment(steps, mesh_devices)
             else:
@@ -324,15 +401,14 @@ def build_sparse_chain(weights: Sequence[np.ndarray], *, density: float = 1.0,
                 assign = np.repeat(np.arange(d), sizes).astype(np.int32)
                 mode = "contiguous"
             if movable and not np.all(assign[:-1] <= assign[1:]):
-                # group each device's blocks contiguously; fold the
-                # block-granular permutation like the lane permutation
+                # group each device's blocks contiguously; the
+                # block-granular permutation joins the map's, which the
+                # readers fold
                 mblk = np.argsort(assign, kind="stable")
                 mperm = (mblk[:, None] * bn
                          + np.arange(bn)[None, :]).reshape(-1)
                 w = w[..., mperm]
-                ws[i + 1] = balance.fold_permutation(ws[i + 1], mperm,
-                                                     axis_in=2)
-                perm = perm[mperm]
+                perm = perms[g] = perm[mperm]
                 steps = steps[mblk]
                 assign = assign[mblk]
                 if info is not None:
@@ -350,6 +426,6 @@ def build_sparse_chain(weights: Sequence[np.ndarray], *, density: float = 1.0,
                               prune_info=info, shard=shard))
     if strict:
         # local import: repro_torch.analysis imports this module
-        from repro_torch.analysis import raise_on_errors, verify_chain
-        raise_on_errors(verify_chain(out), "build_sparse_chain")
+        from repro_torch.analysis import raise_on_errors, verify_graph
+        raise_on_errors(verify_graph(out, srcs, adds), "build_sparse_graph")
     return out

@@ -9,6 +9,14 @@ and run layer by layer through the implicit-GEMM sparse conv with fused
 ReLU (:mod:`repro_torch.kernels.sparse_conv`). Pooling placement is derived
 statically from the spec list. Tensors are NHWC float32 on the model's
 device throughout.
+
+A model may also be a graph (:func:`build_residual_model`, ResNet-50 with
+its shortcuts): each layer names the layer whose output it reads and the
+one whose output it adds before its ReLU (:class:`VisionLayer`), and
+``model.layers`` stays the flat list of every conv in execution order, so
+whatever only counts or packs layers walks it as before. Every forward here
+follows the wiring (:func:`walk_maps`); what walks a chain alone raises on
+a graph (:func:`require_chain`).
 """
 from __future__ import annotations
 
@@ -25,7 +33,8 @@ from repro_torch.core.sparse import Padding, Stride, normalize_stride, \
     resolve_pads
 from repro_torch.kernels.sparse_conv import conv_out_size, sparse_conv2d_nhwc
 from repro_torch.kernels.worklist_core import DEFAULT_BM
-from repro_torch.sparsity.conv import PackedConv, build_sparse_chain
+from repro_torch.sparsity.conv import (PackedConv, build_sparse_chain,
+                                       build_sparse_graph)
 
 # stem geometry per arch: (canonical input size, layer-0 stride, padding)
 ARCH_STEM: Dict[str, Tuple[int, Tuple[int, int], str]] = {
@@ -39,10 +48,19 @@ SUPPORTED_ARCHS = tuple(ARCH_STEM)
 
 @dataclasses.dataclass
 class VisionLayer:
+    """One conv layer and its wiring. Its output is the map after
+    ``pool_after``, a max-pool of (window, stride) or (window, stride,
+    padding). ``src`` is the layer whose output it reads (-1: the image;
+    None: the layer before), ``add`` the layer whose output it adds to the
+    conv's before the activation (a shortcut; None: none), ``relu`` whether
+    the ReLU follows. The defaults make a chain."""
     conv: PackedConv
     stride: Tuple[int, int]
     padding: Padding
-    pool_after: Optional[Tuple[int, int]]  # (window, stride) max-pool or None
+    pool_after: Optional[Tuple[int, ...]]
+    src: Optional[int] = None
+    add: Optional[int] = None
+    relu: bool = True
 
 
 @dataclasses.dataclass
@@ -58,6 +76,83 @@ class VisionModel:
     @property
     def num_layers(self) -> int:
         return len(self.layers)
+
+
+def source_of(layers: List[VisionLayer], i: int) -> int:
+    """The index of the layer whose output layer ``i`` reads (-1: the
+    image)."""
+    src = layers[i].src
+    return i - 1 if src is None else src
+
+
+def is_chain(model: VisionModel) -> bool:
+    """Whether every layer reads the layer before, adds nothing, ends in a
+    ReLU and pools without padding."""
+    return all(source_of(model.layers, i) == i - 1 and l.add is None
+               and l.relu and pool_geometry(l.pool_after)[2] == 0
+               for i, l in enumerate(model.layers))
+
+
+def require_chain(model: VisionModel, what: str) -> None:
+    """Raise ``ValueError`` naming ``what`` where ``model`` is a graph."""
+    if not is_chain(model):
+        raise ValueError(f"{what} walks a chain of convs, and {model.name} "
+                         f"is a graph (a layer reads or adds the output of "
+                         f"another than the layer before, runs without "
+                         f"ReLU or pools with padding)")
+
+
+def pool_geometry(pool: Optional[Tuple[int, ...]]) -> Tuple[int, int, int]:
+    """(window, stride, padding) of a ``pool_after`` (window 0: none)."""
+    if pool is None:
+        return 0, 1, 0
+    return (int(pool[0]), int(pool[1]), int(pool[2]) if len(pool) > 2 else 0)
+
+
+def pool_acts(h: int, w: int, window: int, padding: int) -> bool:
+    """Whether a max-pool of ``window`` acts on an ``h`` x ``w`` map padded
+    by ``padding`` (a map whose padded sides are under the window is left
+    as it is)."""
+    return window > 0 and min(h, w) + 2 * padding >= window
+
+
+def pooled_size(h: int, w: int, pool: Optional[Tuple[int, ...]]
+                ) -> Tuple[int, int]:
+    """The sides after ``pool`` (:func:`pool_acts`)."""
+    win, s, p = pool_geometry(pool)
+    if not pool_acts(h, w, win, p):
+        return h, w
+    return (h + 2 * p - win) // s + 1, (w + 2 * p - win) // s + 1
+
+
+def walk_maps(model: VisionModel, x, layer_fn, pool=None):
+    """Run the layers in order on ``x`` (the image, map -1): layer ``i``
+    gets ``layer_fn(i, layer, its source's map, its shortcut's map or
+    None)`` and its pool (``pool(y, *pool_after)``, by default
+    :func:`max_pool`); the result is map ``i``, and the last layer's is
+    returned. A map is kept while a later layer still names it and
+    dropped once its last reader's conv has run, before that layer's pool:
+    on a chain, maps live as long as in a loop over the layers."""
+    pool = max_pool if pool is None else pool
+    layers = model.layers
+    last_read: Dict[int, int] = {}
+    for i, layer in enumerate(layers):
+        last_read[source_of(layers, i)] = i
+        if layer.add is not None:
+            last_read[layer.add] = i
+    end = len(layers) - 1
+    maps = {-1: x}
+    for i, layer in enumerate(layers):
+        y = layer_fn(i, layer, maps[source_of(layers, i)],
+                     None if layer.add is None else maps[layer.add])
+        for j in [j for j in maps if j != end and last_read[j] <= i]:
+            del maps[j]
+        if layer.pool_after is not None:
+            y = pool(y, *layer.pool_after)
+        if i in last_read or i == end:
+            maps[i] = y
+        del y
+    return maps[end]
 
 
 def _pool_between(prev_oh: int, next_oh: int) -> Optional[Tuple[int, int]]:
@@ -121,6 +216,44 @@ def build_vision_model(name: str = "VGGNet", *,
     return VisionModel(name, layers, stem_size, density, device)
 
 
+def build_residual_model(name: str, weights: List[np.ndarray],
+                         wiring: List[Dict], *, input_size: int,
+                         density: float, num_shards: int = 16,
+                         balance_filters: bool = True,
+                         pattern: str = "unstructured",
+                         micro_ranges: int = 3,
+                         device="cuda") -> VisionModel:
+    """A graph of convs (a ResNet) from dense ``weights[i]`` [k, k, cin,
+    cout] and the wiring of each: ``stride``, ``padding`` (``"SAME"``,
+    ``"VALID"`` or explicit ``[[top, bottom], [left, right]]``),
+    ``pool_after`` (None, or [window, stride(, padding)]), and the optional
+    ``src`` (default the layer before; -1 the image), ``add`` (default none)
+    and ``relu`` (default True) of :class:`VisionLayer`. Packed by
+    :func:`~repro_torch.sparsity.conv.build_sparse_graph`: one channel
+    permutation per map, the maps an add joins sharing one."""
+    device = torch.device(device)
+    srcs = [w.get("src") for w in wiring]
+    adds = [w.get("add") for w in wiring]
+    convs = build_sparse_graph(weights, srcs, adds, density=density,
+                               num_shards=num_shards,
+                               balance_filters=balance_filters,
+                               pattern=pattern, micro_ranges=micro_ranges,
+                               device=device)
+    layers = []
+    for wire, conv in zip(wiring, convs):
+        pad = wire["padding"]
+        if not isinstance(pad, str):
+            pad = tuple(tuple(int(v) for v in p) for p in pad)
+        pool = wire.get("pool_after")
+        stride = wire["stride"]
+        stride = (stride, stride) if isinstance(stride, int) else tuple(stride)
+        layers.append(VisionLayer(conv, stride, pad,
+                                  tuple(pool) if pool else None,
+                                  src=wire.get("src"), add=wire.get("add"),
+                                  relu=bool(wire.get("relu", True))))
+    return VisionModel(name, layers, int(input_size), float(density), device)
+
+
 def route_bucket(buckets: Tuple[int, ...], h: int, w: int) -> int:
     """Canonical shape for an [h, w] image: the smallest bucket that holds
     it (zero-pad up, never past the next canonical shape), or the largest
@@ -166,34 +299,32 @@ def layer_geometry(model: VisionModel, input_size: int, *,
                    bm_rows: int = DEFAULT_BM,
                    use_tuned: bool = False) -> List[Dict[str, int]]:
     """Static per-layer geometry walk for one input size (host arithmetic
-    only): ``oh/ow/m_img/m_pad/bm_rows/mb_per_img`` per layer, with the pool
-    placement rule of :func:`max_pool`; ``use_tuned`` takes each tuned
-    layer's ``bm_rows``."""
+    only): ``oh/ow/m_img/m_pad/bm_rows/mb_per_img`` per layer, each from
+    its source's sides (:func:`source_of`), with the pool placement rule of
+    :func:`max_pool`; ``use_tuned`` takes each tuned layer's ``bm_rows``."""
     out: List[Dict[str, int]] = []
-    h = w = input_size
-    for layer in model.layers:
+    sides = {-1: (input_size, input_size)}
+    for i, layer in enumerate(model.layers):
         c = layer.conv
         cfg = _tuned_config(layer, use_tuned)
         bm = cfg.bm_rows if cfg else bm_rows
+        h, w = sides[source_of(model.layers, i)]
         oh, ow = conv_out_size(h, w, c.kh, c.kw, layer.stride, layer.padding)
         m_img = oh * ow
         m_pad = m_img + (-m_img) % bm
         out.append({"oh": oh, "ow": ow, "m_img": m_img, "m_pad": m_pad,
                     "bm_rows": bm, "mb_per_img": m_pad // bm})
-        h, w = oh, ow
-        if layer.pool_after is not None and min(h, w) >= layer.pool_after[0]:
-            win, s = layer.pool_after
-            h = (h - win) // s + 1
-            w = (w - win) // s + 1
+        sides[i] = pooled_size(oh, ow, layer.pool_after)
     return out
 
 
-def max_pool(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
-    """Channel-wise VALID max-pool of NHWC ``x`` (skipped when the map is
-    already smaller than the window)."""
-    if min(x.shape[1], x.shape[2]) < window:
+def max_pool(x: torch.Tensor, window: int, stride: int,
+             padding: int = 0) -> torch.Tensor:
+    """Channel-wise max-pool of NHWC ``x``, ``padding`` on each side
+    (skipped where it would not act: :func:`pool_acts`)."""
+    if not pool_acts(x.shape[1], x.shape[2], window, padding):
         return x
-    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride)
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride, padding)
     return y.permute(0, 2, 3, 1).contiguous()
 
 
@@ -201,22 +332,23 @@ def max_pool(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
 def _forward_layers(model: VisionModel, x: torch.Tensor, *, sub_m: int,
                     two_sided: bool, schedule: str, im2col: str,
                     use_tuned: bool = False) -> torch.Tensor:
-    """Every layer through the sparse conv, activations handed on-device;
-    ``use_tuned`` runs each tuned layer at its autotuned ``bm_rows`` /
-    ``sub_m`` / im2col strategy instead of the global knobs."""
-    for layer in model.layers:
+    """Every layer through the sparse conv, activations handed on-device
+    along the wiring (:func:`walk_maps`; a shortcut is added in the conv's
+    flush); ``use_tuned`` runs each tuned layer at its autotuned
+    ``bm_rows`` / ``sub_m`` / im2col strategy instead of the global
+    knobs."""
+    def conv(i, layer, inp, shortcut):
         c = layer.conv
         cfg = _tuned_config(layer, use_tuned)
-        x, _ = sparse_conv2d_nhwc(
-            x, c.packed, c.kh, c.kw, c.cout, stride=layer.stride,
+        y, _ = sparse_conv2d_nhwc(
+            inp, c.packed, c.kh, c.kw, c.cout, stride=layer.stride,
             padding=layer.padding, sub_m=cfg.sub_m if cfg else sub_m,
             bm_rows=cfg.bm_rows if cfg else DEFAULT_BM,
             im2col=cfg.im2col if cfg else im2col, two_sided=two_sided,
-            fuse_relu=True, schedule=schedule, layout=c.layout,
-            wl_cache=c.wl_cache)
-        if layer.pool_after is not None:
-            x = max_pool(x, *layer.pool_after)
-    return x
+            fuse_relu=layer.relu, schedule=schedule, layout=c.layout,
+            wl_cache=c.wl_cache, residual=shortcut)
+        return y
+    return walk_maps(model, x, conv)
 
 
 def compile_forward(model: VisionModel, *, sub_m: int = 8,
@@ -359,20 +491,23 @@ def forward(model: VisionModel, x: torch.Tensor, *, sub_m: int = 8,
                              use_tuned=use_tuned)
         return fn(x), []
     stats: List[Dict[str, float]] = []
-    bench = S.BENCHMARKS[model.name]
-    for i, layer in enumerate(model.layers):
+    bench = S.BENCHMARKS.get(model.name)
+    # the paper's layer specs are a chain's
+    chain = bench is not None and is_chain(model)
+
+    def conv(i, layer, x, shortcut):
         c = layer.conv
         if collect_stats:
             map_scalar = float((x != 0).float().mean())
         out, aux = sparse_conv2d_nhwc(
             x, c.packed, c.kh, c.kw, c.cout, stride=layer.stride,
             padding=layer.padding, sub_m=sub_m, two_sided=two_sided,
-            fuse_relu=True, emit_occupancy=collect_stats,
+            fuse_relu=layer.relu, emit_occupancy=collect_stats,
             count_macs=collect_stats,
             schedule="dense" if collect_stats else schedule,
             im2col=im2col, layout=c.layout, wl_cache=c.wl_cache,
             compact_activations=collect_stats,
-            report_schedule=collect_stats)
+            report_schedule=collect_stats, residual=shortcut)
         if collect_stats:
             counts = aux["mac_counts"]
             executed = float(counts.sum())
@@ -405,31 +540,31 @@ def forward(model: VisionModel, x: torch.Tensor, *, sub_m: int = 8,
                 "dead_chunk_fraction": c.dead_chunk_fraction(),
                 "layout": c.layout,
                 "pattern": c.pattern,
-                "paper_map_density": bench.map_density,
-                "paper_filter_density": bench.filter_density,
+                "paper_map_density": bench.map_density if bench else None,
+                "paper_filter_density":
+                    bench.filter_density if bench else None,
                 "executed_tile_macs": executed,
                 "weight_tile_macs": float(weight_tile),
                 "dense_tile_macs": float(dense_tile),
                 "skipped_tile_frac": 1.0 - executed / max(weight_tile, 1),
                 "out_occupancy_density":
                     float(aux["occupancy"].float().mean()),
-                "spec_oh": bench.layers[i].oh,
+                "spec_oh": bench.layers[i].oh if chain else None,
             })
-        x = out
-        if layer.pool_after is not None:
-            x = max_pool(x, *layer.pool_after)
-    return x, stats
+        return out
+    return walk_maps(model, x, conv), stats
 
 
 @torch.no_grad()
 def dense_forward(model: VisionModel, x: torch.Tensor) -> torch.Tensor:
-    """Oracle: the same pruned (chain-folded) filters through ``F.conv2d``
-    + ReLU + pooling, in full fp32 (TF32 off: cuDNN turns it on for
-    convolutions by default)."""
+    """Oracle: the same pruned (fold-permuted) filters through
+    ``F.conv2d``, the shortcut's add, the ReLU and pooling along the wiring,
+    in full fp32 (TF32 off: cuDNN turns it on for convolutions by
+    default)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    y = x.permute(0, 3, 1, 2)
-    for layer in model.layers:
+
+    def conv(i, layer, y, shortcut):             # NCHW maps
         c = layer.conv
         w = torch.as_tensor(c.w_dense, device=x.device).permute(3, 2, 0, 1)
         (ph0, ph1), (pw0, pw1) = resolve_pads(tuple(y.shape[2:]), c.kh,
@@ -437,10 +572,15 @@ def dense_forward(model: VisionModel, x: torch.Tensor) -> torch.Tensor:
                                               layer.padding)
         y = F.conv2d(F.pad(y, (pw0, pw1, ph0, ph1)), w,
                      stride=normalize_stride(layer.stride))
-        y = torch.clamp_min(y, 0.0)
-        if layer.pool_after is not None and \
-                min(y.shape[2], y.shape[3]) >= layer.pool_after[0]:
-            y = F.max_pool2d(y, *layer.pool_after)
+        if shortcut is not None:
+            y = y + shortcut
+        return torch.clamp_min(y, 0.0) if layer.relu else y
+
+    def pool(y, window, stride, padding=0):
+        if not pool_acts(y.shape[2], y.shape[3], window, padding):
+            return y
+        return F.max_pool2d(y, window, stride, padding)
+    y = walk_maps(model, x.permute(0, 3, 1, 2), conv, pool)
     return y.permute(0, 2, 3, 1).contiguous()
 
 

@@ -2021,3 +2021,174 @@ def test_vgg16_engine_default_reads_tap_slabs_bitwise_taps_on_card(cuda):
     assert WALK_TAP_SLABS not in g_taps.tally and (slabs, plain) == (0, 0)
     assert sorted(got) == sorted(want) == list(range(len(imgs)))
     assert all(np.array_equal(got[r], want[r]) for r in want)
+
+
+# ---------------------------------------------------------------------------
+# ResNet-50 v1.5 with its shortcuts (the residual flush of K1)
+# ---------------------------------------------------------------------------
+def _bench_reference():
+    """The benchmark's plain reference of the residual topology (plain
+    PyTorch, no JAX): ``bench/reference/residual.py``."""
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from bench.reference import residual
+    return residual
+
+
+@pytest.fixture(scope="module")
+def resnet50_residual():
+    """ResNet-50 v1.5 at its published widths, all 16 blocks, unstructured
+    at density 0.421, He-normal filters from a seed, on the card; the
+    reference's pruned filters beside it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.vision.model import build_residual_model
+    R = _bench_reference()
+    dev = torch.device("cuda")
+    cfg = {"density": 0.421, "pattern": "unstructured",
+           "pack": {"micro_ranges": 3}, "layers": R.bottleneck_layers()}
+    rng = np.random.default_rng(2**31 + 77)
+    dense = [(rng.normal(size=(l["k"], l["k"], l["cin"], l["cout"]))
+              * np.sqrt(2.0 / (l["k"] ** 2 * l["cin"]))).astype(np.float32)
+             for l in cfg["layers"]]
+    model = build_residual_model("ResNet50", dense, cfg["layers"],
+                                 input_size=224, density=0.421, device=dev)
+    ref = R.device_filters(R.prune_filters(cfg, dense), dev)
+    return R, cfg, model, ref
+
+
+def test_resnet50_residual_graphed_forward_on_card(cuda, resnet50_residual):
+    """The whole net at 224 px, 4 images, through ``graphed_forward``:
+    within 1e-4 of the plain reference (the benchmark's limit; fp32 sums in
+    another order over 53 convs), every replay bitwise the eager forward,
+    the 16 residual flushes a replay tallied on ``WALK_RESIDUAL`` and seen
+    in the device trace of a replay (of its 53 K1 launches), and
+    ``VisionEngine`` admitting the graph and serving it bitwise the solo
+    forward."""
+    from repro_torch.kernels.worklist_core import WALK_RESIDUAL
+    from repro_torch.vision import graphed_forward
+    R, cfg, model, ref = resnet50_residual
+    rng = np.random.default_rng(5)
+    imgs = np.abs(rng.normal(size=(6, 224, 224, 3))).astype(np.float32)
+    x = torch.as_tensor(imgs[:4], device=cuda)
+    WALK_RESIDUAL.launches = 0
+    eager = compile_forward(model)(x)
+    torch.cuda.synchronize()
+    assert WALK_RESIDUAL.launches == 16
+    fwd = graphed_forward(model)
+    outs = [fwd(x) for _ in range(3)]
+    torch.cuda.synchronize()
+    (g,) = fwd.graphs.values()
+    assert g.tally[WALK_RESIDUAL] == 16
+    assert WALK_RESIDUAL.launches == 16 + 16 * (1 + g.replays)
+    assert all(torch.equal(o, eager) for o in outs)
+    # the device trace of one replay: 53 K1 launches, 16 of them fused adds
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fwd(x)
+        torch.cuda.synchronize()
+    k1 = [e.name for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and "tile_kernel" in e.name]
+    assert len(k1) == 53, len(k1)
+    assert sum("tile_kernel_residual" in n for n in k1) == 16
+    want = R.forward(cfg, ref, x)
+    assert eager.shape == want.shape == (4, 7, 7, 2048)
+    rel = float((eager - want).abs().max() / want.abs().max())
+    assert rel <= 1e-4, rel
+    reqs = [ImageRequest(rid=i, image=imgs[i], arrival=i // 3)
+            for i in range(6)]
+    got = VisionEngine(model, num_slots=4).run(reqs)
+    solo = compile_forward(model)
+    for r in reqs:
+        one = solo(torch.as_tensor(r.image[None], device=cuda))[0]
+        assert np.array_equal(got[r.rid], one.cpu().numpy())
+
+
+@pytest.mark.parametrize("case", ["stage2", "stage5", "stage5_plain_copies",
+                                  "identity"])
+def test_residual_flush_equals_k1_then_add_on_card(rng, cuda, monkeypatch,
+                                                   case):
+    """K1's residual flush stores act(acc + shortcut) bit for bit as K1
+    without it followed by torch's add and ReLU: both round acc + shortcut
+    once in fp32 and take the same max with 0 (no tolerance). Stage 2's
+    1x1 64 -> 256 at 56 px and stage 5's 512 -> 2048 at 7 px, 4 images; the
+    projection's identity epilogue; plain copies into one stage."""
+    from repro_torch.kernels import worklist_core as WC
+    from repro_torch.kernels.sparse_conv import shortcut_rows
+    from repro_torch.sparsity.conv import pack_conv_filters
+    cin, cout, side = (64, 256, 56) if case == "stage2" else (512, 2048, 7)
+    act = None if case == "identity" else "relu"
+    if case.endswith("plain_copies"):
+        monkeypatch.setattr(WC, "walk_tma_problem", lambda *a: "forced")
+    w = rng.normal(size=(1, 1, cin, cout)).astype(np.float32)
+    w *= rng.random(w.shape) < 0.421
+    packed = pack_conv_filters(w, device=cuda)
+    b, m_img = 4, side * side
+    m_pad = m_img + (-m_img) % 128
+    x = np.maximum(rng.normal(size=(b, m_img, cin)), 0).astype(np.float32)
+    flat = torch.zeros(b, m_pad, packed.shape[0], device=cuda)
+    flat[:, :m_img, :cin] = torch.as_tensor(x, device=cuda)
+    flat = flat.reshape(b * m_pad, -1)
+    s = torch.zeros(b, m_pad, cout, device=cuda)
+    s[:, :m_img] = torch.as_tensor(rng.normal(size=(b, m_img, cout)),
+                                   dtype=torch.float32, device=cuda)
+    res = shortcut_rows(s[:, :m_img].reshape(b, side, side, cout), m_pad,
+                        cout)
+    assert res.data_ptr() == s.data_ptr()           # read where it lies
+    wl = WC.build_worklist(packed.host_indices(), b * m_pad // 128,
+                           mb_per_img=m_pad // 128)
+    kw = dict(bk=packed.bk, bn=packed.bn, sub_m=8, emit_occupancy=True)
+    WC.WALK_RESIDUAL.launches = 0
+    fused, occ = WC.worklist_spmm(flat, packed.vals, wl, act=act,
+                                  residual=res, **kw)
+    bare = WC.worklist_spmm(flat, packed.vals, wl, act=None, **kw)[0]
+    torch.cuda.synchronize()
+    assert WC.WALK_RESIDUAL.launches == 1
+    want = bare + res
+    want = torch.clamp_min(want, 0.0) if act else want
+    assert torch.equal(fused, want)
+    want_occ = (want.reshape(-1, 8, packed.n_blocks, packed.bn) != 0) \
+        .any(3).any(1).int()
+    assert torch.equal(occ, want_occ)
+    pout = WC.worklist_spmm_plain(flat, packed.vals, wl, bk=packed.bk,
+                                  bn=packed.bn, bm_rows=128, sub_m=8,
+                                  act=act, emit_occupancy=False,
+                                  residual=res)[0]
+    rel = float((fused - pout).abs().max() / pout.abs().max())
+    assert rel <= 1e-5
+
+
+def test_vgg16_k1_launch_names_and_counts_unchanged_on_card(cuda):
+    """A VGG16 chain's graphed forward launches K1 13 times, every launch
+    a ``tile_kernel`` of five template arguments (the names the chains
+    launched before the residual flush existed), none of them the
+    residual one, and counts no residual launch."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.worklist_core import WALK_RESIDUAL
+    from repro_torch.vision import graphed_forward
+    model = build_vision_model("VGGNet", pattern="chunk", seed=0,
+                               device=cuda)
+    x = torch.rand(4, 224, 224, 3, device=cuda)
+    fwd = graphed_forward(model)
+    fwd(x)
+    fwd(x)
+    torch.cuda.synchronize()
+    WALK.launches = WALK_RESIDUAL.launches = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fwd(x)
+        torch.cuda.synchronize()
+    assert (WALK.launches, WALK_RESIDUAL.launches) == (13, 0)
+    k1 = [e.name for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and "tile_kernel" in e.name]
+    assert len(k1) == 13, k1
+    five = re.compile(r"tile_kernel<float, [48], (128|64|32), "
+                      r"(true|false), (true|false)>")
+    assert all(five.search(n) and "residual" not in n for n in k1), k1
