@@ -5,14 +5,16 @@ A request is one image; a step runs the whole network on the current slot
 batch and every live slot retires. Free slots are scanned in an order
 rotated by :func:`repro_torch.core.balance.round_robin_permutation`
 (§3.3.2), and the batch is always ``num_slots`` wide: free lanes carry zero
-images, whose row blocks the two-sided skip elides.
+images, whose row blocks the two-sided skip elides. While the device runs
+step k, the host stages the batch that step k+1 will admit into a second
+host buffer, pinned on a CUDA device.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from collections import deque
-from typing import Deque, Dict, List, Optional
+from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +49,8 @@ class VisionStats:
     idle_lane_steps: int = 0
     wall_s: float = 0.0
     compile_s: float = 0.0        # first-call set-up, kept out of wall_s
+    staged_hits: int = 0          # steps whose batch was staged in time
+    staged_misses: int = 0        # steps that assembled their batch
 
     @property
     def slot_utilization(self) -> float:
@@ -74,6 +78,19 @@ class VisionEngine:
     (:func:`~repro_torch.kernels.sparse_conv.sparse_conv2d_nhwc`); a
     tap-layout layer tuned to ``"taps"`` (``use_tuned``) builds its patch
     matrix instead, with bitwise the same outputs.
+
+    The host batch lives in one of two buffers allocated at the warm-up,
+    pinned when the device is CUDA (so the batch and the answers cross as
+    pinned copies). After launching step k's forward, the engine stages
+    the batch that step k+1 will admit (the same admission plan, one clock
+    later, every slot free) into the other buffer while the device runs;
+    step k+1 uses it when its admitted images are, lane by lane, the
+    staged objects (``stats.staged_hits``), and assembles otherwise
+    (``stats.staged_misses``). A request's image is therefore read at any
+    time after its submission, not only in its own step. The answers of a
+    step are views of one host block of their own (pinned on CUDA, from
+    torch's caching host allocator), which returns to the cache when the
+    caller drops every answer of the step.
 
     ``mesh`` (a ``DeviceMesh`` with a ``data`` dim; every rank runs the
     same engine on the same requests) data-shards the slot batch:
@@ -110,6 +127,14 @@ class VisionEngine:
             model, sub_m=sub_m, two_sided=two_sided, schedule=schedule,
             im2col=im2col, use_tuned=use_tuned, mesh=mesh)
         self._warm_shapes: set = set()
+        self._pin = self.device.type == "cuda"
+        # the two host batch buffers, which of their lanes hold an image (a
+        # free lane is zeroed only then), and the images staged into
+        # _batches[_cur] for the next step
+        self._batches: List[torch.Tensor] = []
+        self._held: List[np.ndarray] = []
+        self._cur = 0
+        self._staged: Optional[List[Optional[np.ndarray]]] = None
         self.slot_req = np.full(num_slots, -1, np.int64)
         self._slot_img: List[Optional[np.ndarray]] = [None] * num_slots
         self._image_shape: Optional[tuple] = None
@@ -184,34 +209,61 @@ class VisionEngine:
         return not self.queue and not (self.slot_req >= 0).any()
 
     # -- slot lifecycle ----------------------------------------------------
-    def _next_arrived(self) -> Optional[ImageRequest]:
-        for i, req in enumerate(self.queue):
-            if req.arrival <= self.clock:
-                del self.queue[i]
-                return req
-        return None
-
-    def _admit_ready(self) -> None:
-        """Admit queued, arrived requests into free slots, rotating the scan
-        order across lanes (BARISTA round-robin)."""
+    def _plan(self, clock: int, rr: int, free: np.ndarray
+              ) -> List[Tuple[int, ImageRequest]]:
+        """The admissions at ``clock`` into the ``free`` slots: (slot,
+        request) pairs, the queued requests arrived by ``clock`` in queue
+        order, the slots scanned in the order rotated by ``rr`` (BARISTA
+        round-robin). Reads the queue and changes nothing."""
+        plan: List[Tuple[int, ImageRequest]] = []
         if not self.queue:
-            return
-        for s in round_robin_permutation(self.num_slots, self._rr):
-            if self.slot_req[s] >= 0:
+            return plan
+        arrived = (r for r in self.queue if r.arrival <= clock)
+        for s in round_robin_permutation(self.num_slots, rr):
+            if not free[s]:
                 continue
-            req = self._next_arrived()
+            req = next(arrived, None)
             if req is None:
                 break
+            plan.append((int(s), req))
+        return plan
+
+    def _admit_ready(self) -> None:
+        """Admit queued, arrived requests into free slots by
+        :meth:`_plan`."""
+        plan = self._plan(self.clock, self._rr, self.slot_req < 0)
+        if not plan:
+            return
+        taken = {id(req) for _, req in plan}
+        kept = [r for r in self.queue if id(r) not in taken]
+        self.queue.clear()
+        self.queue.extend(kept)
+        for s, req in plan:
             self.slot_req[s] = req.rid
             self._slot_img[s] = req.image
-            self._rr += 1
+        self._rr += len(plan)
+
+    def _fill(self, b: int, imgs: List[Optional[np.ndarray]]) -> None:
+        """Write ``imgs`` (an image or None a lane) into host batch buffer
+        ``b``: each image into its lane, a zero image into each free lane
+        that holds one."""
+        lanes, held = self._batches[b].numpy(), self._held[b]
+        for s, img in enumerate(imgs):
+            if img is not None:
+                lanes[s] = img
+            elif held[s]:
+                lanes[s] = 0.0
+            held[s] = img is not None
 
     # -- engine ------------------------------------------------------------
     def step(self) -> bool:
         """One engine tick: admissions, then one whole-network forward over
         the slot batch; all live slots retire. Returns False when idle.
         Under a recording profiler the tick is an ``engine.step`` span
-        holding ``engine.admit``, ``engine.assemble``, ``engine.forward``,
+        holding ``engine.admit``, ``engine.assemble`` (only when the batch
+        was not staged), ``engine.forward`` (the copy into the device and
+        the launch), ``engine.assemble`` again while the device runs (the
+        staging of the next step's batch, when one is queued),
         ``engine.copy_out`` (the wait for the forward and the copy back)
         and ``engine.retire`` (:mod:`repro_torch.obs`)."""
         with span("engine.step"):
@@ -223,17 +275,36 @@ class VisionEngine:
                     self.clock += 1
                     return True
                 return False
-            with span("engine.assemble"):
-                batch = np.zeros((self.num_slots,) + self._image_shape,
-                                 np.float32)
-                for s in np.nonzero(active)[0]:
-                    batch[s] = self._slot_img[s]
-                x = torch.from_numpy(batch)  # the graph copies it in itself
-            self._warmup(batch.shape)
+            self._warmup((self.num_slots,) + self._image_shape)
+            b = self._cur
+            if self._staged is not None and all(
+                    a is z for a, z in zip(self._slot_img, self._staged)):
+                self.stats.staged_hits += 1
+            else:
+                self.stats.staged_misses += 1
+                with span("engine.assemble"):
+                    self._fill(b, self._slot_img)
+            self._staged = None
+            x = self._batches[b]            # the graph copies it in itself
             with span("engine.forward"):
                 out = self._fwd(x if self.compiled else x.to(self.device))
+            # every live slot retires, so the next step admits into all
+            # slots; buffer 1 - b was last read by the previous step's
+            # forward, which its copy_out waited for
+            nxt = self._plan(self.clock + 1, self._rr,
+                             np.ones(self.num_slots, bool))
+            if nxt:
+                with span("engine.assemble"):
+                    staged: List[Optional[np.ndarray]] = \
+                        [None] * self.num_slots
+                    for s, req in nxt:
+                        staged[s] = req.image
+                    self._fill(1 - b, staged)
+                self._staged, self._cur = staged, 1 - b
             with span("engine.copy_out"):
-                out = out.cpu().numpy()
+                host = torch.empty(out.shape, dtype=out.dtype,
+                                   pin_memory=self._pin)
+                out = host.copy_(out).numpy()
             with span("engine.retire"):
                 self.stats.engine_steps += 1
                 self.stats.active_lane_steps += int(active.sum())
@@ -251,12 +322,16 @@ class VisionEngine:
     def _warmup(self, batch_shape) -> None:
         """Run the forward once per batch shape — building its work lists,
         copying their schedules to the device, on first use building the
-        kernels and, when compiled, capturing the graph — charged to
-        ``stats.compile_s``."""
+        kernels and, when compiled, capturing the graph — and allocate the
+        two host batch buffers, charged to ``stats.compile_s``."""
         if batch_shape in self._warm_shapes:
             return
         with span("engine.warmup"):
             t0 = time.perf_counter()
+            self._batches = [torch.zeros(batch_shape, dtype=torch.float32,
+                                         pin_memory=self._pin)
+                             for _ in range(2)]
+            self._held = [np.zeros(self.num_slots, bool) for _ in range(2)]
             self._fwd(torch.zeros(batch_shape, device=self.device))
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
@@ -266,7 +341,9 @@ class VisionEngine:
     def run(self, requests: Optional[List[ImageRequest]] = None
             ) -> Dict[int, np.ndarray]:
         """Serve ``requests`` (plus anything queued) to completion; returns
-        {rid: final feature map} and fills ``self.stats``."""
+        {rid: final feature map} and fills ``self.stats``. Each answer
+        keeps its step's host block (pinned on CUDA) alive while the
+        caller holds it."""
         for r in requests or []:
             self.submit(r)
         if self._image_shape is not None:

@@ -2023,6 +2023,50 @@ def test_vgg16_engine_default_reads_tap_slabs_bitwise_taps_on_card(cuda):
     assert all(np.array_equal(got[r], want[r]) for r in want)
 
 
+def test_vgg16_engine_stages_pinned_batches_on_card(cuda):
+    """``VisionEngine`` on the chunk-pattern VGG16 chain at 224 px and 32
+    slots, in a closed loop keeping 64 requests queued (the benchmark's
+    ``closed_224``): both host batch buffers are pinned and keep their
+    addresses, every step after the first finds its batch staged, an
+    answer held across two later steps is unchanged, and the answers equal,
+    bitwise, those of the eager engine (``compiled=False``)."""
+    model = build_vision_model("VGGNet", pattern="chunk", seed=0,
+                               device=cuda)
+    rng = np.random.default_rng(34)
+    pool = np.abs(rng.normal(size=(64, 224, 224, 3))).astype(np.float32)
+    pool[rng.random(pool.shape) >= 0.5] = 0.0
+
+    def closed(**kw):
+        eng = VisionEngine(model, num_slots=32, **kw)
+        answers, rid, ptrs, held = {}, 0, None, None
+        for i in range(6):
+            while len(eng.queue) < 64:
+                eng.submit(ImageRequest(rid, pool[rid % len(pool)]))
+                rid += 1
+            assert eng.step()
+            bufs = eng._batches
+            assert len(bufs) == 2 and all(b.is_pinned() for b in bufs)
+            ptrs = ptrs or [b.data_ptr() for b in bufs]
+            assert [b.data_ptr() for b in bufs] == ptrs
+            if i == 0:
+                held = eng.produced[0]
+                kept = held.copy()
+            if i == 2:
+                assert np.array_equal(held, kept)
+            answers.update(eng.produced)
+            eng.produced.clear()
+        while eng.step():
+            answers.update(eng.produced)
+            eng.produced.clear()
+        st = eng.stats
+        assert (st.staged_misses, st.staged_hits) == (1, st.engine_steps - 1)
+        assert st.engine_steps == 7 and sorted(answers) == list(range(rid))
+        return answers
+
+    got, want = closed(), closed(compiled=False)
+    assert all(np.array_equal(got[r], want[r]) for r in want)
+
+
 # ---------------------------------------------------------------------------
 # ResNet-50 v1.5 with its shortcuts (the residual flush of K1)
 # ---------------------------------------------------------------------------

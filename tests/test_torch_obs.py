@@ -55,18 +55,25 @@ def _steps(engine, n):
 
 
 def test_engine_step_holds_its_phases_in_order(model):
+    """The first step assembles its batch, launches, then stages the
+    second step's batch while the forward runs; the second step finds its
+    batch staged and has nothing queued to stage."""
     eng = VisionEngine(model, num_slots=2)
     for r in _requests(4):
         eng.submit(r)
     _, spans = _recorded(lambda: _steps(eng, 2))
     steps = [s for s in spans if s[0] == "engine.step"]
     assert len(steps) == 2
-    for step in steps:
+    admit, assemble, fwd, copy_out, retire = PHASES
+    want = [(admit, assemble, fwd, assemble, copy_out, retire),
+            (admit, fwd, copy_out, retire)]
+    for step, phases in zip(steps, want):
         inner = _inside(spans, step)
-        assert tuple(s[0] for s in inner if s[0] in PHASES) == PHASES
+        assert tuple(s[0] for s in inner if s[0] in PHASES) == phases
         # the phases follow one another
         ph = [s for s in inner if s[0] in PHASES]
         assert all(a[2] <= b[1] for a, b in zip(ph, ph[1:]))
+    assert (eng.stats.staged_hits, eng.stats.staged_misses) == (1, 1)
 
 
 def test_warmup_and_worklist_builds_on_a_new_batch_shape_only():
