@@ -1512,6 +1512,7 @@ def captured_serving_phase(cfg, params, card, reps: int = 5):
                                    GraphedPrefill)
     from repro_torch.serve.engine import (make_ffn_stats_fn, prefill_lane,
                                           write_lane)
+    from repro_torch.tree import map_tree
     dev = params["embed"].device
     max_len = LM_PROMPT + LM_NEW
     rng = np.random.default_rng(SEED + 7)
@@ -1533,7 +1534,7 @@ def captured_serving_phase(cfg, params, card, reps: int = 5):
                       lambda: M.prefill(params, cfg, toks, mine), reps)
     admit = GraphedAdmit(cfg, max_len)
     cache = M.init_cache(cfg, LM_SLOTS, max_len, device=dev)
-    want = M.map_tree(torch.clone, cache)
+    want = map_tree(torch.clone, cache)
     for i in range(LM_SLOTS + 2):
         slot = i % LM_SLOTS
         prompt = rng.integers(1, cfg.vocab, LM_PROMPT)
@@ -1645,6 +1646,7 @@ def decode_phase(cfg, params, card, B, S, steps=DECODE_STEPS, src=None):
     import torch
     from repro_torch.models import model as M
     from repro_torch.serve import GraphedServeStep, make_serve_step
+    from repro_torch.tree import map_tree
     dev = params["embed"].device
     toks = torch.as_tensor(np.random.default_rng(SEED + 5).integers(
         1, cfg.vocab, (B, S)), device=dev)
@@ -1658,7 +1660,7 @@ def decode_phase(cfg, params, card, B, S, steps=DECODE_STEPS, src=None):
     tok0 = torch.argmax(last, -1)[:, None]
     graphed = GraphedServeStep(cfg)
     # lockstep: the graph's logits against decode_step's, every step
-    gc, ec, tok = M.map_tree(torch.clone, cache0), cache0, tok0
+    gc, ec, tok = map_tree(torch.clone, cache0), cache0, tok0
     for i in range(steps):
         pos = torch.full((B,), S + i, dtype=torch.long, device=dev)
         el, ec = M.decode_step(params, cfg, tok, ec, pos)
@@ -1671,7 +1673,7 @@ def decode_phase(cfg, params, card, B, S, steps=DECODE_STEPS, src=None):
     del gc, ec
     rec = {"lanes": B, "position": S, "steps": steps, "card": card}
     for name, step in (("graph", graphed), ("eager", make_serve_step(cfg))):
-        cache, tok = M.map_tree(torch.clone, cache0), tok0
+        cache, tok = map_tree(torch.clone, cache0), tok0
         pos = torch.full((B,), S, dtype=torch.long, device=dev)
         tok, cache = step(params, cache, tok, pos)        # warm-up
         torch_sync()
@@ -1729,12 +1731,12 @@ def densified_fp32(cfg, params):
     encoder and decoder FFN on its densified weights (torch.matmul)."""
     import dataclasses
     import torch
-    from repro_torch.models import model as M
     from repro_torch.sparsity.sparse_ffn import densify
+    from repro_torch.tree import map_tree
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    p32 = M.map_tree(lambda t: t.float() if t.is_floating_point() else t,
-                     params)
+    p32 = map_tree(lambda t: t.float() if t.is_floating_point() else t,
+                   params)
     D, chunk = cfg.d_model, 128
     oracle = dict(p32)
     for stack in ("blocks", "enc_blocks"):
@@ -2286,9 +2288,9 @@ def moe_phase(dev, card):
     import dataclasses
     import torch
     from repro_torch.models import layers as L
-    from repro_torch.models import model as M
     from repro_torch.serve import GraphedServeStep, generate
     from repro_torch.sparsity import expert_balance as eb
+    from repro_torch.tree import map_tree
     t_phase = time.perf_counter()
     cfg, params = build_family(dev, MOE_ARCH, layers=MOE_LAYERS,
                                sparse=False)
@@ -2325,7 +2327,7 @@ def moe_phase(dev, card):
     del step                            # its graphs and their pools
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    p0 = M.map_tree(lambda t: t.float(), params["blocks"][0]["p0"]["moe"])
+    p0 = map_tree(lambda t: t.float(), params["blocks"][0]["p0"]["moe"])
     perm = params["expert_perm"]
     gen = torch.Generator(device=dev).manual_seed(SEED)
     x = torch.randn((1, MOE_ORACLE_TOKENS, cfg.d_model), generator=gen,
@@ -3117,8 +3119,8 @@ def leaves_bitwise(a, b) -> list:
     """Keys of the leaves of two trees (params, an OptState, metrics) whose
     bits differ."""
     import torch
-    from repro_torch.models import model as M
-    fa, fb = M.flatten_tree(a), M.flatten_tree(b)
+    from repro_torch.tree import flatten_tree
+    fa, fb = flatten_tree(a), flatten_tree(b)
     require(list(fa) == list(fb), "trees of different structure")
     bits = lambda t: t.view(torch.int16) if t.dtype == torch.bfloat16 \
         else t                                               # noqa: E731
@@ -3147,14 +3149,15 @@ def train_fp64_gate(dev, card):
     from repro_torch.optim import adamw
     from repro_torch.train.train_step import (loss_and_grads,
                                               make_train_step, promote_fp64)
+    from repro_torch.tree import flatten_tree, map_tree
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(load_config(LM_ARCH), n_layers=1,
                               dtype="float32")
     c64 = dataclasses.replace(cfg, dtype="float64")
     params = M.init_params(cfg, seed=SEED, device=dev)
-    p64 = M.map_tree(lambda t: t.double() if t.is_floating_point() else t,
-                     params)
+    p64 = map_tree(lambda t: t.double() if t.is_floating_point() else t,
+                   params)
     batch = batch_for(cfg, ShapeConfig("fp64", FP64_SEQ, FP64_BATCH,
                                        "train"), 0, seed=SEED, device=dev)
     opt_cfg = adamw.AdamWConfig(warmup_steps=0)
@@ -3165,32 +3168,32 @@ def train_fp64_gate(dev, card):
         l64, _, g64 = loss_and_grads(p64, batch, c64, remat=False)
         n64, _, m64 = adamw.apply(opt_cfg, p64, g64, adamw.init(p64))
     # AdamW alone: the fp64 gradients rounded to fp32, into both
-    g_q = M.map_tree(lambda g: g.float(), g64)
+    g_q = map_tree(lambda g: g.float(), g64)
     nq32 = adamw.apply(opt_cfg, params, g_q, adamw.init(params))[0]
     with promote_fp64():
-        nq64 = adamw.apply(opt_cfg, p64, M.map_tree(torch.Tensor.double, g_q),
+        nq64 = adamw.apply(opt_cfg, p64, map_tree(torch.Tensor.double, g_q),
                            adamw.init(p64))[0]
     torch_sync()
     lr = float(m64["lr"])
     rel = {"loss": errors(l32.double(), l64)[1],
            "grad_norm": errors(m32["grad_norm"].double(),
                                m64["grad_norm"])[1]}
-    fg32, fg64 = M.flatten_tree(g32), M.flatten_tree(g64)
+    fg32, fg64 = flatten_tree(g32), flatten_tree(g64)
     per = {k: errors(fg32[k].double(), fg64[k])[1] for k in fg64}
     rel["gradient"] = max(per.values())
     per_q = {k: errors(a.double(), b)[1] for (k, a), b in zip(
-        M.flatten_tree(nq32).items(), M.flatten_tree(nq64).values())}
+        flatten_tree(nq32).items(), flatten_tree(nq64).values())}
     rel["AdamW alone"] = max(per_q.values())
     over, raw = {}, {}
-    for (k, a), b in zip(M.flatten_tree(n32).items(),
-                         M.flatten_tree(n64).values()):
+    for (k, a), b in zip(flatten_tree(n32).items(),
+                         flatten_tree(n64).values()):
         d = float((a.double() - b).abs().max())
         raw[k] = d / float(b.abs().max())
         allow = TOL * float(b.abs().max()) + lr * float(
             (fg32[k].double() - fg64[k]).abs().max()) / opt_cfg.eps
         over[k] = d / allow
     require(all(t.dtype == torch.float64 for t in
-                M.flatten_tree(n64).values()), "the fp64 step left fp64")
+                flatten_tree(n64).values()), "the fp64 step left fp64")
     worst = max(raw, key=raw.get)
     print(f"  fp32 step vs fp64 on the card (one full-width layer, batch "
           f"{FP64_BATCH} x {FP64_SEQ}, TF32 off, {len(per)} leaves): loss "
@@ -3240,6 +3243,8 @@ def train_phase(dev, card):
     from repro_torch.train.loop import TrainLoopConfig, init_state, train
     from repro_torch.train.train_step import GraphedTrainStep, \
         make_train_step
+    from repro_torch.tree import (flatten_tree, map_tree, map_tree_with_path,
+                                  path_key)
     t_phase = time.perf_counter()
     full = load_config(LM_ARCH)
     cfg = dataclasses.replace(full, n_layers=LM_LAYERS)
@@ -3268,13 +3273,13 @@ def train_phase(dev, card):
         require(not diff, f"train step not deterministic: {diff[:6]}")
         print(f"  determinism: one step twice from one state, params, "
               f"moments and metrics bitwise equal "
-              f"({len(M.flatten_tree(runs[0]))} leaves) [{card}]")
+              f"({len(flatten_tree(runs[0]))} leaves) [{card}]")
         del runs
 
         # (a2) the captured step against the eager donated step
         estep = make_train_step(cfg, opt_cfg, donate=True)
         gstep = GraphedTrainStep(cfg, opt_cfg)
-        ep = M.map_tree(torch.clone, state.params)
+        ep = map_tree(torch.clone, state.params)
         eo = adamw.init(ep)
         gp, go = state.params, state.opt
         del state
@@ -3352,9 +3357,9 @@ def train_phase(dev, card):
             GraphedTrainStep(cfg, opt_cfg), masks)
         estep = pruning.make_pruned_train_step(make_train_step(cfg, opt_cfg),
                                                masks)
-        ep = M.map_tree(torch.clone, params)
-        eo = adamw.OptState(opt.step.clone(), M.map_tree(torch.clone, opt.mu),
-                            M.map_tree(torch.clone, opt.nu))
+        ep = map_tree(torch.clone, params)
+        eo = adamw.OptState(opt.step.clone(), map_tree(torch.clone, opt.mu),
+                            map_tree(torch.clone, opt.nu))
         ptrs = [t.data_ptr() for t in graph_leaves(params)]
         plosses = []
         for i in range(PRUNE_STEPS):
@@ -3371,10 +3376,10 @@ def train_phase(dev, card):
             t.data_ptr() for t in graph_leaves(params)],
             "the fixed-mask steps were not replayed on the params in place")
         kept = {}                # {leaf: (pruned non-zero, kept non-zero)}
-        M.map_tree_with_path(
+        map_tree_with_path(
             lambda path, p, mk: None if mk is None else kept.__setitem__(
-                M.path_key(path), (int((p[mk == 0] != 0).sum()),
-                                   int((p[mk == 1] != 0).sum()))),
+                path_key(path), (int((p[mk == 0] != 0).sum()),
+                                 int((p[mk == 1] != 0).sum()))),
             params, masks)
         require(all(v[0] == 0 for v in kept.values()),
                 f"a pruned weight moved: {kept}")
@@ -3562,16 +3567,16 @@ def full_depth_train(dev, card):
 def local_tree(tree):
     """Each DTensor leaf's local tensor (plain leaves as they are)."""
     from torch.distributed.tensor import DTensor
-    from repro_torch.models import model as M
-    return M.map_tree(lambda t: t.to_local() if isinstance(t, DTensor)
-                      else t, tree)
+    from repro_torch.tree import map_tree
+    return map_tree(lambda t: t.to_local() if isinstance(t, DTensor)
+                    else t, tree)
 
 
 def placements_off(tree, shardings) -> list:
     """Keys of the DTensor leaves whose placements are not their
     sharding's."""
-    from repro_torch.models import model as M
-    fa, fs = M.flatten_tree(tree), M.flatten_tree(shardings)
+    from repro_torch.tree import flatten_tree
+    fa, fs = flatten_tree(tree), flatten_tree(shardings)
     return [k for k, t in fa.items()
             if tuple(getattr(t, "placements", ())) != fs[k].placements]
 
@@ -3645,6 +3650,7 @@ def lm_mesh_phase(dev, card):
     from repro_torch.train.loop import init_state, shardings
     from repro_torch.train.train_step import GraphedTrainStep, \
         make_train_step
+    from repro_torch.tree import flatten_tree, map_tree
     t_phase = time.perf_counter()
     cfg = dataclasses.replace(load_config(LM_ARCH), n_layers=LM_LAYERS)
     shape = ShapeConfig("phase22", TRAIN_SEQ, TRAIN_BATCH, "train")
@@ -3674,13 +3680,13 @@ def lm_mesh_phase(dev, card):
     off = placements_off(got[0], p_sh) + placements_off(got[1], o_sh)
     require(not diff, f"sharded step != solo: {diff[:6]}")
     require(not off, f"leaves off their shardings: {off[:6]}")
-    shown = {k: str(v.placements) for k, v in list(M.flatten_tree(
+    shown = {k: str(v.placements) for k, v in list(flatten_tree(
         p_sh).items())[:3]}
     print(f"phase 22: {cfg.name} at full width, {cfg.n_layers} layers, "
           f"bf16, seq {TRAIN_SEQ} x batch {TRAIN_BATCH}, remat on, on "
           f"make_debug_mesh(1, 1) with FSDP: one eager sharded step "
           f"({first_s:.2f} s with DTensor's first dispatches) bitwise equal "
-          f"to the solo step ({len(M.flatten_tree(solo))} leaves: params, "
+          f"to the solo step ({len(flatten_tree(solo))} leaves: params, "
           f"moments, counter, metrics); every leaf in its "
           f"param_shardings / opt_shardings placements ({shown}) [{card}]")
     del solo, got, sp, so
@@ -3720,7 +3726,7 @@ def lm_mesh_phase(dev, card):
     mb = on_mesh(batch)
 
     def solo_state():
-        p = M.map_tree(torch.clone, params)
+        p = map_tree(torch.clone, params)
         return p, adamw.init(p)
 
     def mesh_state():
@@ -3870,11 +3876,13 @@ def serve_mesh_phase(dev, card):
     from torch.distributed.tensor.experimental import implicit_replication
     from repro_torch.configs import load_config
     from repro_torch.dist import partitioning as part
+    from repro_torch.dist import dp_axes
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
     from repro_torch.serve.engine import (GraphedServeStep, init_cache_on,
                                           make_prefill_fn, make_serve_step)
+    from repro_torch.tree import map_tree
     t_phase = time.perf_counter()
     before = kernel_counts()
     mesh = make_debug_mesh(1, 1, device=dev)
@@ -3914,8 +3922,8 @@ def serve_mesh_phase(dev, card):
             require(not placements_off(mesh_c, c_sh),
                     f"{cfg.name}: the prefilled cache left its placements")
             first = torch.argmax(ls, -1)[:, None]
-            out = (toks, M.map_tree(torch.clone, solo_c),
-                   M.map_tree(torch.clone, mesh_c), first)
+            out = (toks, map_tree(torch.clone, solo_c),
+                   map_tree(torch.clone, mesh_c), first)
             step = make_serve_step(cfg)
             ts, tm = first, part.distribute(first, tok_sh)
             for i in range(steps):
@@ -3937,7 +3945,7 @@ def serve_mesh_phase(dev, card):
     pos = [torch.full((B,), S + i, device=dev) for i in range(DECODE_STEPS)]
     eager = make_serve_step(cfg)
     gstep = GraphedServeStep(cfg)
-    c_e, c_g = M.map_tree(torch.clone, mesh0), M.map_tree(torch.clone, mesh0)
+    c_e, c_g = map_tree(torch.clone, mesh0), map_tree(torch.clone, mesh0)
     t_e = t_g = part.distribute(first, tok_sh)
     with torch.no_grad():
         for i in range(DECODE_STEPS):
@@ -3962,7 +3970,7 @@ def serve_mesh_phase(dev, card):
     def timed(name, p, cache0, tok0, graphed):
         with torch.no_grad():
             stepper = GraphedServeStep(cfg) if graphed else eager
-            state = {"c": M.map_tree(torch.clone, cache0), "t": tok0}
+            state = {"c": map_tree(torch.clone, cache0), "t": tok0}
 
             def run(i):
                 state["t"], state["c"] = stepper(p, state["c"], state["t"],
@@ -4004,13 +4012,13 @@ def serve_mesh_phase(dev, card):
     p = L.init_mamba(gen, jcfg, jcfg.torch_dtype)
     tree = {"blocks": [{"p1": {"mamba": p}}]}
     sp = part.distribute_tree(tree, part.param_shardings(
-        mesh, M.map_tree(lambda t: torch.empty_like(t, device="meta"),
-                         tree)))["blocks"][0]["p1"]["mamba"]
+        mesh, map_tree(lambda t: torch.empty_like(t, device="meta"),
+                       tree)))["blocks"][0]["p1"]["mamba"]
     T = MAMBA_MESH_TOKENS
     x = torch.randn((MESH_BATCH, T + FAMILY_STEPS, jcfg.d_model),
                     generator=gen, device=dev).to(jcfg.torch_dtype)
     xd = part.distribute(x, part.NamedSharding.of(
-        mesh, part.P(tuple(part.dp_axes(mesh)), None, None)))
+        mesh, part.P(tuple(dp_axes(mesh)), None, None)))
     with torch.no_grad(), implicit_replication():
         same(L.mamba_block(sp, xd[:, :T], jcfg, return_state=True),
              L.mamba_block(p, x[:, :T], jcfg, return_state=True),

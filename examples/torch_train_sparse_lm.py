@@ -31,6 +31,7 @@ from repro_torch.models import model as M
 from repro_torch.optim import adamw
 from repro_torch.sparsity import pruning
 from repro_torch.train.loop import TrainLoopConfig, train
+from repro_torch.tree import flatten_tree, map_tree
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
@@ -62,7 +63,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     # pruning masks fixed at init (prune-then-retrain, the paper's regime):
     # the loop draws the same init from its seed
     params0 = M.init_params(cfg, seed=0, device=device)
-    n_params = sum(t.numel() for t in M.flatten_tree(params0).values())
+    n_params = sum(t.numel() for t in flatten_tree(params0).values())
     print(f"model {cfg.name}: ~{n_params / 1e6:.1f}M params, "
           f"FFN density target {args.density:.0%}, on {device}")
     masks = pruning.prune_masks(
@@ -84,8 +85,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
         # re-apply the masks after the optimizer step, in place (the
         # captured step's params are its graph's buffers): pruned weights
         # stay 0
-        M.map_tree(lambda p, m: None if m is None else p.mul_(m.to(p.dtype)),
-                   state.params, masks)
+        map_tree(lambda p, m: None if m is None else p.mul_(m.to(p.dtype)),
+                 state.params, masks)
         losses.append(metrics["loss"])
         return state
 
@@ -93,9 +94,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
                   device=device)
 
     # the sparsity contract survived training
-    flat_p = M.flatten_tree(state.params)
+    flat_p = flatten_tree(state.params)
     kept = 0
-    for key, mk in M.flatten_tree(masks).items():
+    for key, mk in flatten_tree(masks).items():
         if mk is None:
             continue
         if bool((flat_p[key][mk == 0] != 0).any()):

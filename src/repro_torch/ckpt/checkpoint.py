@@ -25,7 +25,7 @@
   so a checkpoint saved on one mesh (or solo) restores onto any other (the
   reference's elastic restart).
 
-Keys are the port's tree paths (``models.model.path_key``:
+Keys are the port's tree paths (``tree.path_key``:
 ``blocks/0/p0/ffn/w_in``, ``mu/embed``).
 """
 from __future__ import annotations
@@ -42,8 +42,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
 from repro_torch.dist.partitioning import local_slices
-from repro_torch.models.model import flatten_tree, map_tree_with_path, \
-    path_key
+from repro_torch.tree import flatten_tree, map_tree_with_path, path_key
 
 Host = Dict[str, Tuple[np.ndarray, str]]
 ALIGN = 64                      # bytes; each leaf's offset in its file

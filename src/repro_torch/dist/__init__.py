@@ -19,16 +19,26 @@ device per process; gloo on the CPU, NCCL on the card) those become:
 * :mod:`repro_torch.dist.elastic` — mesh planning, straggler detection and
   failure simulation (host numpy).
 
-A tensor on the card travels only through an NCCL group: a gloo group
-given a CUDA tensor raises (:func:`check_group`), nothing falls back.
+A mesh's dim names and extents are read here (:func:`axis_names`,
+:func:`axis_sizes`, :func:`dp_axes`, :func:`tp_axes`, :func:`dp_extent`),
+from a ``DeviceMesh`` or a stub with ``axis_names`` and ``shape``. A
+tensor on the card travels only through an NCCL group: a gloo group given
+a CUDA tensor raises (:func:`check_group`), nothing falls back.
 """
 from __future__ import annotations
+
+import math
+from typing import Mapping, Tuple
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["check_group", "collective_matmul", "compression", "elastic",
-           "partitioning"]
+__all__ = ["axis_names", "axis_sizes", "check_group", "collective_matmul",
+           "compression", "dp_axes", "dp_extent", "elastic", "partitioning",
+           "tp_axes"]
+
+# data-parallel mesh axis names, outermost first
+_DP_NAMES = ("pod", "data")
 
 
 def check_group(group, tensor: torch.Tensor) -> None:
@@ -42,3 +52,39 @@ def check_group(group, tensor: torch.Tensor) -> None:
     if not tensor.is_cuda and backend != "gloo":
         raise ValueError(f"a {tensor.device} tensor travels through a gloo "
                          f"group, got a {backend} group")
+
+
+def axis_names(mesh) -> Tuple[str, ...]:
+    """A mesh's dim names (``DeviceMesh.mesh_dim_names``, or a stub's
+    ``axis_names``)."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is None:
+        names = getattr(mesh, "axis_names", None)
+    if names is None:
+        raise ValueError("the mesh has no dim names")
+    return tuple(names)
+
+
+def axis_sizes(mesh) -> Mapping[str, int]:
+    """Mesh dim name -> extent."""
+    names = axis_names(mesh)
+    shape = mesh.shape                   # a tuple, or name -> extent
+    if isinstance(shape, Mapping):
+        return {a: int(shape[a]) for a in names}
+    return {a: int(s) for a, s in zip(names, shape)}
+
+
+def dp_axes(mesh) -> Tuple[str, ...]:
+    """Data-parallel axes of ``mesh``, outermost (pod) first."""
+    return tuple(a for a in _DP_NAMES if a in axis_names(mesh))
+
+
+def tp_axes(mesh) -> Tuple[str, ...]:
+    """Tensor-parallel axes of ``mesh`` (``model`` or ``model1, model2``)."""
+    return tuple(a for a in axis_names(mesh) if str(a).startswith("model"))
+
+
+def dp_extent(mesh) -> int:
+    """Product of the data-parallel extents (1 without data axes)."""
+    sizes = axis_sizes(mesh)
+    return math.prod(sizes[a] for a in dp_axes(mesh))

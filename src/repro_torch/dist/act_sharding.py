@@ -29,8 +29,7 @@ from typing import List, Tuple
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate
 
-# a module import: models.model imports this module, and partitioning
-# imports models.model
+from repro_torch.dist import axis_sizes, dp_axes, tp_axes
 from repro_torch.dist import partitioning as part
 
 # the innermost context wins; the launchers install one
@@ -40,8 +39,8 @@ _STACK: List[Tuple[object, "part.PartitionSpec"]] = []
 def sp_spec(mesh) -> "part.PartitionSpec":
     """[B, S, D] sequence-parallel spec: batch on the data dims, sequence
     on the model dims, features replicated."""
-    return part.PartitionSpec(tuple(part.dp_axes(mesh)) or None,
-                              tuple(part.tp_axes(mesh)) or None, None)
+    return part.PartitionSpec(tuple(dp_axes(mesh)) or None,
+                              tuple(tp_axes(mesh)) or None, None)
 
 
 @contextlib.contextmanager
@@ -58,7 +57,7 @@ def _extent(mesh, entry) -> int:
     if entry is None:
         return 1
     axes = (entry,) if isinstance(entry, str) else tuple(entry)
-    sizes = part.axis_sizes(mesh)
+    sizes = axis_sizes(mesh)
     return math.prod(sizes[a] for a in axes)
 
 

@@ -43,9 +43,8 @@ from typing import Mapping, Optional, Sequence, Tuple
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-# a module import: models.model imports dist.act_sharding, which imports
-# this module
-from repro_torch.models import model as _model
+from repro_torch.dist import axis_names, axis_sizes, dp_axes, tp_axes
+from repro_torch.tree import map_tree, map_tree_with_path
 
 # leaf names sharded column-parallel (output-feature dim on TP axes)
 _COL = {"wq", "wk", "wv", "w_in", "w_gate", "in_proj",
@@ -54,8 +53,6 @@ _COL = {"wq", "wk", "wv", "w_in", "w_gate", "in_proj",
 _ROW = {"wo", "w_out", "out_proj", "w_o"}
 # MoE expert-stacked weights: shard the expert dim (expert parallelism)
 _MOE_EXPERT = {"w_in", "w_out", "w_gate"}
-# data-parallel mesh axis names, outermost first
-_DP_NAMES = ("pod", "data")
 
 
 class PartitionSpec(tuple):
@@ -89,42 +86,6 @@ class Rules:
 
 # mesh-unaware baseline: single megatron-style "model" axis
 _BASELINE = Rules(tp=("model",), q_axes=("model",), kv_axes=("model",))
-
-
-def axis_names(mesh) -> Tuple[str, ...]:
-    """A mesh's dim names (``DeviceMesh.mesh_dim_names``, or a stub's
-    ``axis_names``)."""
-    names = getattr(mesh, "mesh_dim_names", None)
-    if names is None:
-        names = getattr(mesh, "axis_names", None)
-    if names is None:
-        raise ValueError("the mesh has no dim names")
-    return tuple(names)
-
-
-def axis_sizes(mesh) -> Mapping[str, int]:
-    """Mesh dim name -> extent."""
-    names = axis_names(mesh)
-    shape = mesh.shape                   # a tuple, or name -> extent
-    if isinstance(shape, Mapping):
-        return {a: int(shape[a]) for a in names}
-    return {a: int(s) for a, s in zip(names, shape)}
-
-
-def dp_axes(mesh) -> Tuple[str, ...]:
-    """Data-parallel axes of ``mesh``, outermost (pod) first."""
-    return tuple(a for a in _DP_NAMES if a in axis_names(mesh))
-
-
-def tp_axes(mesh) -> Tuple[str, ...]:
-    """Tensor-parallel axes of ``mesh`` (``model`` or ``model1, model2``)."""
-    return tuple(a for a in axis_names(mesh) if str(a).startswith("model"))
-
-
-def dp_extent(mesh) -> int:
-    """Product of the data-parallel extents (1 without data axes)."""
-    sizes = axis_sizes(mesh)
-    return math.prod(sizes[a] for a in dp_axes(mesh))
 
 
 def make_rules(mesh, n_heads: int, n_kv_heads: int) -> Rules:
@@ -246,7 +207,7 @@ def param_specs(abs_params, fsdp: int = 0, rules: Optional[Rules] = None):
             spec = P(*spec[1:])
         return spec
 
-    return _model.map_tree_with_path(one, abs_params)
+    return map_tree_with_path(one, abs_params)
 
 
 # ---------------------------------------------------------------------------
@@ -312,7 +273,7 @@ def cache_shardings(mesh, abs_cache, batch: int,
                 entries[i] = None
         return NamedSharding.of(mesh, P(*entries), leaf.shape)
 
-    return _model.map_tree_with_path(one, abs_cache)
+    return map_tree_with_path(one, abs_cache)
 
 
 # ---------------------------------------------------------------------------
@@ -398,7 +359,7 @@ def param_shardings(mesh, abs_params, fsdp: bool = False,
     fsdp_n = sizes.get("data", 1) if fsdp else 0
     specs = param_specs(abs_params, fsdp=fsdp_n, rules=rules)
     # the params drive the walk, so each spec (a tuple) arrives whole
-    return _model.map_tree(
+    return map_tree(
         lambda leaf, spec: NamedSharding.of(mesh, spec, leaf.shape),
         abs_params, specs)
 
@@ -461,7 +422,7 @@ def placed_zeros(sharding: NamedSharding, shape: Sequence[int],
 def distribute_tree(tree, shardings):
     """:func:`distribute` leaf by leaf (``shardings`` a tree of
     :class:`NamedSharding` shaped as ``tree``)."""
-    return _model.map_tree(distribute, tree, shardings)
+    return map_tree(distribute, tree, shardings)
 
 
 def replicate(x: torch.Tensor) -> torch.Tensor:
@@ -477,5 +438,5 @@ def replicate(x: torch.Tensor) -> torch.Tensor:
 def gather_tree(tree):
     """Every DTensor leaf as its full tensor (an all-gather where it is
     sharded, a sum where it is partial); other leaves as they are."""
-    return _model.map_tree(lambda t: t.full_tensor()
-                           if isinstance(t, DTensor) else t, tree)
+    return map_tree(lambda t: t.full_tensor()
+                    if isinstance(t, DTensor) else t, tree)

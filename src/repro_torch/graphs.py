@@ -58,13 +58,13 @@ decides how long it lives.
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 
 from repro_torch.kernels import _cuda
-from repro_torch.models.model import map_tree
 from repro_torch.obs import span
+from repro_torch.tree import leaves, map_tree
 
 
 class GraphCaptureError(RuntimeError):
@@ -75,18 +75,6 @@ def captured(body: Callable) -> Callable:
     """Mark ``body`` as a function that :class:`CapturedGraph` captures
     (the port's lint reads the mark; nothing changes at run time)."""
     return body
-
-
-def leaves(tree) -> List[torch.Tensor]:
-    """The tensors of nested dicts, lists and tuples, in order."""
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [t for v in tree for t in leaves(v)]
-    raise TypeError(f"graph inputs are tensors in dicts, lists and tuples; "
-                    f"got {type(tree).__name__}")
 
 
 class CapturedGraph:

@@ -96,6 +96,7 @@ from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.configs.base import ARCHS, SHAPES, load_config
+from repro_torch.dist import axis_names, dp_axes, dp_extent
 from repro_torch.dist import partitioning as part
 from repro_torch.dist.act_sharding import act_sharding, sp_spec
 from repro_torch.launch.mesh import make_production_mesh, production_shape
@@ -104,6 +105,7 @@ from repro_torch.optim import adamw
 from repro_torch.serve.engine import (init_cache_on, make_prefill_fn,
                                       make_serve_step)
 from repro_torch.train.train_step import make_train_step
+from repro_torch.tree import flatten_tree, map_tree
 
 # per-arch training knobs, the reference's (chosen there so each cell fits
 # a 16-GB chip): FSDP for the big configs, microbatching and grouped remat
@@ -343,10 +345,10 @@ def state_bytes(cfg, mesh, *, fsdp: bool = False,
     ``param_shardings`` blocks, AdamW's two fp32 moments in the same
     blocks, and the int32 step counter."""
     abs_p = M.abstract_params(cfg)
-    sh = M.flatten_tree(part.param_shardings(mesh, abs_p, fsdp=fsdp,
-                                             rules=rules))
+    sh = flatten_tree(part.param_shardings(mesh, abs_p, fsdp=fsdp,
+                                           rules=rules))
     total = 4
-    for key, t in M.flatten_tree(abs_p).items():
+    for key, t in flatten_tree(abs_p).items():
         n = math.prod(part.local_shape(mesh, sh[key].placements, t.shape))
         total += n * (t.element_size() + 2 * 4)
     return total
@@ -363,8 +365,8 @@ def _bytes(tree) -> int:
 
 def _off(tree, shardings) -> list:
     """Keys of the leaves whose placements are not their shardings'."""
-    want = M.flatten_tree(shardings)
-    return [k for k, t in M.flatten_tree(tree).items()
+    want = flatten_tree(shardings)
+    return [k for k, t in flatten_tree(tree).items()
             if tuple(getattr(t, "placements", ())) != want[k].placements]
 
 
@@ -377,7 +379,7 @@ def _inputs(cfg, shape, mesh) -> Dict[str, DTensor]:
                             else 0)
     spec2 = part.NamedSharding.of(mesh, part.batch_spec(mesh), (B, text))
     spec3 = part.NamedSharding.of(
-        mesh, part.P(tuple(part.dp_axes(mesh)), None, None))
+        mesh, part.P(tuple(dp_axes(mesh)), None, None))
     ids = torch.empty((B, text), dtype=torch.long, device="meta")
     out = {"tokens": _meta(ids, spec2)}
     if shape.kind == "train":
@@ -406,7 +408,7 @@ def run_cell(arch: str, shape_name: str, mesh, *, opt: bool = False,
         else None
     p_sh = part.param_shardings(mesh, M.abstract_params(cfg), fsdp=fsdp,
                                 rules=rules)
-    params = M.map_tree(_meta, M.abstract_params(cfg), p_sh)
+    params = map_tree(_meta, M.abstract_params(cfg), p_sh)
     sp_ctx = act_sharding(mesh, sp_spec(mesh)) \
         if opt and shape.kind != "decode" else contextlib.nullcontext()
     flash = 1024 if (opt and cfg.n_heads and not cfg.frontend) else None
@@ -438,7 +440,7 @@ def run_cell(arch: str, shape_name: str, mesh, *, opt: bool = False,
         cache, c_sh = init_cache_on(mesh, cfg, B, shape.seq_len,
                                     enc_len=enc_len, rules=rules,
                                     device="meta")
-        t_spec = part.batch_spec(mesh) if B % part.dp_extent(mesh) == 0 \
+        t_spec = part.batch_spec(mesh) if B % dp_extent(mesh) == 0 \
             else part.P(None, None)
         tok = _meta(torch.empty((B, 1), dtype=torch.long, device="meta"),
                     part.NamedSharding.of(mesh, t_spec, (B, 1)))
@@ -468,7 +470,7 @@ def run_cell(arch: str, shape_name: str, mesh, *, opt: bool = False,
         "alias_size_in_bytes": float(sum(
             _nbytes(t) for t in outs
             if t.untyped_storage()._cdata in arg_keys))}
-    names = part.axis_names(mesh)
+    names = axis_names(mesh)
     return {
         "arch": arch, "shape": shape_name,
         "mesh": {a: mesh.size(i) for i, a in enumerate(names)},
@@ -525,7 +527,7 @@ def main(argv=None) -> Dict[str, Any]:
             t0 = time.perf_counter()
             mesh = make_production_mesh(multi_pod=multi,
                                         split_model=args.opt, device="cpu")
-            print(f"mesh {dict(zip(part.axis_names(mesh), mesh.shape))} "
+            print(f"mesh {dict(zip(axis_names(mesh), mesh.shape))} "
                   f"on a fake world of {world} ranks, as rank {args.rank}: "
                   f"built in {time.perf_counter() - t0:.2f} s", flush=True)
             for arch in archs:

@@ -26,9 +26,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
-# a module import: dist.partitioning imports models.model, which imports
-# this module
-from repro_torch.dist import partitioning
+from repro_torch.dist import axis_names, dp_axes, partitioning, tp_axes
 from repro_torch.kernels.worklist_core import activate
 from repro_torch.sparsity import sparse_ffn as sf
 
@@ -248,14 +246,14 @@ def _work_placements(mesh, batch: int, counts: Tuple[int, ...],
     tensor dim ``dim`` (heads or channels) over the longest prefix of the
     model dims whose product divides every one of ``counts`` (none when
     ``counts`` is empty); the rest replicated."""
-    names = partitioning.axis_names(mesh)
+    names = axis_names(mesh)
     out = [Replicate()] * mesh.ndim
-    dp = [names.index(a) for a in partitioning.dp_axes(mesh)]
+    dp = [names.index(a) for a in dp_axes(mesh)]
     if batch % math.prod(mesh.size(i) for i in dp) == 0:
         for i in dp:
             out[i] = Shard(0)
     n = 1
-    for a in partitioning.tp_axes(mesh) if counts else ():
+    for a in tp_axes(mesh) if counts else ():
         i = names.index(a)
         n *= mesh.size(i)
         if any(c % n for c in counts):

@@ -28,9 +28,9 @@ from torch.overrides import TorchFunctionMode
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-# module imports (dist.partitioning imports this module)
 from repro_torch.dist import act_sharding, partitioning
 from repro_torch.models import layers as L
+from repro_torch.tree import map_tree
 
 Params = Dict[str, Any]
 Cache = List[Dict[str, Dict[str, torch.Tensor]]]
@@ -46,50 +46,6 @@ def _uses_moe(cfg: ModelConfig, pos: int) -> bool:
         raise ValueError(f"{cfg.name}: MoE every {every} does not divide "
                          f"the pattern {cfg.block_pattern}")
     return pos % every == every - 1
-
-
-def map_tree(fn: Callable, *trees):
-    """Apply ``fn`` leaf-wise over nested dicts/lists/tuples (NamedTuples
-    too) of tensors of the same structure (the port's stand-in for
-    ``jax.tree.map``)."""
-    t0 = trees[0]
-    if isinstance(t0, dict):
-        return {k: map_tree(fn, *(t[k] for t in trees)) for k in t0}
-    if isinstance(t0, tuple) and hasattr(t0, "_fields"):
-        return type(t0)(*(map_tree(fn, *xs) for xs in zip(*trees)))
-    if isinstance(t0, (list, tuple)):
-        return type(t0)(map_tree(fn, *xs) for xs in zip(*trees))
-    return fn(*trees)
-
-
-def map_tree_with_path(fn: Callable, *trees, _path: Tuple = ()):
-    """:func:`map_tree` with each leaf's path, a tuple of dict keys, list
-    indices and NamedTuple field names, as ``fn``'s first argument (the
-    port's ``jax.tree_util.tree_map_with_path``)."""
-    t0 = trees[0]
-    if isinstance(t0, dict):
-        return {k: map_tree_with_path(fn, *(t[k] for t in trees),
-                                      _path=_path + (k,)) for k in t0}
-    if isinstance(t0, tuple) and hasattr(t0, "_fields"):
-        return type(t0)(*(map_tree_with_path(fn, *xs, _path=_path + (f,))
-                          for f, xs in zip(t0._fields, zip(*trees))))
-    if isinstance(t0, (list, tuple)):
-        return type(t0)(map_tree_with_path(fn, *xs, _path=_path + (i,))
-                        for i, xs in enumerate(zip(*trees)))
-    return fn(_path, *trees)
-
-
-def path_key(path: Tuple) -> str:
-    """A leaf's path as one string, ``"blocks/0/p0/ffn/w_in"``."""
-    return "/".join(str(k) for k in path)
-
-
-def flatten_tree(tree) -> Dict[str, Any]:
-    """{:func:`path_key`: leaf} in :func:`map_tree`'s order."""
-    out: Dict[str, Any] = {}
-    map_tree_with_path(lambda path, leaf: out.__setitem__(path_key(path),
-                                                          leaf), tree)
-    return out
 
 
 # ---------------------------------------------------------------------------

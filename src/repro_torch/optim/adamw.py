@@ -21,8 +21,7 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.dist.partitioning import replicate, replicated
-from repro_torch.models.model import (flatten_tree, map_tree,
-                                      map_tree_with_path)
+from repro_torch.tree import flatten_tree, map_tree, map_tree_with_path
 
 
 @dataclasses.dataclass(frozen=True)

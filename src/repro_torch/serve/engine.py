@@ -40,6 +40,7 @@ from repro_torch import graphs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import partitioning as part
 from repro_torch.models import model as M
+from repro_torch.tree import leaves, map_tree
 
 
 def _device(params) -> torch.device:
@@ -108,9 +109,9 @@ def init_cache_on(mesh, cfg: ModelConfig, batch: int, max_len: int, *,
     abs_cache = M.init_cache(cfg, batch, max_len, enc_len=enc_len,
                              device="meta")
     sh = part.cache_shardings(mesh, abs_cache, batch, rules=rules)
-    return M.map_tree(lambda t, s: part.placed_zeros(s, t.shape, t.dtype,
-                                                     device),
-                      abs_cache, sh), sh
+    return map_tree(lambda t, s: part.placed_zeros(s, t.shape, t.dtype,
+                                                   device),
+                    abs_cache, sh), sh
 
 
 def make_serve_step(cfg: ModelConfig, greedy: bool = True):
@@ -127,7 +128,7 @@ def make_serve_step(cfg: ModelConfig, greedy: bool = True):
 def _copy_into(dst, src):
     """Copy every leaf of ``src`` into the same leaf of ``dst``; returns
     ``dst``."""
-    M.map_tree(lambda d, s: d.copy_(s), dst, src)
+    map_tree(lambda d, s: d.copy_(s), dst, src)
     return dst
 
 
@@ -136,11 +137,11 @@ def _params_key(params) -> tuple:
     type (rebinding a leaf needs a new graph)."""
     return tuple(((t.to_local() if isinstance(t, DTensor) else t)
                   .data_ptr(), t.shape, t.dtype)
-                 for t in graphs.leaves(params))
+                 for t in leaves(params))
 
 
 def _geometry(tree) -> tuple:
-    return tuple((t.shape, t.dtype) for t in graphs.leaves(tree))
+    return tuple((t.shape, t.dtype) for t in leaves(tree))
 
 
 @graphs.captured
@@ -221,13 +222,13 @@ class GraphedServeStep:
         key = (_params_key(params), _geometry(cache), id(sample))
         g = self.graphs.get(key)
         if g is None:
-            B = graphs.leaves(cache)[0].shape[0]
+            B = leaves(cache)[0].shape[0]
             g = graphs.CapturedGraph(
                 _step_body(params, self.cfg, self.greedy, sample),
                 _device(params),
                 f"{self.cfg.name} decode step (batch {B}"
                 f"{', sampled' if sample is not None else ''})",
-                adopt=(0,), keep=(graphs.leaves(params), sample),
+                adopt=(0,), keep=(leaves(params), sample),
                 generator=sample)
             self.graphs[key] = g
         return g
@@ -274,7 +275,7 @@ class GraphedPrefill:
             g = graphs.CapturedGraph(
                 _prefill_body(params, self.cfg), _device(params),
                 f"{self.cfg.name} prefill (batch {tokens.shape[0]}, prompt "
-                f"{tokens.shape[1]})", keep=graphs.leaves(params))
+                f"{tokens.shape[1]})", keep=leaves(params))
             self.graphs[key] = g
         return g
 
@@ -288,7 +289,7 @@ def write_lane(cache, lane, slot: int):
     (every leaf's row ``slot``); returns ``cache``."""
     def write(big, ln):
         big[slot] = ln[0].to(big.dtype)
-    M.map_tree(write, cache, lane)
+    map_tree(write, cache, lane)
     return cache
 
 
@@ -315,7 +316,7 @@ def make_admit_fn(cfg: ModelConfig, max_len: int, greedy: bool = True):
 
     def admit(params, cache, prompt, slot: int):
         first, lane = prefill_lane(params, cfg, max_len, prompt, greedy)
-        return first, write_lane(M.map_tree(torch.clone, cache), lane, slot)
+        return first, write_lane(map_tree(torch.clone, cache), lane, slot)
     return admit
 
 
@@ -329,8 +330,8 @@ def _admit_body(params, cfg: ModelConfig, max_len: int, greedy: bool):
         prompt, slot = packed[None, :-1], packed[-1:]
         lane = M.init_cache(cfg, 1, max_len, device=packed.device)
         last, lane = M.prefill(params, cfg, prompt, lane)
-        M.map_tree(lambda big, ln: big.index_copy_(0, slot, ln.to(big.dtype)),
-                   cache, lane)
+        map_tree(lambda big, ln: big.index_copy_(0, slot, ln.to(big.dtype)),
+                 cache, lane)
         return _pick(last, greedy, None)[:, None], cache
     return body
 
@@ -369,7 +370,7 @@ class GraphedAdmit:
                 _admit_body(params, self.cfg, self.max_len, self.greedy),
                 _device(params), f"{self.cfg.name} admission (prompt "
                 f"{prompt.shape[0]})", adopt=(0,),
-                keep=graphs.leaves(params))
+                keep=leaves(params))
             self.graphs[key] = g
         first, cache = g(cache, packed)
         return first.clone(), cache
@@ -415,7 +416,7 @@ class GraphedFfnStats:
             g = graphs.CapturedGraph(
                 _ffn_stats_body(params, self.cfg), _device(params),
                 f"{self.cfg.name} FFN probe (batch {token.shape[0]})",
-                adopt=(0,), keep=graphs.leaves(params))
+                adopt=(0,), keep=leaves(params))
             self.graphs[key] = g
         return g(cache, _pack(token, pos, active))
 
@@ -426,7 +427,7 @@ def reset_slots(cache, free_mask: torch.Tensor):
         keep = (~free_mask.to(a.device).bool()).reshape(
             (-1,) + (1,) * (a.ndim - 1))
         return a * keep.to(a.dtype)
-    return M.map_tree(zero, cache)
+    return map_tree(zero, cache)
 
 
 def generate(params, cfg: ModelConfig, prompt: torch.Tensor, max_new: int,

@@ -39,6 +39,7 @@ from repro_torch.serve.engine import (GraphedAdmit, GraphedFfnStats,
                                       GraphedServeStep, make_ffn_stats_fn,
                                       make_serve_step, prefill_lane,
                                       write_lane)
+from repro_torch.tree import leaves
 
 
 @dataclasses.dataclass
@@ -273,7 +274,7 @@ class Scheduler:
         if freed.any():
             # lane hygiene: zero freed lanes now; admission re-zeroes anyway
             keep = self._dev(~freed)
-            for a in graphs.leaves(self.cache):
+            for a in leaves(self.cache):
                 a.mul_(keep.reshape((-1,) + (1,) * (a.ndim - 1)).to(a.dtype))
         self.clock += 1
         return True

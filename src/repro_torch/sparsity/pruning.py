@@ -18,8 +18,8 @@ import torch
 
 from repro_torch.convert import STACKS
 from repro_torch.core.sparse import prune_by_magnitude
-from repro_torch.models.model import map_tree, map_tree_with_path, path_key
 from repro_torch.train.train_step import GraphedTrainStep
+from repro_torch.tree import map_tree, map_tree_with_path, path_key
 
 Params = Dict[str, Any]
 

@@ -32,6 +32,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.partitioning import local_slices, replicate
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
+from repro_torch.tree import flatten_tree, map_tree
 
 MOE_AUX_WEIGHT = 0.01
 Z_LOSS_WEIGHT = 1e-4
@@ -104,15 +105,15 @@ def loss_and_grads(params, batch, cfg: ModelConfig, **loss_kw):
     give a replicated loss and aux and DTensor gradients in whatever
     placements the backward left them (partial sums over the data dims;
     ``adamw.reduce_grads`` brings them to the params')."""
-    live = M.map_tree(lambda p: p.detach().requires_grad_(True)
-                      if p.is_floating_point() else p, params)
-    leaves = [p for p in M.flatten_tree(live).values() if p.requires_grad]
+    live = map_tree(lambda p: p.detach().requires_grad_(True)
+                    if p.is_floating_point() else p, params)
+    leaves = [p for p in flatten_tree(live).values() if p.requires_grad]
     with torch.enable_grad(), sharded(params):
         loss, aux = loss_fn(live, batch, cfg, **loss_kw)
         loss = replicate(loss)
         grads = iter(torch.autograd.grad(loss, leaves))
-    grads = M.map_tree(lambda p: next(grads) if p.requires_grad else None,
-                       live)
+    grads = map_tree(lambda p: next(grads) if p.requires_grad else None,
+                     live)
     return loss.detach(), {k: replicate(v.detach()) for k, v in aux.items()}, \
         grads
 
@@ -139,17 +140,17 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
             # gradient accumulation, one microbatch after another: each
             # microbatch's gradients land in fp32 buffers (the reference's
             # BARISTA "colored output buffer"), in the params' placements
-            grads = M.map_tree(lambda p: adamw.zeros_like(p)
-                               if p.is_floating_point() else None, params)
+            grads = map_tree(lambda p: adamw.zeros_like(p)
+                             if p.is_floating_point() else None, params)
             loss = 0.0
             for i in range(microbatches):
                 mb = {k: microbatch(v, i, microbatches)
                       for k, v in batch.items()}
                 l_i, _, g_i = loss_and_grads(params, mb, cfg, **loss_kw)
                 g_i = adamw.reduce_grads(params, g_i)
-                grads = M.map_tree(lambda a, g: None if g is None
-                                   else a + g.float() / microbatches,
-                                   grads, g_i)
+                grads = map_tree(lambda a, g: None if g is None
+                                 else a + g.float() / microbatches,
+                                 grads, g_i)
                 loss = loss + l_i / microbatches
             # as the reference: "ce" is the total loss and "moe_aux" 0
             # when accumulating
@@ -192,8 +193,8 @@ def microbatch(x: torch.Tensor, i: int, n: int) -> torch.Tensor:
 def _mask_in_place(params, masks) -> None:
     """``p *= mask`` at every masked leaf: the bits of
     ``pruning.apply_masks`` written into the params."""
-    M.map_tree(lambda p, m: None if m is None else p.mul_(m.to(p.dtype)),
-               params, masks)
+    map_tree(lambda p, m: None if m is None else p.mul_(m.to(p.dtype)),
+             params, masks)
 
 
 @graphs.captured

@@ -37,10 +37,9 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from repro_torch.dist import check_group
+from repro_torch.dist import axis_names, check_group, dp_axes, dp_extent
 from repro_torch.dist.collective_matmul import (exchange_overlap_fraction,
                                                 ring_allgather)
-from repro_torch.dist.partitioning import axis_names, dp_axes, dp_extent
 from repro_torch.kernels.worklist_core import (WorkList, per_shard_steps,
                                                shard_imbalance,
                                                shard_scaling_efficiency,

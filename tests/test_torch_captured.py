@@ -28,7 +28,6 @@ from repro.serve import Scheduler as RScheduler
 from repro.serve.engine import jitted_ffn_stats
 from repro.sparsity.sparse_ffn import sparsify_model as r_sparsify_model
 from repro.train import train_step as RT
-from repro_torch import graphs
 from repro_torch.configs import base as t_base
 from repro_torch.convert import params_from_reference
 from repro_torch.data.pipeline import batch_for
@@ -43,6 +42,7 @@ from repro_torch.sparsity import pruning
 from repro_torch.sparsity.sparse_ffn import sparsify_model
 from repro_torch.train import train_step as T
 from repro_torch.train.loop import TrainLoopConfig, train
+from repro_torch.tree import flatten_tree, leaves, map_tree
 
 CPU = torch.device("cpu")
 TOL = 1e-5
@@ -60,14 +60,14 @@ def _bits(t):
 
 
 def _tree_equal(a, b) -> bool:
-    fa, fb = M.flatten_tree(a), M.flatten_tree(b)
+    fa, fb = flatten_tree(a), flatten_tree(b)
     return list(fa) == list(fb) and all(
         fa[k].dtype == fb[k].dtype and torch.equal(_bits(fa[k]), _bits(fb[k]))
         for k in fa)
 
 
 def _clone(tree):
-    return M.map_tree(torch.clone, tree)
+    return map_tree(torch.clone, tree)
 
 
 @functools.lru_cache(maxsize=None)
@@ -104,7 +104,7 @@ def test_graphed_train_step_bitwise_donated_step(arch, microbatches):
     graphed = T.GraphedTrainStep(tc, cfg, microbatches=microbatches)
     ep, eo = _clone(tp), A.init(_clone(tp))
     gp, go = _clone(tp), A.init(_clone(tp))
-    ptrs = [t.data_ptr() for t in graphs.leaves((gp, go))]
+    ptrs = [t.data_ptr() for t in leaves((gp, go))]
     for i in range(3):
         ep, eo, em = eager(ep, eo, tbs[i])
         gp, go, gm = graphed(gp, go, tbs[i])
@@ -119,7 +119,7 @@ def test_graphed_train_step_bitwise_donated_step(arch, microbatches):
             assert _rel(gp["embed"], rp2["embed"]) <= TOL
             assert _rel(go.mu["embed"], ro2.mu["embed"]) <= TOL
             assert _rel(go.nu["embed"], ro2.nu["embed"]) <= TOL
-    assert [t.data_ptr() for t in graphs.leaves((gp, go))] == ptrs
+    assert [t.data_ptr() for t in leaves((gp, go))] == ptrs
     assert len(graphed.graphs) == 1
 
 
@@ -128,7 +128,7 @@ def test_donated_adamw_advances_the_counter_in_place():
     graph reads and writes one buffer) with ``lr`` and the bias
     corrections from it; ``donate=False`` leaves the given counter."""
     _, tc, _, tp, _, _ = _train_setup("qwen3_4b")
-    grads = M.map_tree(lambda p: torch.ones_like(p) * 1e-3, tp)
+    grads = map_tree(lambda p: torch.ones_like(p) * 1e-3, tp)
     opt = A.init(_clone(tp))
     counter = opt.step
     new_p, new_o, m = A.apply(A.AdamWConfig(warmup_steps=4), tp, grads, opt)
@@ -178,14 +178,14 @@ def test_graphed_pruned_step_equals_apply_masks():
     assert graphed.masks is masks
     ep, eo = start, A.init(start)
     gp, go = _clone(start), A.init(start)
-    ptrs = [t.data_ptr() for t in graphs.leaves(gp)]
+    ptrs = [t.data_ptr() for t in leaves(gp)]
     for i in range(3):
         ep, eo, em = eager(ep, eo, tbs[i])
         gp, go, gm = graphed(gp, go, tbs[i])
         assert _tree_equal((gp, go, gm), (ep, eo, em)), i
-    assert [t.data_ptr() for t in graphs.leaves(gp)] == ptrs
+    assert [t.data_ptr() for t in leaves(gp)] == ptrs
     zeros = []
-    M.map_tree(lambda p, m: None if m is None else zeros.append(
+    map_tree(lambda p, m: None if m is None else zeros.append(
         bool((p[m == 0] == 0).all())), gp, masks)
     assert len(zeros) == 6 and all(zeros)
 
@@ -260,11 +260,11 @@ def test_graphed_prefill_writes_the_callers_cache():
     for B, S in ((2, 6), (2, 6), (1, 6), (2, 5)):
         toks = torch.as_tensor(_prompts(tcfg, B, S))
         cache = M.init_cache(tcfg, B, 12, device=CPU)
-        before = graphs.leaves(cache)
+        before = leaves(cache)
         want_l, want_c = M.prefill(tp, tcfg, toks, _clone(cache))
         last, got = pre(tp, toks, cache)
         assert torch.equal(last, want_l) and _tree_equal(got, want_c)
-        assert all(a is b for a, b in zip(graphs.leaves(got), before))
+        assert all(a is b for a, b in zip(leaves(got), before))
     assert len(pre.graphs) == 3
 
 
@@ -275,10 +275,10 @@ def test_admission_body_with_device_slot_equals_prefill_and_write_lane():
     the slot."""
     _, tcfg, _, tp = _lm()
     admit = GraphedAdmit(tcfg, 12)
-    cache = M.map_tree(lambda t: torch.randn_like(t), M.init_cache(
+    cache = map_tree(lambda t: torch.randn_like(t), M.init_cache(
         tcfg, 3, 12, device=CPU))
     want = _clone(cache)
-    before = graphs.leaves(cache)
+    before = leaves(cache)
     for i, (slot, S) in enumerate(((2, 6), (torch.tensor(0), 6),
                                    (torch.tensor([1]), 4))):
         prompt = _prompts(tcfg, 1, S, seed=i)[0]
@@ -286,7 +286,7 @@ def test_admission_body_with_device_slot_equals_prefill_and_write_lane():
         tok, lane = prefill_lane(tp, tcfg, 12, torch.as_tensor(prompt)[None])
         write_lane(want, lane, int(slot))
         assert torch.equal(first, tok) and _tree_equal(cache, want), i
-        assert all(a is b for a, b in zip(graphs.leaves(cache), before))
+        assert all(a is b for a, b in zip(leaves(cache), before))
     assert len(admit.graphs) == 2
     with pytest.raises(ValueError, match="decoder-only"):
         GraphedAdmit(t_base.load_smoke("seamless_m4t_medium"), 12)

@@ -25,6 +25,7 @@ from repro_torch.sparsity import pruning
 from repro_torch.sparsity.sparse_ffn import sparsify_model
 from repro_torch.train.loop import (TrainLoopConfig, init_state,
                                     restore_or_init, train)
+from repro_torch.tree import flatten_tree, map_tree
 
 CPU = torch.device("cpu")
 SHAPE = ShapeConfig("t", 32, 4, "train")
@@ -43,7 +44,7 @@ def _bf16_moe():
 
 
 def _bitwise(a, b):
-    fa, fb = M.flatten_tree(a), M.flatten_tree(b)
+    fa, fb = flatten_tree(a), flatten_tree(b)
     assert list(fa) == list(fb)
     for k in fa:
         assert fa[k].dtype == fb[k].dtype and fa[k].shape == fb[k].shape, k
@@ -55,11 +56,11 @@ def _bitwise(a, b):
 
 def test_save_restore_roundtrip_bitwise(tmp_path):
     cfg, params = _bf16_moe()
-    dtypes = {str(v.dtype) for v in M.flatten_tree(params).values()}
+    dtypes = {str(v.dtype) for v in flatten_tree(params).values()}
     assert {"torch.bfloat16", "torch.float32", "torch.int32"} <= dtypes
     # an optimizer state after one update: non-trivial fp32 moments
     opt = adamw.init(params)
-    opt = adamw.OptState(opt.step + 7, M.map_tree(torch.randn_like, opt.mu),
+    opt = adamw.OptState(opt.step + 7, map_tree(torch.randn_like, opt.mu),
                          opt.nu)
     d = str(tmp_path)
     ckpt.save(d, 3, params, opt, extra={"arch": cfg.name})
@@ -73,14 +74,14 @@ def test_save_restore_roundtrip_bitwise(tmp_path):
     raw = (tmp_path / "step_00000003" / "params.bin").read_bytes()
     for key in ("embed", "expert_perm", "blocks/1/p0/moe/router"):
         e = man["leaves"]["params"][key]
-        t = M.flatten_tree(params)[key]
+        t = flatten_tree(params)[key]
         bits = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
         assert e["offset"] % ckpt.ALIGN == 0
         assert raw[e["offset"]:e["offset"] + e["nbytes"]] == \
             bits.numpy().tobytes(), key
     assert man["leaves"]["params"]["embed"]["dtype"] == "bfloat16"
     # the templates' dtypes win: an fp32 template restores bf16 values
-    p32 = ckpt.restore(d, 3, M.map_tree(
+    p32 = ckpt.restore(d, 3, map_tree(
         lambda t: t.float() if t.is_floating_point() else t, abs_p),
         device=CPU)[0]
     assert torch.equal(p32["embed"], params["embed"].float())

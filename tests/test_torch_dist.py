@@ -25,6 +25,7 @@ from repro_torch.configs.base import ARCHS
 from repro_torch.dist import collective_matmul as cm
 from repro_torch.dist import elastic as el
 from repro_torch.dist import partitioning as part
+from repro_torch.dist import dp_axes, dp_extent, tp_axes
 from repro_torch.kernels.worklist_core import (build_worklist,
                                                local_worklist,
                                                per_shard_steps,
@@ -34,6 +35,7 @@ from repro_torch.kernels.worklist_core import (build_worklist,
                                                worklist_spmm_padded_plain)
 from repro_torch.models import model as M
 from repro_torch.sparsity.conv import mesh_shard_assignment
+from repro_torch.tree import map_tree_with_path
 
 
 class _FakeMesh:
@@ -128,7 +130,7 @@ def _port_specs(tree, abs_params):
         out.append((tuple(ref_path), period, tuple(spec)))
         return spec
 
-    M.map_tree_with_path(walk, abs_params, tree)
+    map_tree_with_path(walk, abs_params, tree)
     return out
 
 
@@ -206,15 +208,15 @@ def test_cache_and_batch_specs_equal_to_reference(axes, name, max_len):
     assert tuple(part.batch_spec(mesh)) == tuple(r_part.batch_spec(mesh))
     assert tuple(part.image_batch_spec(mesh)) == \
         tuple(r_part.image_batch_spec(mesh))
-    assert part.dp_axes(mesh) == r_part.dp_axes(mesh)
-    assert part.tp_axes(mesh) == r_part.tp_axes(mesh)
+    assert dp_axes(mesh) == r_part.dp_axes(mesh)
+    assert tp_axes(mesh) == r_part.tp_axes(mesh)
 
 
 def test_partition_spec_entries():
     assert tuple(part.P("data", None)) == ("data", None)
     assert part.P(("pod", "data"), None)[0] == ("pod", "data")
-    assert part.dp_extent(_FakeMesh({"pod": 2, "data": 4, "model": 8})) == 8
-    assert part.dp_extent(_FakeMesh({"model": 8})) == 1
+    assert dp_extent(_FakeMesh({"pod": 2, "data": 4, "model": 8})) == 8
+    assert dp_extent(_FakeMesh({"model": 8})) == 1
 
 
 # ---------------------------------------------------------------------------

@@ -38,7 +38,7 @@ from repro.configs.base import load_smoke as r_load
 from repro.data.pipeline import batch_for as r_batch_for
 from repro.models import model as RM
 from repro_torch.convert import STACKS
-from repro_torch.models import model as M
+from repro_torch.tree import flatten_tree
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD = 8
@@ -287,15 +287,15 @@ def test_sharded_train_step_matches_solo_and_reference(runs, arch, mode):
     for k in ("loss", "ce", "grad_norm", "lr"):
         assert _rel(sh["metrics"][k], solo["metrics"][k]) <= TOL, k
         assert _rel(sh["metrics"][k], ref["metrics"][k]) <= TOL, k
-    grads = M.flatten_tree(sh["grads"])
-    solo_g = M.flatten_tree(solo["grads"])
+    grads = flatten_tree(sh["grads"])
+    solo_g = flatten_tree(solo["grads"])
     for key, g in grads.items():
         if g is None:                   # an integer leaf (expert_perm)
             continue
         assert _rel(g, solo_g[key]) <= TOL, key
         assert _rel(g, ref_leaf(ref["grads"], key)) <= TOL, key
-    for key, p in M.flatten_tree(sh["params"]).items():
-        for want, g_want in ((M.flatten_tree(solo["params"])[key],
+    for key, p in flatten_tree(sh["params"]).items():
+        for want, g_want in ((flatten_tree(solo["params"])[key],
                               solo_g[key]),
                              (ref_leaf(ref["params"], key),
                               ref_leaf(ref["grads"], key))):
@@ -339,8 +339,8 @@ def test_sharded_decode_matches_solo_and_reference(runs, arch, mode):
         assert _rel(rec["logits"]["sharded"][i], rec["logits"]["solo"][i]) \
             <= TOL, i
         assert _rel(rec["logits"]["sharded"][i], ref["logits"][i]) <= TOL, i
-    solo_c = M.flatten_tree(rec["solo_cache"])
-    for key, c in M.flatten_tree(rec["cache"]).items():
+    solo_c = flatten_tree(rec["solo_cache"])
+    for key, c in flatten_tree(rec["cache"]).items():
         assert c.shape == solo_c[key].shape, key
         if np.abs(solo_c[key]).max() == 0:
             assert np.abs(c).max() == 0, key

@@ -42,6 +42,7 @@ from repro_torch.dist import act_sharding as AS
 from repro_torch.dist import partitioning as part
 from repro_torch.launch import mesh as t_mesh
 from repro_torch.models import model as M
+from repro_torch.tree import flatten_tree
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD = 8
@@ -198,27 +199,27 @@ def test_sharded_step_matches_solo_and_reference(world, kind):
     for rank in range(1, WORLD):
         r = got[rank]["sharded"]
         assert r["metrics"] == rec["metrics"], rank
-        for key, v in M.flatten_tree(r["params"]).items():
-            assert np.array_equal(v, M.flatten_tree(rec["params"])[key]), \
+        for key, v in flatten_tree(r["params"]).items():
+            assert np.array_equal(v, flatten_tree(rec["params"])[key]), \
                 (rank, key)
     for want, where in ((solo["loss"], "solo"), (ref["loss"], "reference")):
         assert _rel(rec["loss"], want) <= TOL, where
     for k in ("loss", "ce", "grad_norm", "lr"):
         assert _rel(rec["metrics"][k], ref["metrics"][k]) <= TOL, k
         assert _rel(rec["metrics"][k], solo["metrics"][k]) <= TOL, k
-    grads = M.flatten_tree(rec["grads"])
+    grads = flatten_tree(rec["grads"])
     for key, g in grads.items():
-        assert _rel(g, M.flatten_tree(solo["grads"])[key]) <= TOL, key
+        assert _rel(g, flatten_tree(solo["grads"])[key]) <= TOL, key
         assert _rel(g, ref_leaf(ref["grads"], key)) <= TOL, key
-    for key, p in M.flatten_tree(rec["params"]).items():
-        for want, g_want in ((M.flatten_tree(solo["params"])[key],
-                              M.flatten_tree(solo["grads"])[key]),
+    for key, p in flatten_tree(rec["params"]).items():
+        for want, g_want in ((flatten_tree(solo["params"])[key],
+                              flatten_tree(solo["grads"])[key]),
                              (ref_leaf(ref["params"], key),
                               ref_leaf(ref["grads"], key))):
             g_err = np.abs(grads[key] - g_want).max()
             bound = TOL * np.abs(want).max() + LR_EPS * g_err * 1.01
             assert np.abs(p - want).max() <= bound, key
-        assert _rel(M.flatten_tree(rec["mu"])[key],
+        assert _rel(flatten_tree(rec["mu"])[key],
                     ref_leaf(ref["mu"], key)) <= TOL, key
 
 
@@ -240,7 +241,7 @@ def test_param_specs_on_the_world_equal_reference(world):
                                  shape={"data": 4, "model": 2})
     abs_p = M.abstract_params(t_base.load_smoke("qwen3_4b"))
     for kind, fsdp in (("tp_dp", False), ("fsdp", True)):
-        got = M.flatten_tree(part.param_shardings(stub, abs_p, fsdp=fsdp))
+        got = flatten_tree(part.param_shardings(stub, abs_p, fsdp=fsdp))
         for key, sh in got.items():
             want = ref_spec(ref[kind]["specs"], key)
             assert _trim(sh.spec) == want, (kind, key)
@@ -315,8 +316,8 @@ def test_train_on_the_mesh_resumes_and_matches_solo(world):
     assert losses["one"][2] == losses["resumed"][0]
     for a, b in zip(losses["one"], losses["solo"]):
         assert abs(a - b) <= TOL * abs(b)
-    for key, p in M.flatten_tree(r["params"]).items():
-        want = M.flatten_tree(r["solo_params"])[key]
+    for key, p in flatten_tree(r["params"]).items():
+        want = flatten_tree(r["solo_params"])[key]
         assert np.abs(p - want).max() <= 1e-3 * max(np.abs(want).max(),
                                                     1.0), key
     for rank in range(1, WORLD):
@@ -340,12 +341,12 @@ def test_moe_expert_parallel_step_matches_solo(world, fsdp):
     for k in ("loss", "ce", "moe_aux", "grad_norm"):
         assert abs(sh["metrics"][k] - solo["metrics"][k]) <= \
             TOL * max(abs(solo["metrics"][k]), 1e-3), k
-    grads, sg = M.flatten_tree(sh["grads"]), M.flatten_tree(solo["grads"])
+    grads, sg = flatten_tree(sh["grads"]), flatten_tree(solo["grads"])
     for key, g in grads.items():
         if g is not None:
             assert _rel(g, sg[key]) <= TOL, key
-    for key, p in M.flatten_tree(sh["params"]).items():
-        want = M.flatten_tree(solo["params"])[key]
+    for key, p in flatten_tree(sh["params"]).items():
+        want = flatten_tree(solo["params"])[key]
         if not np.issubdtype(p.dtype, np.floating):
             assert np.array_equal(p, want), key
             continue
@@ -408,11 +409,11 @@ def test_param_shardings_equal_reference_specs(arch, mesh_shape, fsdp):
                         is_leaf=lambda x: isinstance(x, jax.sharding
                                                      .PartitionSpec))
     abs_p = M.abstract_params(t_base.load_smoke(arch))
-    got = M.flatten_tree(part.param_shardings(stub, abs_p, fsdp=fsdp))
-    assert list(got) == list(M.flatten_tree(abs_p))
+    got = flatten_tree(part.param_shardings(stub, abs_p, fsdp=fsdp))
+    assert list(got) == list(flatten_tree(abs_p))
     for key, sh in got.items():
         assert _trim(sh.spec) == ref_spec(want, key), key
-        leaf = M.flatten_tree(abs_p)[key]
+        leaf = flatten_tree(abs_p)[key]
         assert sh.placements == part.placements(stub, sh.spec, leaf.shape)
 
 
@@ -424,7 +425,7 @@ def test_cache_shardings_equal_reference(world):
     cfg = t_base.load_smoke("qwen3_4b")
     cache = M.init_cache(cfg, 4, 64, device="meta")
     for b in (4, 2):
-        got = M.flatten_tree(part.cache_shardings(stub, cache, b))
+        got = flatten_tree(part.cache_shardings(stub, cache, b))
         want = world[0]["cache_specs"][b]
         for key, sh in got.items():
             _, pos, name = key.split("/")

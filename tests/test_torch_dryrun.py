@@ -51,6 +51,7 @@ from repro_torch.dist import partitioning as part
 from repro_torch.launch import dryrun as D
 from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models import model as M
+from repro_torch.tree import flatten_tree, map_tree
 from repro_torch.optim import adamw
 from repro_torch.train import train_step as T
 
@@ -102,7 +103,7 @@ if which == "rest":
             step(abs_p, adamw.init(abs_p), {"tokens": ids, "labels": ids})
         D.fake_world(4)
         mesh = make_debug_mesh(2, 2, device="cpu")
-        sp = M.map_tree(D._meta, abs_p, part.param_shardings(mesh, abs_p))
+        sp = map_tree(D._meta, abs_p, part.param_shardings(mesh, abs_p))
         probe = D.Probe()
         with probe:
             step(sp, adamw.init(sp), meta_batch(mesh, 8, 32))
@@ -111,11 +112,11 @@ if which == "rest":
         torch.distributed.destroy_process_group()
         D.fake_world(4)
         mesh = make_debug_mesh(1, 4, device="cpu")
-        sp = M.map_tree(D._meta, abs_p, part.param_shardings(mesh, abs_p))
+        sp = map_tree(D._meta, abs_p, part.param_shardings(mesh, abs_p))
         probe = Sizes()
         with probe:
             step(sp, adamw.init(sp), meta_batch(mesh, 8, 32))
-        leaves = [t.to_local() for t in M.flatten_tree(sp).values()
+        leaves = [t.to_local() for t in flatten_tree(sp).values()
                   if t.is_floating_point()]
         rec["dp_4x1"] = ("ok", {"log": probe.log, "leaf_bytes": [
             t.numel() * t.element_size() for t in leaves]})

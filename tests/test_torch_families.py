@@ -32,6 +32,7 @@ from repro_torch.models import model as M
 from repro_torch.serve import Request, Scheduler, generate, make_prefill_fn
 from repro_torch.sparsity import expert_balance as teb
 from repro_torch.sparsity.sparse_ffn import sparsify_model
+from repro_torch.tree import map_tree
 
 CPU = torch.device("cpu")
 TOL = 1e-5
@@ -106,8 +107,8 @@ def test_init_params_and_carry_over_match_reference(arch):
         assert len(own[stack]) == len(tp[stack]) == n
         for pk, bp in ref[stack].items():
             shapes = jax.tree.map(lambda a: tuple(a.shape[1:]), bp)
-            assert M.map_tree(lambda t: tuple(t.shape),
-                              own[stack][0][pk]) == shapes
+            assert map_tree(lambda t: tuple(t.shape),
+                            own[stack][0][pk]) == shapes
             for p in range(n):
                 flat = jax.tree_util.tree_flatten_with_path(bp)[0]
                 for path, leaf in flat:

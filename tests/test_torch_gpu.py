@@ -26,6 +26,7 @@ from repro_torch.kernels.sparse_conv import (CONV_GRID, sparse_conv_spmm,
 from repro_torch.kernels.worklist_core import (WALK, build_worklist,
                                                worklist_spmm,
                                                worklist_spmm_plain)
+from repro_torch.tree import flatten_tree, map_tree
 from repro_torch.vision import (VisionEngine, ImageRequest,
                                 build_vision_model, compile_forward,
                                 oracle_check)
@@ -293,7 +294,7 @@ def test_sparse_lm_serving_on_card(cuda):
         solo = Scheduler(cfg, params, num_slots=2, max_len=16).run(
             [Request(r.rid, r.prompt, r.max_new)])
         assert solo[r.rid] == got[r.rid]
-    cpu = M.map_tree(lambda t: t.cpu(), params)
+    cpu = map_tree(lambda t: t.cpu(), params)
     ref = Scheduler(cfg, cpu, num_slots=2, max_len=16).run(
         [Request(r.rid, r.prompt, r.max_new, r.arrival) for r in reqs])
     assert ref == got
@@ -430,7 +431,7 @@ def test_sparse_rwkv_serving_on_card(cuda):
         solo = Scheduler(cfg, params, num_slots=2, max_len=16).run(
             [Request(r.rid, r.prompt, r.max_new)])
         assert solo[r.rid] == got[r.rid]
-    cpu = M.map_tree(lambda t: t.cpu(), params)
+    cpu = map_tree(lambda t: t.cpu(), params)
     ref = Scheduler(cfg, cpu, num_slots=2, max_len=16).run(
         [Request(r.rid, r.prompt, r.max_new, r.arrival) for r in reqs])
     assert ref == got
@@ -1032,7 +1033,7 @@ def test_sparse_seamless_generate_on_card_equals_cpu(cuda):
                             num_shards=4)
     card = sparsify_model(M.init_params(cfg, seed=0, device="cpu"), cfg,
                           num_shards=4, strict=True)
-    card = M.map_tree(lambda t: t.to(cuda), card)
+    card = map_tree(lambda t: t.to(cuda), card)
     gen = torch.Generator().manual_seed(1)
     src = 0.02 * torch.randn((2, 8, cfg.d_model), generator=gen)
     prompt = torch.randint(1, cfg.vocab, (2, 6), generator=gen)
@@ -1061,7 +1062,7 @@ def _graph_lm(cuda, arch):
     params = M.init_params(cfg, seed=0, device="cpu")
     if cfg.sparse_ffn:
         params = sparsify_model(params, cfg, num_shards=4, strict=True)
-    return cfg, M.map_tree(lambda t: t.to(cuda), params)
+    return cfg, map_tree(lambda t: t.to(cuda), params)
 
 
 @pytest.mark.parametrize("arch", ["qwen3_4b", "rwkv6_3b",
@@ -1086,7 +1087,7 @@ def test_graphed_step_bitwise_eager_on_card(cuda, arch):
         cache = M.prefill_cache(params, cfg, cache,
                                 M.encode(params, src, cfg))
     last, cache = M.prefill(params, cfg, toks, cache)
-    eager = M.map_tree(torch.clone, cache)
+    eager = map_tree(torch.clone, cache)
     step = GraphedServeStep(cfg)
     tok = torch.argmax(last, -1)[:, None]
     for i in range(steps):
@@ -1355,7 +1356,7 @@ def test_train_step_on_card_matches_fp64(cuda):
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg, params, batch = _train_setup(cuda, "qwen3_4b", "float32")
     c64 = dataclasses.replace(cfg, dtype="float64")
-    p64 = M.map_tree(torch.Tensor.double, params)
+    p64 = map_tree(torch.Tensor.double, params)
     opt_cfg = adamw.AdamWConfig(warmup_steps=0)
     l32, _, g32 = loss_and_grads(params, batch, cfg)
     n32, _, m32 = make_train_step(cfg, opt_cfg)(params, adamw.init(params),
@@ -1363,22 +1364,22 @@ def test_train_step_on_card_matches_fp64(cuda):
     with promote_fp64():
         l64, _, g64 = loss_and_grads(p64, batch, c64, remat=False)
         n64, _, m64 = adamw.apply(opt_cfg, p64, g64, adamw.init(p64))
-        q64 = adamw.apply(opt_cfg, p64, M.map_tree(
+        q64 = adamw.apply(opt_cfg, p64, map_tree(
             lambda g: g.float().double(), g64), adamw.init(p64))[0]
-    q32 = adamw.apply(opt_cfg, params, M.map_tree(torch.Tensor.float, g64),
+    q32 = adamw.apply(opt_cfg, params, map_tree(torch.Tensor.float, g64),
                       adamw.init(params))[0]
 
     def rel(a, b):
         return float((a.double() - b).abs().max() / b.abs().max())
     assert rel(l32, l64) <= 1e-5
     assert rel(m32["grad_norm"], m64["grad_norm"]) <= 1e-5
-    fg32, fg64 = M.flatten_tree(g32), M.flatten_tree(g64)
+    fg32, fg64 = flatten_tree(g32), flatten_tree(g64)
     assert all(rel(fg32[k], fg64[k]) <= 1e-5 for k in fg64)
     assert all(rel(a, b) <= 1e-5 for a, b in zip(
-        M.flatten_tree(q32).values(), M.flatten_tree(q64).values()))
+        flatten_tree(q32).values(), flatten_tree(q64).values()))
     lr = float(m64["lr"])
-    for (k, a), b in zip(M.flatten_tree(n32).items(),
-                         M.flatten_tree(n64).values()):
+    for (k, a), b in zip(flatten_tree(n32).items(),
+                         flatten_tree(n64).values()):
         assert b.dtype == torch.float64
         g_err = float((fg32[k].double() - fg64[k]).abs().max())
         allow = 1e-5 * float(b.abs().max()) + lr * g_err / opt_cfg.eps
@@ -1397,7 +1398,7 @@ def test_train_step_deterministic_on_card(cuda, arch):
     before = (BITMASK_SPMM.launches, FUSED_FFN.launches)
     runs = [step(params, adamw.init(params), batch) for _ in range(2)]
     torch.cuda.synchronize()
-    fa, fb = M.flatten_tree(runs[0]), M.flatten_tree(runs[1])
+    fa, fb = flatten_tree(runs[0]), flatten_tree(runs[1])
     for k in fa:
         a, b = fa[k], fb[k]
         if a.dtype == torch.bfloat16:
@@ -1422,8 +1423,8 @@ def test_train_loop_restart_and_restore_on_card(cuda, tmp_path):
                 device=cuda)
     assert st.step == 6 and int(st.opt.step) == 6
     assert st.params["embed"].device.type == "cuda"
-    for a, b in zip(M.flatten_tree((st.params, st.opt)).values(),
-                    M.flatten_tree((one.params, one.opt)).values()):
+    for a, b in zip(flatten_tree((st.params, st.opt)).values(),
+                    flatten_tree((one.params, one.opt)).values()):
         if a.dtype == torch.bfloat16:
             a, b = a.view(torch.int16), b.view(torch.int16)
         assert torch.equal(a, b)
@@ -1438,7 +1439,7 @@ def test_train_loop_restart_and_restore_on_card(cuda, tmp_path):
 # admission, the sampled decode step and the FFN probe
 # ---------------------------------------------------------------------------
 def _bitwise_trees(a, b) -> bool:
-    fa, fb = M.flatten_tree(a), M.flatten_tree(b)
+    fa, fb = flatten_tree(a), flatten_tree(b)
     if list(fa) != list(fb):
         return False
     for k in fa:
@@ -1472,11 +1473,11 @@ def test_graphed_train_step_bitwise_eager_on_card(cuda, arch, microbatches):
     eager = make_train_step(cfg, opt_cfg, microbatches=microbatches,
                             donate=True)
     graphed = GraphedTrainStep(cfg, opt_cfg, microbatches=microbatches)
-    ep = M.map_tree(torch.clone, params)
+    ep = map_tree(torch.clone, params)
     eo = adamw.init(ep)
-    gp = M.map_tree(torch.clone, params)
+    gp = map_tree(torch.clone, params)
     go = adamw.init(gp)
-    ptrs = [t.data_ptr() for t in M.flatten_tree((gp, go)).values()]
+    ptrs = [t.data_ptr() for t in flatten_tree((gp, go)).values()]
     before = (BITMASK_SPMM.launches, FUSED_FFN.launches)
     for i in range(4):
         ep, eo, em = eager(ep, eo, batches[i])
@@ -1485,11 +1486,11 @@ def test_graphed_train_step_bitwise_eager_on_card(cuda, arch, microbatches):
         assert _bitwise_trees((gp, go, gm), (ep, eo, em)), i
     g, = graphed.graphs.values()
     assert g.replays == 3 and g.pool_bytes > 0
-    assert [t.data_ptr() for t in M.flatten_tree((gp, go)).values()] == ptrs
+    assert [t.data_ptr() for t in flatten_tree((gp, go)).values()] == ptrs
     # a restored state: other tensors of the same geometry, copied in
-    rp, ro = M.map_tree(torch.clone, ep), adamw.OptState(
-        eo.step.clone(), M.map_tree(torch.clone, eo.mu),
-        M.map_tree(torch.clone, eo.nu))
+    rp, ro = map_tree(torch.clone, ep), adamw.OptState(
+        eo.step.clone(), map_tree(torch.clone, eo.mu),
+        map_tree(torch.clone, eo.nu))
     ep, eo, em = eager(ep, eo, batches[4])
     gp, go, gm = graphed(rp, ro, batches[4])
     torch.cuda.synchronize()
@@ -1521,19 +1522,19 @@ def test_graphed_pruned_steps_and_compiled_loop_on_card(cuda, tmp_path):
     graphed = pruning.make_pruned_train_step(GraphedTrainStep(cfg, opt_cfg),
                                              masks)
     ep, eo = start, adamw.init(start)
-    gp = M.map_tree(torch.clone, start)
+    gp = map_tree(torch.clone, start)
     go = adamw.init(gp)
-    ptrs = [t.data_ptr() for t in M.flatten_tree(gp).values()]
+    ptrs = [t.data_ptr() for t in flatten_tree(gp).values()]
     for i in range(4):
         b = batch_for(cfg, shape, i, device=cuda)
         ep, eo, em = eager(ep, eo, b)
         gp, go, gm = graphed(gp, go, b)
         torch.cuda.synchronize()
         assert _bitwise_trees((gp, go, gm), (ep, eo, em)), i
-    assert [t.data_ptr() for t in M.flatten_tree(gp).values()] == ptrs
+    assert [t.data_ptr() for t in flatten_tree(gp).values()] == ptrs
     assert list(graphed.graphs.values())[0].replays == 3
-    M.map_tree(lambda p, m: None if m is None else
-               _assert(bool((p[m == 0] == 0).all())), gp, masks)
+    map_tree(lambda p, m: None if m is None else
+             _assert(bool((p[m == 0] == 0).all())), gp, masks)
     lc = TrainLoopConfig(steps=4, ckpt_every=2, ckpt_dir=str(tmp_path),
                          log_every=100)
     train(cfg, ShapeConfig("t", 32, 4, "train"), lc, device=cuda)
@@ -1563,10 +1564,10 @@ def test_graphed_admission_and_prefill_bitwise_eager_on_card(cuda):
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg, params = _graph_lm(cuda, "qwen3_4b")
     gen = torch.Generator(device=cuda).manual_seed(4)
-    cache = M.map_tree(lambda t: torch.randn(t.shape, generator=gen,
-                                             device=cuda).to(t.dtype),
-                       M.init_cache(cfg, 4, 16, device=cuda))
-    want = M.map_tree(torch.clone, cache)
+    cache = map_tree(lambda t: torch.randn(t.shape, generator=gen,
+                                           device=cuda).to(t.dtype),
+                     M.init_cache(cfg, 4, 16, device=cuda))
+    want = map_tree(torch.clone, cache)
     before = _tensors(cache)
     admit = GraphedAdmit(cfg, 16)
     rng = np.random.default_rng(1)
@@ -1653,7 +1654,7 @@ def test_sampled_graphed_step_bitwise_eager_on_card(cuda):
     eg, gg = (torch.Generator(device=cuda).manual_seed(9) for _ in range(2))
     step = GraphedServeStep(cfg, greedy=False)
     eager = make_serve_step(cfg, greedy=False)
-    ec, gc = M.map_tree(torch.clone, cache), M.map_tree(torch.clone, cache)
+    ec, gc = map_tree(torch.clone, cache), map_tree(torch.clone, cache)
     et = gt = torch.argmax(last, -1)[:, None]
     for i in range(6):
         pos = torch.full((B,), S + i, dtype=torch.long, device=cuda)
@@ -1809,8 +1810,8 @@ def test_two_rank_nccl_ring_on_cards(cuda, tmp_path):
 def _local(tree):
     """Each DTensor leaf's local tensor (plain leaves as they are)."""
     from torch.distributed.tensor import DTensor
-    return M.map_tree(lambda t: t.to_local() if isinstance(t, DTensor)
-                      else t, tree)
+    return map_tree(lambda t: t.to_local() if isinstance(t, DTensor)
+                    else t, tree)
 
 
 @pytest.mark.parametrize("arch", ["qwen3_4b", "moonshot_v1_16b_a3b"])
@@ -1848,9 +1849,9 @@ def test_one_rank_sharded_train_step_bitwise_solo_on_card(cuda, arch):
         got = make_train_step(cfg, opt_cfg)(sp, adamw.init(sp), on_mesh[0])
         torch.cuda.synchronize()
         assert _bitwise_trees(_local(got), solo)
-        flat = M.flatten_tree(p_sh)
+        flat = flatten_tree(p_sh)
         assert all(tuple(v.placements) == flat[k].placements
-                   for k, v in M.flatten_tree(got[0]).items())
+                   for k, v in flatten_tree(got[0]).items())
         eager = make_train_step(cfg, opt_cfg, donate=True)
         graphed = GraphedTrainStep(cfg, opt_cfg)
         ep = part.distribute_tree(params, p_sh)
@@ -1918,7 +1919,7 @@ def test_one_rank_sharded_serve_steps_bitwise_solo_on_card(cuda, arch):
                            cache)
             assert _bitwise_trees(_local((lm, cache)), (ls, solo))
             eager, graphed = make_serve_step(cfg), GraphedServeStep(cfg)
-            c_g = M.map_tree(torch.clone, cache)
+            c_g = map_tree(torch.clone, cache)
             ts = torch.argmax(ls, -1)[:, None]
             te = tg = part.distribute(ts, b2)
             for i in range(n):
@@ -1929,9 +1930,9 @@ def test_one_rank_sharded_serve_steps_bitwise_solo_on_card(cuda, arch):
                 torch.cuda.synchronize()
                 assert _bitwise_trees(_local((te, cache)), (ts, solo)), i
                 assert _bitwise_trees(_local((tg, c_g)), (ts, solo)), i
-        flat = M.flatten_tree(c_sh)
+        flat = flatten_tree(c_sh)
         assert all(tuple(v.placements) == flat[k].placements
-                   for k, v in M.flatten_tree(c_g).items())
+                   for k, v in flatten_tree(c_g).items())
         assert (BITMASK_SPMM.launches, FUSED_FFN.launches) == before
     finally:
         if started:
@@ -1971,9 +1972,9 @@ def test_mesh_and_solo_checkpoints_restart_bitwise_on_card(cuda, tmp_path):
         mp, mo, _ = ckpt.restore(s, 2, abs_p, abs_o, device=cuda,
                                  shardings=p_sh, opt_shardings=o_sh)
         assert _bitwise_trees(_local((mp, mo)), (p, o))
-        flat = M.flatten_tree(p_sh)
+        flat = flatten_tree(p_sh)
         assert all(tuple(v.placements) == flat[k].placements
-                   for k, v in M.flatten_tree(mp).items())
+                   for k, v in flatten_tree(mp).items())
     finally:
         if started:
             dist.destroy_process_group()

@@ -40,6 +40,7 @@ from repro_torch.models import model as M
 from repro_torch.serve import (GraphedServeStep, Request, Scheduler,
                                generate, make_serve_step)
 from repro_torch.sparsity.sparse_ffn import sparsify_model
+from repro_torch.tree import leaves, map_tree
 from repro_torch.vision import (build_vision_model, compile_forward,
                                 graphed_forward)
 
@@ -100,7 +101,7 @@ def _requests(cfg, cls, n=3, prompt_len=6, max_new=5, stagger=1):
 
 def _tree_equal(a, b):
     return all(torch.equal(x, y) for x, y in
-               zip(graphs.leaves(a), graphs.leaves(b)))
+               zip(leaves(a), leaves(b)))
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -124,8 +125,8 @@ def test_graphed_step_bitwise_eager_and_matches_reference(case):
     rl, rc = RM.prefill(rp, rcfg, jnp.asarray(toks), rc)
     tl, tc = M.prefill(tp, tcfg, _t(toks).long(), tc)
     assert _rel(tl, rl) <= TOL
-    eager_cache = M.map_tree(torch.clone, tc)
-    graph_cache = M.map_tree(torch.clone, tc)
+    eager_cache = map_tree(torch.clone, tc)
+    graph_cache = map_tree(torch.clone, tc)
     step = GraphedServeStep(tcfg)
     r_step = jitted_serve_step(rcfg, True)
     tok = torch.argmax(tl, -1)[:, None]
@@ -185,9 +186,9 @@ def test_scheduler_cache_written_in_place():
     them."""
     _, tcfg, _, tp = _models("qwen_wide")
     sch = Scheduler(tcfg, tp, num_slots=2, max_len=16, compiled=True)
-    before = graphs.leaves(sch.cache)
+    before = leaves(sch.cache)
     sch.run(_requests(tcfg, Request, n=3, max_new=4, stagger=2))
-    after = graphs.leaves(sch.cache)
+    after = leaves(sch.cache)
     assert all(a is b for a, b in zip(before, after))
     assert all(bool((t == 0).all()) for t in after)     # every lane freed
     prompt = _prompts(tcfg, 1, 5)[0]
@@ -196,11 +197,11 @@ def test_scheduler_cache_written_in_place():
     slot = int(np.nonzero(sch.slot_req == 9)[0][0])
     lane = M.init_cache(tcfg, 1, 16, device=CPU)
     _, lane = M.prefill(tp, tcfg, _t(prompt).long()[None], lane)
-    for big, one in zip(graphs.leaves(sch.cache), graphs.leaves(lane)):
+    for big, one in zip(leaves(sch.cache), leaves(lane)):
         assert torch.equal(big[slot], one[0])
         assert bool((big[slot, 5:] == 0).all())
         assert bool((big[1 - slot] == 0).all())
-    assert all(a is b for a, b in zip(before, graphs.leaves(sch.cache)))
+    assert all(a is b for a, b in zip(before, leaves(sch.cache)))
 
 
 def test_graphed_generate_samples_as_eager():
@@ -271,7 +272,7 @@ def test_rebound_params_leaf_gets_a_new_graph():
     for perm in (params["expert_perm"], params["expert_perm"].flip(0)):
         params["expert_perm"] = perm
         want, _ = M.decode_step(params, tcfg, toks[:, 4:5], cache, pos)
-        step(params, M.map_tree(torch.clone, cache), toks[:, 4:5], pos)
+        step(params, map_tree(torch.clone, cache), toks[:, 4:5], pos)
         assert torch.equal(step.last_logits, want[:, 0])
         logits.append(step.last_logits.clone())
     assert len(step.graphs) == 2
@@ -290,10 +291,10 @@ def test_captured_graph_on_cpu_calls_the_body():
     for _ in range(3):
         assert torch.equal(g(x, {"y": [y]}), x * 2 + y)
     assert len(calls) == 3 and g.replays == 0 and g.graph is None
-    assert [t.shape for t in graphs.leaves({"a": [x], "b": (y,)})] \
+    assert [t.shape for t in leaves({"a": [x], "b": (y,)})] \
         == [x.shape, y.shape]
     with pytest.raises(TypeError):
-        graphs.leaves({"a": 3})
+        leaves({"a": 3})
 
 
 def test_moe_expert_counts_equal_bincount():

@@ -201,8 +201,8 @@ LM_MESH_MODULES = ("repro_torch.dist.act_sharding", "repro_torch.launch.mesh",
 @pytest.mark.parametrize("first", LM_MESH_MODULES)
 def test_lm_mesh_modules_import_alone_no_jax(first):
     """The LM mesh modules (A8b), each imported first in a fresh process
-    (``models.model``, ``dist.partitioning`` and ``dist.act_sharding``
-    import one another), load neither JAX nor ``repro``; without a card
+    (``models.model`` imports ``dist.act_sharding``, which imports
+    ``dist.partitioning``), load neither JAX nor ``repro``; without a card
     the default debug mesh raises (NCCL, nothing falls back to gloo)."""
     probe = (f"import importlib, sys\nimportlib.import_module({first!r})\n"
              f"for m in {LM_MESH_MODULES!r}:\n"
@@ -273,3 +273,26 @@ def test_examples_default_to_the_card(name):
             "torch_quickstart": []}[name]
     with pytest.raises((AssertionError, RuntimeError)):
         mod.main(argv)
+
+
+CNN_MODULES = ("repro_torch.graphs", "repro_torch.vision.engine",
+               "repro_torch.vision.model", "repro_torch.sparsity.conv",
+               "repro_torch.analysis")
+LM_PACKAGES = ("models", "serve", "train", "optim", "ckpt", "launch")
+
+
+@pytest.mark.parametrize("module", CNN_MODULES)
+def test_cnn_path_imports_no_lm_and_no_dtensor(module):
+    """The CNN path's layers point one way: each entry module, imported
+    alone in a fresh process, loads neither DTensor
+    (``torch.distributed.tensor``) nor any LM package of the port."""
+    lm = tuple(f"repro_torch.{p}" for p in LM_PACKAGES)
+    probe = (f"import importlib, sys\nimportlib.import_module({module!r})\n"
+             "print(sorted(m for m in sys.modules if m == "
+             "'torch.distributed.tensor' or m in "
+             f"{lm!r} or m.startswith(tuple(p + '.' for p in {lm!r}))))")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout

@@ -30,6 +30,7 @@ from repro_torch.models import model as M
 from repro_torch.serve import (Request, Scheduler, generate,
                                make_prefill_fn, reset_slots)
 from repro_torch.sparsity.sparse_ffn import sparsify_model
+from repro_torch.tree import map_tree
 
 CPU = torch.device("cpu")
 CASES = ["qwen3_4b", "nemotron_4_340b", "qwen_wide"]
@@ -157,11 +158,11 @@ def test_init_params_shapes_and_seed():
     assert a["lm_head"].shape == ref["lm_head"].shape
     for pk, bp in ref["blocks"].items():
         shapes = jax.tree.map(lambda x: tuple(x.shape[1:]), bp)
-        got = M.map_tree(lambda t: tuple(t.shape), a["blocks"][0][pk])
+        got = map_tree(lambda t: tuple(t.shape), a["blocks"][0][pk])
         assert got == shapes
     assert all(torch.equal(x, y) for x, y in zip(
-        jax.tree.leaves(M.map_tree(lambda t: t, a)),
-        jax.tree.leaves(M.map_tree(lambda t: t, b))))
+        jax.tree.leaves(map_tree(lambda t: t, a)),
+        jax.tree.leaves(map_tree(lambda t: t, b))))
 
 
 # ---------------------------------------------------------------------------
@@ -282,7 +283,7 @@ def test_slot_hygiene_and_queue_checks():
         sch.submit(Request(0, np.arange(1, 14), 4))       # 13 + 4 > 16
     with pytest.raises(ValueError):
         sch.submit(Request(0, np.arange(1, 4), 0))
-    ones = M.map_tree(torch.ones_like, sch.cache)
+    ones = map_tree(torch.ones_like, sch.cache)
     out = reset_slots(ones, torch.tensor([False, True]))
     assert bool((out[0]["p0"]["k"][0] == 1).all())
     assert bool((out[0]["p0"]["k"][1] == 0).all())

@@ -19,11 +19,11 @@ from repro.sparsity import pruning as r_pruning
 from repro_torch.configs import base as t_base
 from repro_torch.convert import STACKS, params_from_reference
 from repro_torch.data.pipeline import batch_for
-from repro_torch.models import model as M
 from repro_torch.optim import adamw
 from repro_torch.sparsity import instrument as t_inst
 from repro_torch.sparsity import pruning as t_pruning
 from repro_torch.train.train_step import loss_and_grads, make_train_step
+from repro_torch.tree import map_tree, map_tree_with_path
 
 CPU = torch.device("cpu")
 MOE = "moonshot_v1_16b_a3b"
@@ -62,7 +62,7 @@ def masks_equal(tm, rm):
             assert m.dtype == torch.float32
             np.testing.assert_array_equal(m.numpy(), r)
             n += 1
-    M.map_tree_with_path(check, tm)
+    map_tree_with_path(check, tm)
     return n
 
 
@@ -103,14 +103,14 @@ def test_apply_masks_mask_gradients_and_report_equal_reference(arch):
     tm = t_pruning.prune_masks(tp, t_pruning.PruneConfig(**pc))
     rpm = r_pruning.apply_masks(rp, rm)
     tpm = t_pruning.apply_masks(tp, tm)
-    M.map_tree_with_path(lambda p, x: np.testing.assert_array_equal(
+    map_tree_with_path(lambda p, x: np.testing.assert_array_equal(
         x.numpy(), ref_leaf(rpm, p)), tpm)
     # the port's gradients: zero where pruned, untouched elsewhere
     batch = batch_for(tc, t_base.ShapeConfig("t", 16, 2, "train"), 0,
                       device=CPU)
     _, _, g = loss_and_grads(tp, batch, tc)
     tg = t_pruning.mask_gradients(g, tm)
-    M.map_tree_with_path(
+    map_tree_with_path(
         lambda path, x, g0, m: None if x is None else
         torch.testing.assert_close(x, g0 if m is None else g0 * m,
                                    rtol=0, atol=0), tg, g, tm)
@@ -118,12 +118,12 @@ def test_apply_masks_mask_gradients_and_report_equal_reference(arch):
         assert tg["expert_perm"] is None
     # masking alike: the masks applied to all-ones gradients in both
     rg = r_pruning.mask_gradients(jax.tree.map(jnp.ones_like, rp), rm)
-    ones = M.map_tree(lambda p: torch.ones_like(p)
-                      if p.is_floating_point() else None, tp)
-    M.map_tree_with_path(lambda p, x: None if x is None else
-                         np.testing.assert_array_equal(
+    ones = map_tree(lambda p: torch.ones_like(p)
+                    if p.is_floating_point() else None, tp)
+    map_tree_with_path(lambda p, x: None if x is None else
+                       np.testing.assert_array_equal(
                              x.numpy(), ref_leaf(rg, p)),
-                         t_pruning.mask_gradients(ones, tm))
+                       t_pruning.mask_gradients(ones, tm))
     # one density per period of each reference leaf, equal to its slice's
     rep = t_pruning.density_report(tp, tm)
     rrep = r_pruning.density_report(rp, rm)
@@ -159,7 +159,7 @@ def test_pruned_training_keeps_zeros():
         assert torch.all(p[mk == 0] == 0), path
         assert not torch.equal(p[mk == 1], p0[mk == 1]), path
         checked += 1
-    M.map_tree_with_path(check, params, start, masks)
+    map_tree_with_path(check, params, start, masks)
     assert checked == 6 and np.isfinite(float(m["loss"]))
 
 

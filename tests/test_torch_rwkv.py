@@ -28,6 +28,7 @@ from repro_torch.models import model as M
 from repro_torch.serve import Request, Scheduler, reset_slots
 from repro_torch.serve.engine import make_admit_fn
 from repro_torch.sparsity.sparse_ffn import sparse_ffn_apply, sparsify_model
+from repro_torch.tree import map_tree
 
 CPU = torch.device("cpu")
 ARCH = "rwkv6_3b"
@@ -87,9 +88,9 @@ def test_config_and_init_match_reference():
     for key, ref in rp["blocks"]["p0"].items():
         shapes = jax.tree.map(lambda a: (tuple(a.shape[1:]), str(a.dtype)),
                               ref)
-        got = M.map_tree(lambda t: (tuple(t.shape),
-                                    str(t.dtype).split(".")[-1]),
-                         mine["blocks"][0]["p0"][key])
+        got = map_tree(lambda t: (tuple(t.shape),
+                                  str(t.dtype).split(".")[-1]),
+                       mine["blocks"][0]["p0"][key])
         assert got == shapes, key
     # the fp32 leaves of a bf16 model stay fp32 across the carry-over
     bf = params_from_reference(jax.tree.map(
@@ -197,8 +198,8 @@ def test_no_stale_state_on_lane_reuse():
         alone = Scheduler(tcfg, tps, num_slots=1, max_len=10).run(
             [Request(r.rid, r.prompt, r.max_new)])
         assert alone[r.rid] == got[r.rid], r.rid
-    dirty = M.map_tree(torch.ones_like, M.init_cache(tcfg, 2, 10,
-                                                     device=CPU))
+    dirty = map_tree(torch.ones_like, M.init_cache(tcfg, 2, 10,
+                                                   device=CPU))
     prompt = torch.as_tensor(reqs[0].prompt[None]).long()
     _, cache = make_admit_fn(tcfg, 10)(tps, dirty, prompt, 0)
     _, lane = M.prefill(tps, tcfg, prompt, M.init_cache(tcfg, 1, 10,

@@ -24,6 +24,7 @@ from repro_torch.launch import train as t_launch
 from repro_torch.models import model as M
 from repro_torch.optim import adamw as A
 from repro_torch.train import train_step as T
+from repro_torch.tree import flatten_tree, map_tree, map_tree_with_path
 
 CPU = torch.device("cpu")
 TOL = 1e-5
@@ -52,7 +53,7 @@ def ref_leaf(tree, path):
 def worst(port_tree, ref_tree):
     """The largest per-leaf rel err of a port tree against the
     reference's (``None`` leaves skipped)."""
-    errs = M.flatten_tree(M.map_tree_with_path(
+    errs = flatten_tree(map_tree_with_path(
         lambda p, x: 0.0 if x is None else _rel(x.numpy(),
                                                 ref_leaf(ref_tree, p)),
         port_tree))
@@ -154,11 +155,11 @@ def test_moe_train_step_matches_reference():
     _, rg = ref_grads(MOE, tuple(perm.tolist()))
     _, _, tg = T.loss_and_grads(tp, tb, tc)
     lr = float(tm["lr"])
-    for key, p2 in M.flatten_tree(tp2).items():
+    for key, p2 in flatten_tree(tp2).items():
         if not p2.is_floating_point():
             continue
         path = tuple(int(s) if s.isdigit() else s for s in key.split("/"))
-        g_err = np.abs(M.flatten_tree(tg)[key].numpy()
+        g_err = np.abs(flatten_tree(tg)[key].numpy()
                        - ref_leaf(rg, path)).max()
         ref = ref_leaf(rp2, path)
         bound = TOL * np.abs(ref).max() + lr * g_err / cfg.eps * 1.01
@@ -193,8 +194,8 @@ def test_remat_is_bitwise_equal_to_no_remat(arch):
         l1, _, g1 = T.loss_and_grads(tp, tb, tc, remat=True,
                                      remat_group=group)
         assert torch.equal(l0, l1)
-        for a, b in zip(M.flatten_tree(g0).values(),
-                        M.flatten_tree(g1).values()):
+        for a, b in zip(flatten_tree(g0).values(),
+                        flatten_tree(g1).values()):
             assert (a is None and b is None) or torch.equal(a, b)
     with pytest.raises(ValueError, match="remat_group"):
         T.loss_and_grads(tp, tb, tc, remat_group=3)
@@ -207,15 +208,15 @@ def test_donated_step_is_bitwise_the_functional_one(arch):
     _, tc, _, tp, _, tb = setup(arch)
     cfg = A.AdamWConfig(warmup_steps=0)
     want = T.make_train_step(tc, cfg)(tp, A.init(tp), tb)
-    params = M.map_tree(torch.clone, tp)
+    params = map_tree(torch.clone, tp)
     opt = A.init(params)
-    ptrs = [t.data_ptr() for t in M.flatten_tree((params, opt.mu,
-                                                  opt.nu)).values()]
+    ptrs = [t.data_ptr() for t in flatten_tree((params, opt.mu,
+                                                opt.nu)).values()]
     got = T.make_train_step(tc, cfg, donate=True)(params, opt, tb)
-    assert [t.data_ptr() for t in M.flatten_tree(
+    assert [t.data_ptr() for t in flatten_tree(
         (got[0], got[1].mu, got[1].nu)).values()] == ptrs
-    for a, b in zip(M.flatten_tree(want).values(),
-                    M.flatten_tree(got).values()):
+    for a, b in zip(flatten_tree(want).values(),
+                    flatten_tree(got).values()):
         assert torch.equal(a, b)
 
 
@@ -237,8 +238,8 @@ def test_decay_skips_norms_and_integer_leaves():
     """Leaves the reference does not decay keep their value when the
     gradient is zero; decayed ones shrink."""
     _, tc, _, tp, _, _ = setup(MOE)
-    zeros = M.map_tree(lambda p: torch.zeros_like(p)
-                       if p.is_floating_point() else None, tp)
+    zeros = map_tree(lambda p: torch.zeros_like(p)
+                     if p.is_floating_point() else None, tp)
     cfg = A.AdamWConfig(warmup_steps=0, weight_decay=0.5)
     new, _, _ = A.apply(cfg, tp, zeros, A.init(tp))
     b = new["blocks"][0]["p0"]
@@ -276,8 +277,8 @@ def test_promote_fp64_runs_the_step_in_fp64():
     lands within fp32 rounding of the fp32 step."""
     _, tc, _, tp, _, tb = setup("qwen3_4b")
     c64 = dataclasses.replace(tc, dtype="float64")
-    p64 = M.map_tree(lambda p: p.double() if p.is_floating_point() else p,
-                     tp)
+    p64 = map_tree(lambda p: p.double() if p.is_floating_point() else p,
+                   tp)
     step = T.make_train_step(tc, A.AdamWConfig(warmup_steps=0))
     with T.promote_fp64():
         l64, _, g64 = T.loss_and_grads(p64, tb, c64, remat=False)
@@ -288,7 +289,7 @@ def test_promote_fp64_runs_the_step_in_fp64():
     n32, _, m32 = step(tp, A.init(tp), tb)
     assert abs(float(m32["loss"]) - float(l64)) <= 1e-5
     assert all(_rel(a.numpy(), b.numpy()) <= TOL for a, b in zip(
-        M.flatten_tree(n32).values(), M.flatten_tree(n64).values()))
+        flatten_tree(n32).values(), flatten_tree(n64).values()))
 
 
 # ---------------------------------------------------------------------------
@@ -336,15 +337,15 @@ def test_abstract_params_match_init_and_reference():
     reference's leaves, unstacked."""
     for arch in t_base.ARCHS:
         cfg = t_base.load_smoke(arch)
-        ab = M.flatten_tree(M.abstract_params(cfg))
-        real = M.flatten_tree(M.init_params(cfg, device=CPU))
+        ab = flatten_tree(M.abstract_params(cfg))
+        real = flatten_tree(M.init_params(cfg, device=CPU))
         assert list(ab) == list(real)
         for k, v in ab.items():
             assert v.device.type == "meta"
             assert (v.shape, v.dtype) == (real[k].shape, real[k].dtype), k
     full = M.abstract_params(t_base.load_config("qwen3_4b"))
     ref = RM.abstract_params(r_base.load_config("qwen3_4b"))
-    flat = M.flatten_tree(full)
+    flat = flatten_tree(full)
     n = 0
     for key, v in flat.items():
         path = tuple(int(s) if s.isdigit() else s for s in key.split("/"))

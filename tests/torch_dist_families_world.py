@@ -56,19 +56,20 @@ def _batch_on(batch, mesh):
     """The batch placed as the reference places it: [B, S] by
     ``batch_spec``, [B, S, D] by the batch over the data dims."""
     from repro_torch.dist import partitioning as part
+    from repro_torch.dist import dp_axes
     out = {}
     for k, v in batch.items():
         spec = part.batch_spec(mesh) if v.ndim == 2 else \
-            part.P(tuple(part.dp_axes(mesh)), None, None)
+            part.P(tuple(dp_axes(mesh)), None, None)
         out[k] = part.distribute(v, part.NamedSharding.of(mesh, spec))
     return out
 
 
 def _off(tree, shardings) -> list:
     """Keys of the leaves whose placements are not their shardings'."""
-    from repro_torch.models import model as M
-    want = M.flatten_tree(shardings)
-    return [k for k, t in M.flatten_tree(tree).items()
+    from repro_torch.tree import flatten_tree
+    want = flatten_tree(shardings)
+    return [k for k, t in flatten_tree(tree).items()
             if tuple(getattr(t, "placements", ())) != want[k].placements]
 
 

@@ -45,10 +45,10 @@ def _np(tree):
     """A tree's leaves as numpy (DTensors gathered first; a collective)."""
     import torch
     from repro_torch.dist.partitioning import gather_tree
-    from repro_torch.models import model as M
-    return M.map_tree(lambda t: None if t is None else
-                      t.detach().numpy() if isinstance(t, torch.Tensor)
-                      else t, gather_tree(tree))
+    from repro_torch.tree import map_tree
+    return map_tree(lambda t: None if t is None else
+                    t.detach().numpy() if isinstance(t, torch.Tensor)
+                    else t, gather_tree(tree))
 
 
 def _batch(ref, b: int):
@@ -72,10 +72,10 @@ def _sharded_step(ctx, *, fsdp=False, microbatches=1, batch_rows=4,
     weights and batch unless given others."""
     from repro_torch.dist import partitioning as part
     from repro_torch.launch.mesh import make_debug_mesh
-    from repro_torch.models import model as M
     from repro_torch.optim import adamw
     from repro_torch.train import train_step as T
     from repro_torch.train.loop import shardings
+    from repro_torch.tree import flatten_tree, map_tree
     cfg = cfg or ctx.cfg
     params = ctx.params if params is None else params
     batch = _batch(ctx.ref, batch_rows) if batch is None else batch
@@ -95,19 +95,19 @@ def _sharded_step(ctx, *, fsdp=False, microbatches=1, batch_rows=4,
             l_i, _, g = T.loss_and_grads(p, mb, cfg)
             g = adamw.reduce_grads(p, g)
             loss = loss + float(l_i) / microbatches
-            grads = M.map_tree(lambda x: None if x is None
-                               else x.float() / microbatches, g) \
-                if grads is None else M.map_tree(
+            grads = map_tree(lambda x: None if x is None
+                             else x.float() / microbatches, g) \
+                if grads is None else map_tree(
                     lambda a, x: None if x is None
                     else a + x.float() / microbatches, grads, g)
         rec["loss"], rec["grads"] = loss, _np(grads)
         p2, o2, m = step(p, adamw.init(p), b)
         if name == "sharded":
-            off = [k for k, v in M.flatten_tree(p2).items()
-                   if tuple(v.placements) != M.flatten_tree(p_sh)[k]
+            off = [k for k, v in flatten_tree(p2).items()
+                   if tuple(v.placements) != flatten_tree(p_sh)[k]
                    .placements]
-            off += [k for k, v in M.flatten_tree(o2.mu).items()
-                    if tuple(v.placements) != M.flatten_tree(o_sh.mu)[k]
+            off += [k for k, v in flatten_tree(o2.mu).items()
+                    if tuple(v.placements) != flatten_tree(o_sh.mu)[k]
                     .placements]
             assert not off, off
             rec["replicated_mismatch"] = _replicas_differ((p2, o2, m), mesh)
@@ -124,9 +124,9 @@ def _replicas_differ(tree, mesh) -> list:
     import torch
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor, Replicate
-    from repro_torch.models import model as M
+    from repro_torch.tree import flatten_tree
     bad = []
-    for key, t in M.flatten_tree(tree).items():
+    for key, t in flatten_tree(tree).items():
         if not isinstance(t, DTensor):
             continue
         local = t.to_local().contiguous()
@@ -285,8 +285,8 @@ def leg_checkpoints(ctx):
 
 
 def _bits_differ(a, b) -> list:
-    from repro_torch.models import model as M
-    fa, fb = M.flatten_tree(a), M.flatten_tree(b)
+    from repro_torch.tree import flatten_tree
+    fa, fb = flatten_tree(a), flatten_tree(b)
     return [k for k in fb if fa[k].dtype != fb[k].dtype
             or fa[k].tobytes() != fb[k].tobytes()]
 
